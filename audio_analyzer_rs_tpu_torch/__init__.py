@@ -1,0 +1,35 @@
+"""audio_analyzer_rs_tpu_torch — the PyTorch/CUDA port of audio_analyzer_rs_tpu.
+
+The JAX package beside it is the reference this port is held against; this
+package imports `torch` and never `jax`.  Plain tensor code is PyTorch, and
+each TPU (Pallas) kernel on the ported path is a hand-written Hopper kernel
+under `csrc/`, built with nvcc at first use (`_build.py`) and bound through
+ctypes.  Every kernel wrapper runs its plain PyTorch version for tensors on
+the CPU and launches its kernel (or raises) for tensors on a CUDA device.
+
+Layer map (mirrors the JAX package):
+  utils/framing      hop-strided framing (Tensor.unfold)
+  ops/fft, ops/stft  Hann × rDFT magnitude; the "dft" backend is kernel K1
+                     (ops/hopper_stft.py, csrc/stft.cu)
+  ops/noisefloor     per-bin noise-floor recurrence (plain torch)
+  ops/pitch          peaks, interpolation, the harmonic comb (kernel K2:
+                     ops/hopper_comb.py, csrc/comb.cu), gates, top-K, dedup
+  ops/tracker        the 24-slot PitchTracker scan (kernel K3:
+                     ops/hopper_tracker.py, csrc/tracker.cu)
+  models/analyzer    PitchAnalyzer (sequential streaming)
+  models/segmented   segment-parallel and batched offline pitch analysis
+  interop            JAX-package states (as numpy) <-> this package's states
+
+Every entry point takes `device` (default "cuda"); nothing picks the CPU on
+its own.
+"""
+
+import torch
+
+# Full-precision float32 products everywhere: reduced-precision GEMMs fail
+# the 1e-6 spectral fidelity gate.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+__version__ = "0.1.0"

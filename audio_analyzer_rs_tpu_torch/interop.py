@@ -1,0 +1,51 @@
+"""States carried across between the JAX package and this port.
+
+The JAX package's `NoiseFloorState` and `TrackerState` are NamedTuples of
+arrays; given as numpy arrays (with or without a leading stream axis S) they
+become this port's states on a device, and back.  Field names and order are
+the same in both packages, so a state converts leaf by leaf.  The system has
+no weights: its constant tables (Hann, rDFT trig) are rebuilt from the same
+numpy formulas on both sides.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .ops.noisefloor import NoiseFloorState
+from .ops.tracker import TrackerState
+
+_DTYPES = {
+    NoiseFloorState: (torch.float32, torch.float32, torch.float32, torch.bool),
+    TrackerState: (torch.float32, torch.float32, torch.int32, torch.bool,
+                   torch.int32, torch.int32),
+}
+
+
+def _to_torch(state, cls, device) -> NamedTuple:
+    fields = getattr(state, "_fields", None)
+    if fields != cls._fields:
+        raise ValueError(f"expected a state with fields {cls._fields}, got "
+                         f"{fields}")
+    return cls(*(torch.from_numpy(np.array(leaf)).to(device=device,
+                                                    dtype=dtype)
+                 for leaf, dtype in zip(state, _DTYPES[cls])))
+
+
+def noise_floor_state(state, device="cuda") -> NoiseFloorState:
+    """A JAX-package NoiseFloorState (leaves as numpy arrays) → this port's."""
+    return _to_torch(state, NoiseFloorState, device)
+
+
+def tracker_state(state, device="cuda") -> TrackerState:
+    """A JAX-package TrackerState (leaves as numpy arrays) → this port's."""
+    return _to_torch(state, TrackerState, device)
+
+
+def to_numpy(state: NamedTuple) -> NamedTuple:
+    """A port state → the same NamedTuple with numpy leaves; the JAX
+    package's class of the same name takes them as `Cls(*leaves)`."""
+    return type(state)(*(leaf.detach().cpu().numpy() for leaf in state))

@@ -1,0 +1,84 @@
+"""Real-FFT magnitudes (port of audio_analyzer_rs_tpu/ops/fft.py).
+
+Two backends:
+
+* ``fft`` — `torch.fft.rfft`, full spectrum (the full-spectrum default).
+* ``dft`` — frames @ an interleaved cos/-sin table, then the magnitude; with
+  `band`, only the first `band` bins.  On a CUDA tensor this is kernel K1
+  (ops/hopper_stft.py); on a CPU tensor its plain matmul version.
+
+The constant tables are built with the JAX module's own numpy formulas, so
+they are bit-equal to the reference's.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from . import hopper_stft
+
+DEFAULT_BACKEND = "fft"
+
+
+def hann_window(n: int) -> np.ndarray:
+    """Periodic Hann, exactly the reference's formula (ref stft.rs:641-648)."""
+    i = np.arange(n, dtype=np.float32)
+    x = i / np.float32(n)
+    return (np.float32(0.5) - np.float32(0.5)
+            * np.cos(np.float32(2.0) * np.float32(np.pi) * x)).astype(np.float32)
+
+
+@lru_cache(maxsize=8)
+def _rdft_trig(n: int) -> np.ndarray:
+    """[W, 2H] matrix with interleaved cos/-sin columns (built in float64)."""
+    half = n // 2 + 1
+    t = np.arange(n, dtype=np.float64)[:, None]
+    k = np.arange(half, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * t * k / n
+    trig = np.empty((n, 2 * half), dtype=np.float32)
+    trig[:, 0::2] = np.cos(ang)
+    trig[:, 1::2] = -np.sin(ang)
+    trig.flags.writeable = False
+    return trig
+
+
+@lru_cache(maxsize=16)
+def rdft_trig(n: int, device: torch.device) -> torch.Tensor:
+    """The [W, 2H] rDFT table on `device` (cached per device)."""
+    return torch.from_numpy(_rdft_trig(n).copy()).to(device)
+
+
+@lru_cache(maxsize=16)
+def hann(n: int, device: torch.device) -> torch.Tensor:
+    """The periodic Hann window on `device` (cached per device)."""
+    return torch.from_numpy(hann_window(n)).to(device)
+
+
+def dft_mag(frames: torch.Tensor, band: int | None = None,
+            window: torch.Tensor | None = None) -> torch.Tensor:
+    """[..., W] frames (× window) → [..., band] rDFT magnitudes."""
+    n = frames.shape[-1]
+    half = n // 2 + 1
+    if band is None or band >= half:
+        band = half
+    trig = rdft_trig(n, frames.device)[:, :2 * band]
+    return hopper_stft.dft_mag(frames, trig, window)
+
+
+def rfft_mag(frames: torch.Tensor, backend: str = DEFAULT_BACKEND,
+             band: int | None = None) -> torch.Tensor:
+    """Magnitude spectrum of real frames: [..., W] → [..., B] float32
+    (B = band, default W//2+1)."""
+    n = frames.shape[-1]
+    half = n // 2 + 1
+    if band is None or band >= half:
+        band = half
+    if backend == "fft":
+        mags = torch.fft.rfft(frames.float(), dim=-1).abs()
+        return mags if band == half else mags[..., :band]
+    if backend != "dft":
+        raise ValueError(f"backend={backend!r}: expected 'fft' or 'dft'")
+    return dft_mag(frames.float(), band)

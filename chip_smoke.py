@@ -45,12 +45,13 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, runs: int = TIMING_RUNS) -> float:
-    """Median CUDA-event time of fn() in ms, after one warm call."""
+def cuda_ms(fn) -> float:
+    """Median CUDA-event time of fn() in ms over TIMING_RUNS runs, after one
+    warm call."""
     import torch
     fn()
     times = []
-    for _ in range(runs):
+    for _ in range(TIMING_RUNS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -217,8 +218,7 @@ def main() -> int:
                 f"K3 {label} final {name} differs"
     k3_err = float((out_k[0] - out_p[0]).abs().max())
     k3_ms = cuda_ms(lambda: hopper_tracker.tracker_scan(st0, *main_raws))
-    k3_plain_ms = cuda_ms(lambda: tracker.tracker_scan_plain(st0, *main_raws),
-                          runs=5)
+    k3_plain_ms = cuda_ms(lambda: tracker.tracker_scan_plain(st0, *main_raws))
     say(f"K3 tracker S=128 N=64: bitwise equal on random and main-path raws "
         f"({int(out_k[2].sum())} stable slots); {k3_ms:.3f} ms vs plain "
         f"{k3_plain_ms:.3f} ms")

@@ -25,8 +25,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills on stderr, which build() returns.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,7 +75,7 @@ def library_path() -> Path:
     return BUILD_DIR / f"libaat_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(extra_flags: tuple[str, ...] = ()) -> tuple[Path, str]:
+def build() -> tuple[Path, str]:
     """Compile csrc/*.cu if the hashed library is missing.  Returns the
     library path and nvcc's stderr (empty when nothing was built).  Raises
     RuntimeError with nvcc's stderr on a failed build."""
@@ -82,7 +84,7 @@ def build(extra_flags: tuple[str, ...] = ()) -> tuple[Path, str]:
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
            *map(str, sources())]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

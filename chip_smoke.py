@@ -97,8 +97,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
 
-    from audio_analyzer_rs_tpu.models import generators as gen
     from audio_analyzer_rs_tpu_torch import _build
+    from audio_analyzer_rs_tpu_torch.models import generators as gen
     from audio_analyzer_rs_tpu_torch.models import segmented
     from audio_analyzer_rs_tpu_torch.models.analyzer import PitchAnalyzer
     from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_stft,
@@ -121,13 +121,13 @@ def main() -> int:
 
     # 2. Build every kernel from csrc/.
     t0 = time.perf_counter()
-    lib_path, log = _build.build(extra_flags=("-Xptxas", "-v"))
+    lib_path, log = _build.build()
     _build.lib()
     say(f"build: {time.perf_counter() - t0:.1f} s "
         f"({'nvcc ran' if log else 'cached'}) -> {lib_path.name}")
     for line in log.splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", file=sys.stderr)
+        if "entry function" in line or "Used" in line or "spill" in line:
+            say(f"  ptxas: {line.strip()}")
 
     # 3. Kernels against their plain versions at the main-path shapes.
     t0 = time.perf_counter()

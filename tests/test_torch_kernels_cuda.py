@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from audio_analyzer_rs_tpu.models import generators as gen
+from audio_analyzer_rs_tpu_torch.models import generators as gen
 from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_stft,
                                              hopper_tracker, noisefloor,
                                              pitch, tracker)

@@ -8,9 +8,9 @@ Agreement criteria:
 - decisions are exact: every stable slot's valid flag, frame by frame;
 - stable freqs and scores within rtol 1e-5 where valid;
 - frame agreement of the stable sets at 0.1 Hz (as tests/test_segmented.py
-  measures it): every frame agrees except where a stable freq lies within
-  rtol 1e-5 of a 0.05 Hz rounding boundary, i.e. where float32 rounding
-  alone moves the rounded value;
+  measures it): every frame agrees except the one known straddle, frame 881
+  of the 20 s scene (113.749985 Hz in the port, 113.75001 Hz in JAX), whose
+  freqs must also lie within rtol 1e-5 of a 0.05 Hz rounding boundary;
 - with the magnitudes equalized (the port's floor, extraction and tracker
   fed the JAX STFT), frame agreement at 0.1 Hz is exactly 100%: what is left
   of a difference comes from the STFT's summation order, which is precision
@@ -27,9 +27,9 @@ import numpy as np
 import pytest
 import torch
 
-from audio_analyzer_rs_tpu.models import generators as gen
 from audio_analyzer_rs_tpu.models import segmented as jseg
 from audio_analyzer_rs_tpu.models.analyzer import PitchAnalyzer as JaxAnalyzer
+from audio_analyzer_rs_tpu_torch.models import generators as gen
 from audio_analyzer_rs_tpu_torch.models import segmented as tseg
 from audio_analyzer_rs_tpu_torch.models.analyzer import PitchAnalyzer
 from audio_analyzer_rs_tpu_torch.ops import noisefloor, pitch, tracker
@@ -40,6 +40,7 @@ SR = 44100.0
 HALF = 1025
 GEOMETRY = dict(chunk_frames=64, warmup_frames=128)
 RTOL = 1e-5
+KNOWN_STRADDLES = {881}      # frames of the 20 s scene, see the docstring
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "audio_analyzer_rs_tpu_torch"
 
@@ -72,8 +73,9 @@ def _near_rounding_boundary(f):
     return np.abs(f * 10.0 - np.floor(f * 10.0) - 0.5) * 0.1 <= RTOL * f
 
 
-def _assert_agrees(got, ref):
-    """got/ref: (freqs, scores, valid) [N, 8] — see the module docstring."""
+def _assert_agrees(got, ref, straddles=frozenset()):
+    """got/ref: (freqs, scores, valid) [N, 8] — see the module docstring.
+    Only the frames in `straddles` may differ at 0.1 Hz."""
     (gf, gs, gv), (rf, rs, rv) = got, ref
     assert gf.shape == rf.shape and gv.shape == rv.shape
     np.testing.assert_array_equal(gv, rv)
@@ -82,19 +84,18 @@ def _assert_agrees(got, ref):
     np.testing.assert_allclose(gs[rv], rs[rv], rtol=RTOL)
     flips = [i for i in range(len(rf))
              if _rounded(gf, gv, i) != _rounded(rf, rv, i)]
+    assert set(flips) <= straddles, f"frames {flips} differ at 0.1 Hz"
     for i in flips:
         differ = np.round(gf[i][gv[i]], 1) != np.round(rf[i][rv[i]], 1)
         assert _near_rounding_boundary(rf[i][rv[i]][differ]).all(), (
             f"frame {i}: {gf[i][gv[i]]} vs {rf[i][rv[i]]} is not a 0.1 Hz "
             "rounding-boundary straddle")
-    return len(flips)
 
 
 def test_segmented_matches_jax(scene):
     got = tseg.segmented_pitch_analysis(scene["x"], SR, segments=2,
                                         device="cpu", **GEOMETRY)
-    flips = _assert_agrees(got, scene["seg"])
-    assert flips <= 1, flips     # measured: 1 of 1719 (frame 881, 113.75 Hz)
+    _assert_agrees(got, scene["seg"], KNOWN_STRADDLES)
 
 
 def test_pitch_analyzer_matches_jax(scene):
@@ -103,10 +104,10 @@ def test_pitch_analyzer_matches_jax(scene):
     np.testing.assert_array_equal(got.raw_valid, ref.raw_valid)
     np.testing.assert_allclose(got.mags, ref.mags, rtol=0,
                                atol=1e-5 * float(np.abs(ref.mags).max()))
-    flips = _assert_agrees(
+    _assert_agrees(
         (got.stable_freqs, got.stable_scores, got.stable_valid),
-        (ref.stable_freqs, ref.stable_scores, ref.stable_valid))
-    assert flips <= 1, flips
+        (ref.stable_freqs, ref.stable_scores, ref.stable_valid),
+        KNOWN_STRADDLES)
 
 
 def test_equalized_precision_agreement_is_100pct(scene):
@@ -139,7 +140,7 @@ def test_batch_matches_jax(scene):
                                               device="cpu", **GEOMETRY)
     assert len(got) == len(scene["batch"]) == 3
     for g, r in zip(got, scene["batch"]):
-        assert _assert_agrees(g, r) <= 1
+        _assert_agrees(g, r)
 
 
 def test_short_and_empty_inputs():
@@ -196,7 +197,7 @@ def test_cuda_device_raises_without_cuda():
 def test_port_runs_without_jax_in_a_fresh_process():
     code = (
         "import sys, numpy as np\n"
-        "from audio_analyzer_rs_tpu.models import generators as gen\n"
+        "from audio_analyzer_rs_tpu_torch.models import generators as gen\n"
         "from audio_analyzer_rs_tpu_torch.models.segmented import "
         "segmented_pitch_analysis\n"
         "x = gen.mixed_scene(3.0, 44100.0, seed=1)\n"
@@ -223,10 +224,8 @@ def _imported_names(path):
 
 
 def test_source_scan():
-    """No jax, no torch.compile, and from the JAX package only the two
-    jax-free host modules."""
-    allowed = ("audio_analyzer_rs_tpu.models.generators",
-               "audio_analyzer_rs_tpu.utils.wav")
+    """No jax, no torch.compile, and nothing of the JAX package, in the port
+    and in chip_smoke.py."""
     files = sorted(p for p in PORT.rglob("*.py")
                    if "_build" not in p.relative_to(PORT).parts)
     files.append(REPO / "chip_smoke.py")
@@ -234,8 +233,7 @@ def test_source_scan():
     for path in files:
         assert "torch.compile" not in path.read_text(), path
         for name in _imported_names(path):
-            assert name.split(".")[0] != "jax", (path, name)
-            if name.split(".")[0] == "audio_analyzer_rs_tpu":
-                assert name.startswith(allowed), (path, name)
+            assert name.split(".")[0] not in ("jax", "audio_analyzer_rs_tpu"), \
+                (path, name)
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == \
         ["comb.cu", "stft.cu", "tracker.cu"]

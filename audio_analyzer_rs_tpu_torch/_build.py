@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
 
-One nvcc call compiles every source for Hopper (sm_90a) into a shared
-library with a plain C interface, loaded with ctypes.  The library goes to
+Each source is compiled for Hopper (sm_90a) by its own nvcc, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ctypes.  The library goes to
 `_build/` beside this file, named by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads the cached build.  No
 `--use_fast_math`: the comb and tracker kernels rely on IEEE division and
@@ -28,18 +29,19 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and
 # spills on stderr, which build() returns.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of csrc/*.cu: pointers and the stream as void*, sizes as int.
 _SIGNATURES = {
     # frames, frame stride (outer, inner), frames per outer row, window or
-    # NULL, trig, trig row stride, out, n, width, band, stream
+    # NULL, split table, cols_pad, out, n, width, band, stream
     "aat_stft_mag": (_P, ctypes.c_longlong, ctypes.c_longlong, _I, _P, _P, _I,
                      _P, _I, _I, _I, _P),
-    # pm, frac, fund, score, longest_run, total_harms, n, kc, half, stream
-    "aat_comb": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # pm, frac, fund, score, longest_run, total_harms, n, kc, half, max_bin,
+    # stream
+    "aat_comb": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # raw freq/score/valid, onsets, state in (6), emissions (4), state out
     # (6), streams, frames, stream
     "aat_tracker_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -76,22 +78,44 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, str]:
-    """Compile csrc/*.cu if the hashed library is missing.  Returns the
-    library path and nvcc's stderr (empty when nothing was built).  Raises
-    RuntimeError with nvcc's stderr on a failed build."""
+    """Compile csrc/*.cu if the hashed library is missing: one nvcc a
+    source, run in parallel, then one link.  Returns the library path and
+    nvcc's stderr (empty when nothing was built).  Raises RuntimeError with
+    nvcc's stderr on a failed build."""
     path = library_path()
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, proc.stderr
+    tag = f"{path.stem}.{os.getpid()}"
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{err}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return path, "".join(logs)
 
 
 def lib() -> ctypes.CDLL:

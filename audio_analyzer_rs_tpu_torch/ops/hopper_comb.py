@@ -4,21 +4,27 @@ Replaces: audio_analyzer_rs_tpu/ops/pallas_comb.py `_comb_kernel` (launched
 by `comb_pallas`), the fused twin of ops/pitch.py `_comb_xla` that never
 compiled on the TPU (Mosaic rejects stride-n lane slices).
 
-What bounds it on an H100: neither bytes nor FLOPs.  At the main-path shape
-(8192 frames x kc = 464 candidates) it reads 3 x 15 MB and writes 3 x 15 MB
-(~14 us of HBM time at 3.35 TB/s) and does ~13 x 29 compare-selects per
-candidate (~44 M in all).  The limit is latency: each thread runs a serial
-dependent chain of 13 harmonics x up to 31 shared-memory loads, so the
-kernel lives on occupancy and shared-memory throughput (strided reads
-conflict on banks).
+What bounds it on an H100: bytes.  At the main-path shape (8192 frames x
+kc = 464 candidates) it reads pm, frac_c and fund_mag and writes score,
+longest_run and total_harms, 6 x 15.2 MB = 91.2 MB: 27 us at 3.35 TB/s.
+Scanning every offset -n-1..n+1 of every harmonic, as the reference does,
+is 247 compare-selects a candidate, 0.94 G at this shape.  Almost all of
+them read zeros: a harmonic's window [floor(e-1), ceil(e+1)] holds at most
+4 bins, and pm is zero at and above the 10 kHz cap `max_bin`, so only ~1,050
+of a frame's 6,032 (candidate, harmonic) pairs can find a peak.
 
-Design: one block per frame with the frame's zero-padded peak row staged
-once in shared memory (~26 KB at kc = 464), one thread per candidate, the
-reference's ascending first-maximum scan with IEEE-rounded products so the
-output is bit-exact to the plain `_comb` in ops/pitch.py.  Every candidate
-runs every harmonic (the plain version's truncation bounds skip only work
-whose result is the identity or a miss), which requires pm to be zero at
-and above the 10 kHz cap `max_bin`, as `_pre_comb` makes it.
+Design: one warp per frame, 8 frames a block, the frame's kc values of pm
+staged in shared memory with float4 loads, a lane per candidate.  Each
+harmonic scans only the window clipped to [0, max_bin - 1] and to the
+reference's offsets, ascending with a strict `>` (the first maximum wins);
+an empty window is a miss with no read; the first harmonic with e >= half
+(all later ones are identities) or with its window past max_bin (all later
+ones are misses) ends the candidate: ~1,070 live (candidate, harmonic)
+pairs a frame are left of 6,032.  Products and sums are IEEE-rounded
+(`__fmul_rn` / `__fadd_rn`) in the reference's order, so the output is
+bit-exact to the plain `_comb` in ops/pitch.py.  This requires pm
+to be zero at and above `max_bin` and fund_mag non-negative, as `_pre_comb`
+makes them.
 
 `comb` is the wrapper: the plain version for CPU tensors, the kernel for
 CUDA tensors (or it raises).
@@ -66,7 +72,7 @@ def comb(pm: torch.Tensor, frac_c: torch.Tensor, fund_mag: torch.Tensor,
     code = _build.lib().aat_comb(
         pm.data_ptr(), frac_c.data_ptr(), fund_mag.data_ptr(),
         score.data_ptr(), run.data_ptr(), tot.data_ptr(), n, kc, half,
-        ctypes.c_void_p(_build.stream_ptr(pm)))
+        max_bin, ctypes.c_void_p(_build.stream_ptr(pm)))
     _build.check(code, "aat_comb")
     global LAUNCHES
     LAUNCHES += 1

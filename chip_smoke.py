@@ -8,10 +8,16 @@ Phases, one line each on standard output:
   2. the build of csrc/*.cu (nvcc, sm_90a) and its time;
   3. each hand-written kernel against its plain PyTorch version on the card,
      at the shapes the main path gives it, with CUDA-event times (warm,
-     median of 20 runs):
+     median of 20 samples a turn, a kernel's sample the mean of 10
+     back-to-back launches; K1 and K2 in turns with their yardstick:
+     kernel, yardstick, kernel, yardstick) and the least time the card
+     could take (bound: the larger of bytes over 3.35 TB/s and operations
+     over the peak rate of their type):
        K1 stft  [128 streams x 64 frames x 2048] → 465 bins, max|Δ| <= 1e-5·max
-            (plus the float64 spectral gate, rel MSE < 1e-6);
-       K2 comb  [8192, 464] from real spectra, bitwise;
+            of cuBLAS FP32 (plus the float64 spectral gate, rel MSE < 1e-6);
+            yardstick: the cuBLAS FP32 product of the windowed frames;
+       K2 comb  [8192, 464] from real spectra, bitwise; yardstick: the plain
+            comb;
        K3 tracker S=128 x N=64, random raws and main-path raws, bitwise;
   4. the main path: `segmented_pitch_analysis` over a 30-minute mixed scene at
      the default geometry (128 segments x 64-frame chunks), cold then warm, with
@@ -37,17 +43,24 @@ REPO = Path(__file__).resolve().parent
 PKG = "audio_analyzer_rs_tpu_torch"
 SR = 44100.0
 TIMING_RUNS = 20
+KERNEL_REPS = 10       # back-to-back launches a timing sample (cuda_times)
 K1_REL_TOL = 1e-5
 MIN_AGREEMENT = 0.999
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+TF32_FLOPS = 495e12        # tensor cores
+FP32_FLOPS = 67e12         # CUDA cores
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn) -> float:
-    """Median CUDA-event time of fn() in ms over TIMING_RUNS runs, after one
-    warm call."""
+def cuda_times(fn, reps: int = 1) -> list[float]:
+    """CUDA-event times of fn() in ms, TIMING_RUNS samples after one warm
+    call.  Each sample brackets `reps` back-to-back calls with one pair of
+    events and divides by reps: with reps > 1 the card's time is measured,
+    not the host's launch overhead between an idle card's events."""
     import torch
     fn()
     times = []
@@ -55,11 +68,40 @@ def cuda_ms(fn) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        times.append(start.elapsed_time(end) / reps)
+    return times
+
+
+def cuda_ms(fn, reps: int = 1) -> float:
+    """Median of cuda_times(fn, reps)."""
+    return statistics.median(cuda_times(fn, reps))
+
+
+def in_turns(kernel, yardstick, yardstick_reps: int):
+    """Times kernel and yardstick in turns (kernel, yardstick, kernel,
+    yardstick) → (kernel ms, yardstick ms, the four turn medians); each ms
+    is the median of both of its turns' samples."""
+    k1, y1, k2, y2 = (cuda_times(f, r) for f, r in (
+        (kernel, KERNEL_REPS), (yardstick, yardstick_reps),
+        (kernel, KERNEL_REPS), (yardstick, yardstick_reps)))
+    return (statistics.median(k1 + k2), statistics.median(y1 + y2),
+            [statistics.median(t) for t in (k1, y1, k2, y2)])
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def random_raws(rng, s: int, n: int):
@@ -160,17 +202,34 @@ def main() -> int:
                                     amplitude=0.5)
     mse = spectral_rel_mse(probe, window, hop, device=dev)
     assert mse < FIDELITY_MAX_REL_MSE, mse
-    k1_ms = cuda_ms(lambda: hopper_stft.dft_mag(frames, trig, win))
+    windowed = (frames * win).reshape(-1, window).contiguous()
+    k1_ms, k1_lib_ms, k1_turns = in_turns(
+        lambda: hopper_stft.dft_mag(frames, trig, win),
+        lambda: torch.matmul(windowed, trig), KERNEL_REPS)
     k1_plain_ms = cuda_ms(lambda: hopper_stft.dft_mag_plain(frames, trig,
                                                             win))
+    n_frames, cols = windowed.shape[0], trig.shape[1]
+    k1_flops = 2 * n_frames * window * cols
+    span = (frames.shape[1] - 1) * frames.stride(1) + window
+    k1_bytes = (frames.shape[0] * span * 4 + nbytes(trig, win, mags))
+    k1_bound, k1_by = bound(k1_bytes, 3 * k1_flops, TF32_FLOPS)
     say(f"K1 stft {tuple(frames.shape)} -> {tuple(mags.shape)}: max|d| "
-        f"{k1_err:.3e} of max {k1_scale:.3e} (tol {K1_REL_TOL:g}x); "
-        f"spectral rel MSE {mse:.3e} (< {FIDELITY_MAX_REL_MSE:g}); "
-        f"{k1_ms:.3f} ms vs plain {k1_plain_ms:.3f} ms")
+        f"{k1_err:.3e} of max {k1_scale:.3e} vs cuBLAS FP32 (tol "
+        f"{K1_REL_TOL:g}x); spectral rel MSE {mse:.3e} (< "
+        f"{FIDELITY_MAX_REL_MSE:g}); {k1_ms:.3f} ms vs cuBLAS FP32 GEMM "
+        f"{k1_lib_ms:.3f} ms (turns kernel/cuBLAS/kernel/cuBLAS "
+        f"{'/'.join(f'{t:.3f}' for t in k1_turns)}), plain "
+        f"{k1_plain_ms:.3f} ms; bound {k1_bound:.3f} ms ({k1_by}: "
+        f"{3 * k1_flops / 1e9:.1f} GFLOP 3xTF32 at 495 TFLOP/s; "
+        f"{k1_bytes / 1e6:.1f} MB; FP32 FFMA floor "
+        f"{k1_flops / FP32_FLOPS * 1e3:.3f} ms)")
     rows.append(dict(name="K1 stft (windowed banded rDFT magnitude)",
                      route="cuda", source=f"{PKG}/csrc/stft.cu",
                      replaces="audio_analyzer_rs_tpu/ops/pallas_stft.py:52",
-                     max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms))
+                     max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
+                     bound_ms=k1_bound, bound_by=k1_by,
+                     library_ms=k1_lib_ms))
+    del windowed
 
     s_n = frames.shape[0] * frames.shape[1]
     flat = mags.reshape(s_n, -1)
@@ -188,15 +247,28 @@ def main() -> int:
     for g, r, name in zip(got, ref, ("score", "longest_run", "total_harms")):
         assert torch.equal(g, r), f"K2 {name} differs from the plain comb"
     k2_err = float((got[0] - ref[0]).abs().max())
-    k2_ms = cuda_ms(lambda: hopper_comb.comb(pm, frac, fund, half, max_bin))
-    k2_plain_ms = cuda_ms(lambda: pitch._comb(pm, frac, fund, half, max_bin))
+    k2_ms, k2_plain_ms, k2_turns = in_turns(
+        lambda: hopper_comb.comb(pm, frac, fund, half, max_bin),
+        lambda: pitch._comb(pm, frac, fund, half, max_bin), 1)
     n_peaks = int((pm > 0).sum())
-    say(f"K2 comb {tuple(pm.shape)} ({n_peaks} peaks): bitwise equal; "
-        f"{k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms")
+    # Operations: a (candidate k, harmonic n) pair runs while e = frac*n <
+    # half and n*(k-1) <= max_bin, and its window reads at most 4 bins.
+    harm = torch.arange(2, pitch.MAX_HARMONICS + 1, device=dev)
+    cand = torch.arange(pm.shape[1], device=dev)[:, None]
+    pairs = int(((frac[..., None] * harm < half)
+                 & (harm * (cand - 1) <= max_bin)).sum())
+    k2_bytes = nbytes(pm, frac, fund, *got)
+    k2_bound, k2_by = bound(k2_bytes, 4 * pairs, FP32_FLOPS)
+    say(f"K2 comb {tuple(pm.shape)} ({n_peaks} peaks, {pairs} live "
+        f"(candidate, harmonic) pairs): bitwise equal; {k2_ms:.3f} ms vs "
+        f"plain {k2_plain_ms:.3f} ms (turns kernel/plain/kernel/plain "
+        f"{'/'.join(f'{t:.3f}' for t in k2_turns)}); bound "
+        f"{k2_bound:.4f} ms ({k2_by}: {k2_bytes / 1e6:.1f} MB)")
     rows.append(dict(name="K2 comb (13-harmonic comb)", route="cuda",
                      source=f"{PKG}/csrc/comb.cu",
                      replaces="audio_analyzer_rs_tpu/ops/pallas_comb.py:56",
-                     max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms))
+                     max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
+                     bound_ms=k2_bound, bound_by=k2_by, library_ms=None))
 
     pf = pitch.extract_pitches(flat, eff.reshape(s_n, -1), bin_width,
                                true_half=half)
@@ -217,15 +289,23 @@ def main() -> int:
             assert torch.equal(getattr(st_k, name), getattr(st_p, name)), \
                 f"K3 {label} final {name} differs"
     k3_err = float((out_k[0] - out_p[0]).abs().max())
-    k3_ms = cuda_ms(lambda: hopper_tracker.tracker_scan(st0, *main_raws))
+    k3_ms = cuda_ms(lambda: hopper_tracker.tracker_scan(st0, *main_raws),
+                    KERNEL_REPS)
     k3_plain_ms = cuda_ms(lambda: tracker.tracker_scan_plain(st0, *main_raws))
+    # Bytes: raws, onsets, the state in and out, the emissions; the work is
+    # a dependent chain of 64 frames x 8 match rounds a stream, far below
+    # any rate's bound.
+    k3_bytes = (nbytes(*main_raws, *out_k) + 2 * nbytes(*st0))
+    k3_bound, k3_by = bound(k3_bytes, 0, FP32_FLOPS)
     say(f"K3 tracker S=128 N=64: bitwise equal on random and main-path raws "
         f"({int(out_k[2].sum())} stable slots); {k3_ms:.3f} ms vs plain "
-        f"{k3_plain_ms:.3f} ms")
+        f"{k3_plain_ms:.3f} ms; bound {k3_bound * 1e3:.2f} us ({k3_by}: "
+        f"{k3_bytes / 1e6:.2f} MB)")
     rows.append(dict(name="K3 tracker (batched PitchTracker scan)",
                      route="cuda", source=f"{PKG}/csrc/tracker.cu",
                      replaces="audio_analyzer_rs_tpu/ops/pallas_tracker.py:51",
-                     max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms))
+                     max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms,
+                     bound_ms=k3_bound, bound_by=k3_by, library_ms=None))
     del streams, chunk, frames, audio_dev
 
     # 4. The main path through the public entry points.

@@ -8,7 +8,8 @@ test configuration:
 
 Small shapes of the main path's kinds; chip_smoke.py repeats the checks at
 the full main-path shapes and times them.  Tolerances: K1 max |Δ| <= 1e-5 ·
-max (its sum order differs from cuBLAS's); K2 and K3 bitwise.
+max (3xTF32 on the tensor cores against cuBLAS FP32), and bitwise across
+batch geometries; K2 and K3 bitwise.
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_stft,
                                              pitch, tracker)
 from audio_analyzer_rs_tpu_torch.ops.fft import hann, rdft_trig
 from audio_analyzer_rs_tpu_torch.utils.framing import frame_signal
+from test_torch_comb_loop import edge_rows
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -62,6 +64,57 @@ def test_k1_matches_plain(dev, frames):
     # Geometry-independent: one frame alone gives the same bits.
     one = hopper_stft.dft_mag(frames[2, 5:6].contiguous(), trig, win)
     assert torch.equal(one[0], got[2, 5])
+
+
+def test_k1_is_geometry_independent(dev):
+    """The same frames give the same bits in batches of 1, 63, 64, 65 and
+    129 frames starting at other tile rows, as [N, W] views, as a
+    contiguous copy and as [S, F, W] views."""
+    x = torch.from_numpy(
+        gen.mixed_scene(5.0, SR, seed=4)
+        + gen.tone_with_harmonics(330.0, 5.0, SR, harmonics=6,
+                                  amplitude=0.3)).to(dev)
+    trig = rdft_trig(W, dev)[:, :2 * (KC + 1)]
+    win = hann(W, dev)
+    full = hopper_stft.dft_mag(frame_signal(x, W, HOP), trig, win)
+    starts = (0, 37, 200)
+    for b in (1, 63, 64, 65, 129):
+        for s in starts:
+            view = frame_signal(x[s * HOP:(s + b - 1) * HOP + W], W, HOP)
+            for frames in (view, view.contiguous()):
+                got = hopper_stft.dft_mag(frames, trig, win)
+                assert torch.equal(got, full[s:s + b]), (b, s)
+        streams = torch.stack([x[s * HOP:(s + b - 1) * HOP + W]
+                               for s in starts])
+        got = hopper_stft.dft_mag(frame_signal(streams, W, HOP), trig, win)
+        for i, s in enumerate(starts):
+            assert torch.equal(got[i], full[s:s + b]), (b, s)
+    ref = hopper_stft.dft_mag_plain(frame_signal(x, W, HOP), trig, win)
+    assert float((full - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_k1_refuses_misaligned_views(dev):
+    x = torch.zeros(40 * HOP + W, device=dev)
+    trig = rdft_trig(W, dev)[:, :2 * (KC + 1)]
+    win = hann(W, dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        hopper_stft.dft_mag(frame_signal(x[1:], W, HOP), trig, win)
+    with pytest.raises(ValueError, match="16-byte"):
+        hopper_stft.dft_mag(frame_signal(x, W, HOP - 2), trig, win)
+    streams = torch.zeros((3, 10 * HOP + W + 4), device=dev)[:, :-4]
+    hopper_stft.dft_mag(frame_signal(streams, W, HOP), trig, win)
+    odd = torch.zeros((3, 10 * HOP + W + 1), device=dev)[:, :-1]
+    with pytest.raises(ValueError, match="16-byte"):
+        hopper_stft.dft_mag(frame_signal(odd, W, HOP), trig, win)
+
+
+def test_k2_edge_rows_bitwise(dev):
+    pm, frac, fund = (torch.from_numpy(a).to(dev) for a in edge_rows())
+    got = hopper_comb.comb(pm, frac, fund, HALF, MAX_BIN)
+    ref = pitch._comb(pm, frac, fund, HALF, MAX_BIN)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
 
 
 def test_k2_matches_plain_bitwise(dev, frames):

@@ -14,8 +14,8 @@ Layer map (mirrors the JAX package):
   ops/noisefloor     per-bin noise-floor recurrence (plain torch)
   ops/pitch          peaks, interpolation, the harmonic comb (kernel K2:
                      ops/hopper_comb.py, csrc/comb.cu), gates, top-K, dedup
-  ops/tracker        the 24-slot PitchTracker scan (kernel K3:
-                     ops/hopper_tracker.py, csrc/tracker.cu)
+  ops/tracker        the 24-slot PitchTracker scan and its stable top-8
+                     (kernel K3: ops/hopper_tracker.py, csrc/tracker.cu)
   models/analyzer    PitchAnalyzer (sequential streaming)
   models/segmented   segment-parallel and batched offline pitch analysis
   interop            JAX-package states (as numpy) <-> this package's states

@@ -5,8 +5,8 @@ together, and the objects are linked into one shared library with a plain
 C interface, loaded with ctypes.  The library goes to
 `_build/` beside this file, named by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads the cached build.  No
-`--use_fast_math`: the comb and tracker kernels rely on IEEE division and
-keep denormals.
+`--use_fast_math`: the comb kernel relies on IEEE division, and the comb and
+tracker kernels keep denormals (both match their plain versions bitwise).
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` turns a non-zero code into an exception.
@@ -42,10 +42,10 @@ _SIGNATURES = {
     # pm, frac, fund, score, longest_run, total_harms, n, kc, half, max_bin,
     # stream
     "aat_comb": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # raw freq/score/valid, onsets, state in (6), emissions (4), state out
-    # (6), streams, frames, stream
-    "aat_tracker_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # raw freq/score/valid, onsets, state in (6), stable freq/score/valid,
+    # state out (6), streams, frames, stream
+    "aat_tracker_select": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -5,10 +5,11 @@ Display after 2 hits, max life 3, 3% frequency tolerance, EMA 0.6/0.4 (snap
 on onset), onset reaps unmatched tracks immediately.  MAX_TRACKS fixed
 slots per stream; creation order is a per-track sequence number.
 
-`tracker_scan_batched` runs S streams: kernel K3 (ops/hopper_tracker.py)
-for CUDA tensors, the plain loop over `_step` for CPU tensors.  The plain
-EMA is `freq*0.6 + raw*0.4` as separate rounded ops, which the kernel
-reproduces with __fmul_rn/__fadd_rn.
+`tracker_scan_batched` runs S streams and their stable top-8: kernel K3
+(ops/hopper_tracker.py), scan and `select_stable` in one launch, for CUDA
+tensors; the plain loop over `_step` and then `select_stable` for CPU
+tensors.  The plain EMA is `freq*0.6 + raw*0.4` as separate rounded ops,
+which the kernel reproduces with __fmul_rn/__fadd_rn.
 """
 
 from __future__ import annotations
@@ -151,11 +152,11 @@ def select_stable(freq, score, stable, seq):
 def tracker_scan_batched(state: TrackerState, raw_freqs, raw_scores,
                          raw_valid, onsets):
     """S streams: state leaves [S, T] / [S]; raw_* [S, N, 8], onsets [S, N]
-    → (state, (freqs, scores, valid) each [S, N, 8]).  Kernel K3 on CUDA
-    tensors, the plain loop on CPU tensors."""
-    state, (freq, score, stable, seq) = hopper_tracker.tracker_scan(
-        state, raw_freqs, raw_scores, raw_valid, onsets)
-    return state, select_stable(freq, score, stable, seq)
+    → (state, (freqs, scores, valid) each [S, N, 8]).  Kernel K3 (scan and
+    stable top-8 in one launch) on CUDA tensors; `tracker_scan_plain` and
+    `select_stable` on CPU tensors."""
+    return hopper_tracker.tracker_scan(state, raw_freqs, raw_scores,
+                                       raw_valid, onsets)
 
 
 def tracker_scan(state: TrackerState, raw_freqs, raw_scores, raw_valid,

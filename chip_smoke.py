@@ -18,10 +18,18 @@ Phases, one line each on standard output:
             yardstick: the cuBLAS FP32 product of the windowed frames;
        K2 comb  [8192, 464] from real spectra, bitwise; yardstick: the plain
             comb;
-       K3 tracker S=128 x N=64, random raws and main-path raws, bitwise;
+       K3 tracker scan + select_stable in one launch, bitwise (bit
+            patterns) to the plain scan + select_stable on random and
+            main-path raws at S=128 x N=64 and random raws and onsets at
+            S=1 x N=4096; timed on the main-path raws, on random raws at
+            S=128 x N=256 and on their first 64 frames, and at S=1 x
+            N=4096; the per-frame cost as the slope between those N=64 and
+            N=256 random raws (ns, and cycles at the SM clock nvidia-smi
+            reads);
   4. the main path: `segmented_pitch_analysis` over a 30-minute mixed scene at
      the default geometry (128 segments x 64-frame chunks), cold then warm, with
-     every kernel's launch count over the warm run; then
+     every kernel's launch count over the warm run (and no plain
+     select_stable call); then
      `segmented_pitch_analysis_batch` over 8 takes of 30 s;
   5. agreement: the sequential `PitchAnalyzer` on the first 5 minutes against
      the segmented run (segment 0 bitwise, >= 99.9% of frames).
@@ -44,6 +52,7 @@ PKG = "audio_analyzer_rs_tpu_torch"
 SR = 44100.0
 TIMING_RUNS = 20
 KERNEL_REPS = 10       # back-to-back launches a timing sample (cuda_times)
+HOST_AHEAD_CYCLES = 4_000_000   # ~2 ms of card time, > 10 wrapper calls
 K1_REL_TOL = 1e-5
 MIN_AGREEMENT = 0.999
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
@@ -59,14 +68,17 @@ def say(msg: str) -> None:
 def cuda_times(fn, reps: int = 1) -> list[float]:
     """CUDA-event times of fn() in ms, TIMING_RUNS samples after one warm
     call.  Each sample brackets `reps` back-to-back calls with one pair of
-    events and divides by reps: with reps > 1 the card's time is measured,
-    not the host's launch overhead between an idle card's events."""
+    events and divides by reps.  With reps > 1 the card first spins for
+    HOST_AHEAD_CYCLES, so the host has queued all reps calls before the
+    first runs: the events time the card, not the wrappers' host time."""
     import torch
     fn()
     times = []
     for _ in range(TIMING_RUNS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if reps > 1:
+            torch.cuda._sleep(HOST_AHEAD_CYCLES)
         start.record()
         for _ in range(reps):
             fn()
@@ -90,6 +102,14 @@ def in_turns(kernel, yardstick, yardstick_reps: int):
         (kernel, KERNEL_REPS), (yardstick, yardstick_reps)))
     return (statistics.median(k1 + k2), statistics.median(y1 + y2),
             [statistics.median(t) for t in (k1, y1, k2, y2)])
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit: floats compared as int32 patterns (-0.0 != 0.0)."""
+    import torch
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -277,35 +297,71 @@ def main() -> int:
                  torch.zeros((128, 64), dtype=torch.bool, device=dev))
     rnd = tuple(torch.from_numpy(a).to(dev)
                 for a in random_raws(np.random.default_rng(11), 128, 64))
+    rng3 = np.random.default_rng(12)
+    raws256 = tuple(torch.from_numpy(a).to(dev)
+                    for a in random_raws(rng3, 128, 256))
+    raws64 = tuple(r[:, :64].contiguous() for r in raws256)
+    raws4096 = tuple(torch.from_numpy(a).to(dev)
+                     for a in random_raws(rng3, 1, 4096))
     st0 = tracker.init_state(dev, (128,))
-    for label, raws in (("random", rnd), ("main-path", main_raws)):
-        st_k, out_k = hopper_tracker.tracker_scan(st0, *raws)
-        st_p, out_p = tracker.tracker_scan_plain(st0, *raws)
+    st1 = tracker.init_state(dev, (1,))
+
+    def k3_plain(st, raws):
+        st, emits = tracker.tracker_scan_plain(st, *raws)
+        return st, tracker.select_stable(*emits)
+
+    for label, st, raws in (("random", st0, rnd),
+                            ("main-path", st0, main_raws),
+                            ("S=1 N=4096", st1, raws4096)):
+        st_k, out_k = hopper_tracker.tracker_scan(st, *raws)
+        st_p, out_p = k3_plain(st, raws)
         torch.cuda.synchronize()
-        for name, g, r in zip(("freq", "score", "stable", "seq"), out_k,
-                              out_p):
-            assert torch.equal(g, r), f"K3 {label} {name} differs"
+        for name, g, r in zip(("freq", "score", "valid"), out_k, out_p):
+            assert same_bits(g, r), f"K3 {label} {name} differs"
         for name in tracker.TrackerState._fields:
-            assert torch.equal(getattr(st_k, name), getattr(st_p, name)), \
+            assert same_bits(getattr(st_k, name), getattr(st_p, name)), \
                 f"K3 {label} final {name} differs"
-    k3_err = float((out_k[0] - out_p[0]).abs().max())
+        if label == "main-path":
+            k3_err = float((out_k[0] - out_p[0]).abs().max())
+            k3_out = out_k
     k3_ms = cuda_ms(lambda: hopper_tracker.tracker_scan(st0, *main_raws),
                     KERNEL_REPS)
-    k3_plain_ms = cuda_ms(lambda: tracker.tracker_scan_plain(st0, *main_raws))
-    # Bytes: raws, onsets, the state in and out, the emissions; the work is
-    # a dependent chain of 64 frames x 8 match rounds a stream, far below
-    # any rate's bound.
-    k3_bytes = (nbytes(*main_raws, *out_k) + 2 * nbytes(*st0))
+    k3_ms64 = cuda_ms(lambda: hopper_tracker.tracker_scan(st0, *raws64),
+                      KERNEL_REPS)
+    k3_ms256 = cuda_ms(lambda: hopper_tracker.tracker_scan(st0, *raws256),
+                       KERNEL_REPS)
+    k3_ms4096 = cuda_ms(lambda: hopper_tracker.tracker_scan(st1, *raws4096),
+                        KERNEL_REPS)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    k3_plain_ms = cuda_ms(lambda: k3_plain(st0, main_raws))
+    slope_ns = (k3_ms256 - k3_ms64) / (256 - 64) * 1e6
+    slope_cycles = slope_ns * sm_mhz / 1e3
+    # Bytes: raws, onsets, the state in and out, the stable top-8 out; the
+    # work is a dependent chain of 64 frames x 8 match rounds a stream, far
+    # below any rate's bound.
+    k3_bytes = (nbytes(*main_raws, *k3_out) + 2 * nbytes(*st0))
     k3_bound, k3_by = bound(k3_bytes, 0, FP32_FLOPS)
-    say(f"K3 tracker S=128 N=64: bitwise equal on random and main-path raws "
-        f"({int(out_k[2].sum())} stable slots); {k3_ms:.3f} ms vs plain "
-        f"{k3_plain_ms:.3f} ms; bound {k3_bound * 1e3:.2f} us ({k3_by}: "
+    say(f"K3 tracker (scan + select_stable fused): bitwise equal to the plain "
+        f"scan + select_stable on random, main-path and S=1 N=4096 raws "
+        f"({int(k3_out[2].sum())} stable outputs on the main path); S=128 "
+        f"N=64 {k3_ms:.4f} ms on the main-path raws; random raws S=128 N=64 "
+        f"{k3_ms64:.4f} ms, N=256 {k3_ms256:.4f} ms, S=1 N=4096 "
+        f"{k3_ms4096:.4f} ms; per frame (N=64 -> 256) "
+        f"{slope_ns:.1f} ns = {slope_cycles:.0f} cycles at {sm_mhz:.0f} MHz; "
+        f"plain {k3_plain_ms:.3f} ms; bound {k3_bound * 1e3:.2f} us ({k3_by}: "
         f"{k3_bytes / 1e6:.2f} MB)")
-    rows.append(dict(name="K3 tracker (batched PitchTracker scan)",
+    rows.append(dict(name="K3 tracker (batched PitchTracker scan + "
+                     "select_stable)",
                      route="cuda", source=f"{PKG}/csrc/tracker.cu",
                      replaces="audio_analyzer_rs_tpu/ops/pallas_tracker.py:51",
                      max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms,
-                     bound_ms=k3_bound, bound_by=k3_by, library_ms=None))
+                     bound_ms=k3_bound, bound_by=k3_by, library_ms=None,
+                     ms_random_s128_n64=k3_ms64, ms_random_s128_n256=k3_ms256,
+                     ms_s1_n4096=k3_ms4096, per_frame_ns=slope_ns,
+                     per_frame_cycles=slope_cycles, sm_mhz=sm_mhz))
     del streams, chunk, frames, audio_dev
 
     # 4. The main path through the public entry points.
@@ -313,19 +369,24 @@ def main() -> int:
     t0 = time.perf_counter()
     sf, ss, sv = segmented.segmented_pitch_analysis(audio, SR)
     cold = time.perf_counter() - t0
+    plain_select, selects = tracker.select_stable, []
+    tracker.select_stable = lambda *a: selects.append(1) or plain_select(*a)
     for mod in counters:
         mod.LAUNCHES = 0
     t0 = time.perf_counter()
     sf, ss, sv = segmented.segmented_pitch_analysis(audio, SR)
     warm = time.perf_counter() - t0
     launches = [mod.LAUNCHES for mod in counters]
+    tracker.select_stable = plain_select
     assert all(n > 0 for n in launches), launches
+    assert not selects, f"{len(selects)} plain select_stable calls"
     assert sf.shape == ss.shape == sv.shape == (n_total, 8), sf.shape
     assert np.isfinite(sf).all() and np.isfinite(ss).all()
     assert sv.any(), "no stable pitch in 30 minutes of tones"
     say(f"main path: segmented_pitch_analysis 30 min ({n_total} frames): "
         f"cold {cold:.2f} s, warm {warm:.2f} s = {n_total / warm:,.0f} "
-        f"frames/s; launches K1/K2/K3 {launches}; "
+        f"frames/s; launches K1/K2/K3 {launches}, plain select_stable "
+        f"calls 0; "
         f"{int(sv.any(1).sum())} frames with a stable pitch")
     for row, n in zip(rows, launches):
         row["launches"] = n

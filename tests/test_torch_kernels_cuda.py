@@ -9,7 +9,8 @@ test configuration:
 Small shapes of the main path's kinds; chip_smoke.py repeats the checks at
 the full main-path shapes and times them.  Tolerances: K1 max |Δ| <= 1e-5 ·
 max (3xTF32 on the tensor cores against cuBLAS FP32), and bitwise across
-batch geometries; K2 and K3 bitwise.
+batch geometries; K2 and K3 bitwise (K3's floats as bit patterns, so -0.0
+and +0.0 differ).
 """
 
 import numpy as np
@@ -23,6 +24,9 @@ from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_stft,
 from audio_analyzer_rs_tpu_torch.ops.fft import hann, rdft_trig
 from audio_analyzer_rs_tpu_torch.utils.framing import frame_signal
 from test_torch_comb_loop import edge_rows
+from test_torch_tracker_select import _outside_state as outside_state
+from test_torch_tracker_select import _random_raws as k3_random_raws
+from test_torch_tracker_select import assert_same_bits
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -131,25 +135,88 @@ def test_k2_matches_plain_bitwise(dev, frames):
     assert int(got[2].sum()) > 0
 
 
+def _assert_k3_matches_plain(st0, raws):
+    """K3 (scan + stable top-8 in one launch) against tracker_scan_plain +
+    select_stable: outputs and final state, bit for bit."""
+    st_k, out_k = hopper_tracker.tracker_scan(st0, *raws)
+    st_p, emits = tracker.tracker_scan_plain(st0, *raws)
+    out_p = tracker.select_stable(*emits)
+    torch.cuda.synchronize()
+    s, n = raws[3].shape
+    assert all(o.shape == (s, n, 8) for o in out_k)
+    for a, b in zip((*out_k, *st_k), (*out_p, *st_p)):
+        assert_same_bits(a, b)
+    return st_k, out_k
+
+
+def _k3_raws(dev, s, n, seed=11, neg_zero=False):
+    return tuple(torch.from_numpy(a).to(dev) for a in
+                 k3_random_raws(np.random.default_rng(seed), s, n, neg_zero))
+
+
 @pytest.mark.parametrize("s,n", [(3, 40), (37, 17)])
 def test_k3_matches_plain_bitwise(dev, s, n):
-    rng = np.random.default_rng(11)
-    rf = rng.uniform(50.0, 2000.0, (s, n, 8)).astype(np.float32)
-    for i in range(1, n):
-        keep = rng.random((s, 8)) < 0.7
-        rf[:, i] = np.where(keep, rf[:, i - 1] * (1 + rng.normal(
-            0, 0.01, (s, 8)).astype(np.float32)), rf[:, i])
-    rs = rng.uniform(0.1, 5.0, (s, n, 8)).astype(np.float32)
-    rv = rng.random((s, n, 8)) < 0.6
-    on = rng.random((s, n)) < 0.08
-    raws = tuple(torch.from_numpy(a).to(dev) for a in (rf, rs, rv, on))
-    st0 = tracker.init_state(dev, (s,))
-    st_k, out_k = hopper_tracker.tracker_scan(st0, *raws)
-    st_p, out_p = tracker.tracker_scan_plain(st0, *raws)
-    torch.cuda.synchronize()
-    for a, b in zip((*out_k, *st_k), (*out_p, *st_p)):
-        assert torch.equal(a, b)
+    _, out_k = _assert_k3_matches_plain(tracker.init_state(dev, (s,)),
+                                        _k3_raws(dev, s, n))
     assert bool(out_k[2].any())
+
+
+@pytest.mark.parametrize("s,n", [(1, 4096), (133, 64), (5, 0), (4, 150)])
+def test_k3_shapes_bitwise(dev, s, n):
+    """One long stream (64 tiles), more streams than SMs, no frames, and a
+    partial last tile."""
+    launches = hopper_tracker.LAUNCHES
+    _assert_k3_matches_plain(tracker.init_state(dev, (s,)),
+                             _k3_raws(dev, s, n, seed=s + n))
+    assert hopper_tracker.LAUNCHES == launches + 1
+
+
+def test_k3_state_carry(dev):
+    """A state carried across two calls gives the bits of one call."""
+    s, n1, n2 = 6, 70, 90
+    raws = _k3_raws(dev, s, n1 + n2, seed=4)
+    st0 = tracker.init_state(dev, (s,))
+    st_a, out_a = hopper_tracker.tracker_scan(
+        st0, *(r[:, :n1].contiguous() for r in raws))
+    st_b, out_b = _assert_k3_matches_plain(
+        st_a, tuple(r[:, n1:].contiguous() for r in raws))
+    st_f, out_f = hopper_tracker.tracker_scan(st0, *raws)
+    torch.cuda.synchronize()
+    for a, b, f in zip(out_a, out_b, out_f):
+        assert_same_bits(torch.cat([a, b], 1), f)
+    for b, f in zip(st_b, st_f):
+        assert_same_bits(b, f)
+
+
+def test_k3_negative_zero_and_outside_states(dev):
+    """-0.0 raws, and states handed in that take the generic rounds."""
+    _assert_k3_matches_plain(tracker.init_state(dev, (3,)),
+                             _k3_raws(dev, 3, 90, seed=9, neg_zero=True))
+    rng = np.random.default_rng(13)
+    st = outside_state(rng, 4)
+    raws = k3_random_raws(rng, 4, 80)
+    raws[0][:, :3, :8] = st.freq[:, None, :8]
+    _assert_k3_matches_plain(
+        tracker.TrackerState(*(torch.from_numpy(a).to(dev) for a in st)),
+        tuple(torch.from_numpy(a).to(dev) for a in raws))
+
+
+def test_k3_batched_calls_no_plain_select(dev, monkeypatch):
+    """On CUDA tensors tracker_scan_batched is the one fused launch."""
+    raws = _k3_raws(dev, 8, 64)
+    st0 = tracker.init_state(dev, (8,))
+    want = tracker.tracker_scan_batched(st0, *raws)
+
+    def refuse(*args):
+        raise AssertionError("select_stable ran on the CUDA path")
+
+    monkeypatch.setattr(tracker, "select_stable", refuse)
+    launches = hopper_tracker.LAUNCHES
+    got = tracker.tracker_scan_batched(st0, *raws)
+    torch.cuda.synchronize()
+    assert hopper_tracker.LAUNCHES == launches + 1
+    for a, b in zip((*got[1], *got[0]), (*want[1], *want[0])):
+        assert_same_bits(a, b)
 
 
 def test_noise_floor_device_matches_cpu(dev, frames):

@@ -145,6 +145,8 @@ def test_k3_wrapper_takes_plain_version_on_cpu():
     before = hopper_tracker.LAUNCHES
     st_k, out_k = hopper_tracker.tracker_scan(st0, *raws)
     assert hopper_tracker.LAUNCHES == before
-    st_p, out_p = ttr.tracker_scan_plain(st0, *raws)
+    st_p, emits = ttr.tracker_scan_plain(st0, *raws)
+    out_p = ttr.select_stable(*emits)
+    assert out_k[0].shape == (2, 6, 8)
     for a, b in zip((*out_k, *st_k), (*out_p, *st_p)):
         assert torch.equal(a, b)

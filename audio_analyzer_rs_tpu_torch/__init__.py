@@ -8,16 +8,23 @@ ctypes.  Every kernel wrapper runs its plain PyTorch version for tensors on
 the CPU and launches its kernel (or raises) for tensors on a CUDA device.
 
 Layer map (mirrors the JAX package):
+  analysis           analyze_buffer (sequential) and analyze_buffer_segmented
+                     (bulk): per-frame features, pitches and onsets
   utils/framing      hop-strided framing (Tensor.unfold)
   ops/fft, ops/stft  Hann × rDFT magnitude; the "dft" backend is kernel K1
-                     (ops/hopper_stft.py, csrc/stft.cu)
+                     (ops/hopper_stft.py, csrc/stft.cu); rfft_complex/irfft
   ops/noisefloor     per-bin noise-floor recurrence (plain torch)
   ops/pitch          peaks, interpolation, the harmonic comb (kernel K2:
                      ops/hopper_comb.py, csrc/comb.cu), gates, top-K, dedup
   ops/tracker        the 24-slot PitchTracker scan and its stable top-8
                      (kernel K3: ops/hopper_tracker.py, csrc/tracker.cu)
-  models/analyzer    PitchAnalyzer (sequential streaming)
-  models/segmented   segment-parallel and batched offline pitch analysis
+  ops/onset          the spectral-flux onset recurrence (kernel K4:
+                     ops/hopper_onset.py, csrc/onset.cu)
+  ops/features       RMS, energy, centroid, rolloff, flux (plain torch)
+  ops/yin            YIN f0 from an FFT autocorrelation (plain torch)
+  models/analyzer    PitchAnalyzer and OnsetAnalyzer (sequential streaming)
+  models/segmented   segment-parallel and batched offline pitch and onset
+                     analysis
   interop            JAX-package states (as numpy) <-> this package's states
 
 Every entry point takes `device` (default "cuda"); nothing picks the CPU on
@@ -33,3 +40,23 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
+
+_EXPORTS = {
+    "analysis": ("analyze_buffer", "analyze_buffer_segmented",
+                 "AnalysisResult", "AnalysisArrays", "FrameFeatures"),
+    "models.segmented": ("segmented_pitch_analysis",
+                         "segmented_onset_analysis",
+                         "segmented_pitch_analysis_batch",
+                         "segmented_onset_analysis_batch"),
+    "models.analyzer": ("PitchAnalyzer", "OnsetAnalyzer"),
+}
+
+
+def __getattr__(name):
+    # Lazy re-exports of the public surface, as the JAX package has them.
+    import importlib
+    for module, names in _EXPORTS.items():
+        if name in names:
+            return getattr(importlib.import_module(f".{module}", __name__),
+                           name)
+    raise AttributeError(name)

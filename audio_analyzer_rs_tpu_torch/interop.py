@@ -1,11 +1,11 @@
 """States carried across between the JAX package and this port.
 
-The JAX package's `NoiseFloorState` and `TrackerState` are NamedTuples of
-arrays; given as numpy arrays (with or without a leading stream axis S) they
-become this port's states on a device, and back.  Field names and order are
-the same in both packages, so a state converts leaf by leaf.  The system has
-no weights: its constant tables (Hann, rDFT trig) are rebuilt from the same
-numpy formulas on both sides.
+The JAX package's `NoiseFloorState`, `TrackerState` and `OnsetState` are
+NamedTuples of arrays; given as numpy arrays (with or without a leading
+stream axis S) they become this port's states on a device, and back.  Field
+names and order are the same in both packages, so a state converts leaf by
+leaf.  The system has no weights: its constant tables (Hann, rDFT trig) are
+rebuilt from the same numpy formulas on both sides.
 """
 
 from __future__ import annotations
@@ -16,12 +16,15 @@ import numpy as np
 import torch
 
 from .ops.noisefloor import NoiseFloorState
+from .ops.onset import OnsetState
 from .ops.tracker import TrackerState
 
 _DTYPES = {
     NoiseFloorState: (torch.float32, torch.float32, torch.float32, torch.bool),
     TrackerState: (torch.float32, torch.float32, torch.int32, torch.bool,
                    torch.int32, torch.int32),
+    OnsetState: (torch.float32, torch.float32, torch.bool, torch.float32,
+                 torch.float32, torch.int32),
 }
 
 
@@ -43,6 +46,11 @@ def noise_floor_state(state, device="cuda") -> NoiseFloorState:
 def tracker_state(state, device="cuda") -> TrackerState:
     """A JAX-package TrackerState (leaves as numpy arrays) → this port's."""
     return _to_torch(state, TrackerState, device)
+
+
+def onset_state(state, device="cuda") -> OnsetState:
+    """A JAX-package OnsetState (leaves as numpy arrays) → this port's."""
+    return _to_torch(state, OnsetState, device)
 
 
 def to_numpy(state: NamedTuple) -> NamedTuple:

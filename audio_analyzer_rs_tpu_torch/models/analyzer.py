@@ -1,10 +1,12 @@
-"""Pitch analyzer pipeline (port of the pitch half of
-audio_analyzer_rs_tpu/models/analyzer.py; ref src/audio_io/stft.rs:155-441).
+"""Pitch and onset analyzer pipelines (port of the offline halves of
+audio_analyzer_rs_tpu/models/analyzer.py; ref src/audio_io/stft.rs:155-441,
+src/analysis/onset.rs:104-546).
 
-frame → Hann × rDFT magnitude (K1) → per-bin noise-floor scan → harmonic-
-comb pitch extraction (K2) → PitchTracker scan (K3).  The functions take an
-optional leading stream axis S: state leaves [S, ...], frames [S, N, W],
-per-frame inputs [S, N].
+Pitch: frame → Hann × rDFT magnitude (K1) → per-bin noise-floor scan →
+harmonic-comb pitch extraction (K2) → PitchTracker scan (K3).  Onset:
+frame → Hann × FFT magnitude (cuFFT) → onset scan (K4).  The functions take
+a leading stream axis S: state leaves [S, ...], frames [S, N, W], per-frame
+inputs [S, N].
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops import noisefloor, pitch as pitch_ops, tracker
-from ..ops.stft import PITCH_BACKEND, PITCH_HOP, PITCH_WINDOW, windowed_mags
+from ..ops import noisefloor, onset as onset_ops, pitch as pitch_ops, tracker
+from ..ops.stft import (DEFAULT_BACKEND, ONSET_HOP, ONSET_WINDOW,
+                        PITCH_BACKEND, PITCH_HOP, PITCH_WINDOW, windowed_mags)
 from ..utils.framing import frame_signal, num_frames
 
 
@@ -133,4 +136,89 @@ class PitchAnalyzer:
                 self.hop, self.backend)
             outs.append(out)
         return PitchChunkOut(*(torch.cat(parts, 1)[0].cpu().numpy()
+                               for parts in zip(*outs)))
+
+
+class OnsetChunkOut(NamedTuple):
+    fired: torch.Tensor          # [..., N] bool
+    detected: torch.Tensor       # [..., N] bool
+    velocity: torch.Tensor       # [..., N] float32
+    flux: torch.Tensor           # [..., N] float32
+    energy: torch.Tensor         # [..., N] float32
+    burst_count: torch.Tensor    # [..., N] int32
+    energy_rising: torch.Tensor  # [..., N] bool
+    frames_since: torch.Tensor   # [..., N] int32
+
+
+def onset_analyze_frames(state, frames, global_floor, tick_suppressed,
+                         calibration_hold=None, window: int = ONSET_WINDOW,
+                         backend: str = DEFAULT_BACKEND):
+    """Frames [S, N, window] → (state, OnsetChunkOut [S, N]): the windowed
+    magnitudes (backend "fft": torch.fft, cuFFT on the card, as the JAX
+    package uses jnp.fft), then the onset scan (K4 on CUDA tensors)."""
+    mags = windowed_mags(frames, window, backend=backend)
+    state, out = onset_ops.onset_scan(state, mags, global_floor,
+                                      tick_suppressed, calibration_hold)
+    return state, OnsetChunkOut(*out)
+
+
+@dataclass
+class OnsetAnalyzer:
+    """Streaming onset detection (window 256 / hop 64).  State lives on
+    `device`; each call uploads its samples once and reads the outputs back
+    once."""
+    sample_rate: float
+    window: int = ONSET_WINDOW
+    hop: int = ONSET_HOP
+    backend: str = DEFAULT_BACKEND
+    device: str = "cuda"
+    # Frames per device call; longer inputs are split with the state carried
+    # (the scan makes the results identical).  Onset arrays are [n, 129], so
+    # the bound is looser than PitchAnalyzer's.
+    max_chunk_frames: int = 131072
+    _tail: np.ndarray = field(default_factory=lambda: np.zeros(0, np.float32))
+
+    def __post_init__(self):
+        self.reset()
+
+    def reset(self):
+        self._tail = np.zeros(0, np.float32)
+        self.state = onset_ops.init_state(self.window // 2 + 1, self.device,
+                                          (1,))
+        self.frames_consumed = 0
+
+    def process(self, samples: np.ndarray, global_floor_db: float = -96.0,
+                tick_suppressed: Optional[np.ndarray] = None,
+                calibration_hold: bool = False):
+        """Feed a chunk; returns per-frame outputs as numpy arrays (an
+        OnsetChunkOut with [n] leaves), or None when no frame completed.
+        `tick_suppressed`: optional [n_frames] bool; `calibration_hold`
+        applies to every frame of the chunk."""
+        buf = np.concatenate([self._tail, np.asarray(samples, np.float32)])
+        n = num_frames(len(buf), self.window, self.hop)
+        if n == 0:
+            self._tail = buf
+            return None
+        self._tail = buf[n * self.hop:]
+        half = self.window // 2 + 1
+        gf_lin = float(noisefloor.global_floor_linear(global_floor_db, half))
+        ts = (np.zeros(n, bool) if tick_suppressed is None
+              else np.asarray(tick_suppressed, bool)[:n])
+        buf_dev = torch.from_numpy(buf).to(self.device)
+        ts_dev = torch.from_numpy(np.ascontiguousarray(ts)).to(self.device)
+        outs = []
+        for c0 in range(0, n, self.max_chunk_frames):
+            c1 = min(c0 + self.max_chunk_frames, n)
+            sl = buf_dev[c0 * self.hop:(c1 - 1) * self.hop + self.window]
+            frames = frame_signal(sl, self.window, self.hop)[None]
+            gf = torch.full((1, c1 - c0), gf_lin, dtype=torch.float32,
+                            device=self.device)
+            hold = torch.full((1, c1 - c0), bool(calibration_hold),
+                              dtype=torch.bool, device=self.device)
+            self.state, out = onset_analyze_frames(
+                self.state, frames, gf, ts_dev[None, c0:c1].contiguous(),
+                hold, self.window, self.backend)
+            outs.append(out)
+        self.frames_consumed += n
+        return OnsetChunkOut(*(torch.cat(parts, 1)[0].cpu().numpy()
                                for parts in zip(*outs)))

@@ -1,10 +1,11 @@
 """The test signals the port's smoke run and tests render: numpy, float32.
 
-A copy of the two generators of `audio_analyzer_rs_tpu.models.generators`
-that drive the segmented pitch path (`mixed_scene`, the canonical agreement
-scene, and `tone_with_harmonics`, the spectral-gate probe), with the helpers
-they call, so that the port renders its inputs without importing the JAX
-package.  Same formulas, same order of operations, same numpy RNG stream:
+A copy of the generators of `audio_analyzer_rs_tpu.models.generators` that
+drive the ported paths (`mixed_scene`, the canonical agreement scene;
+`tone_with_harmonics`, the spectral-gate probe; `tick` and
+`calibration_click`, the onset probes), with the helpers they call, so that
+the port renders its inputs without importing the JAX package.  Same
+formulas, same order of operations, same numpy RNG stream:
 tests/test_torch_generators.py holds them bit-equal to the originals.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
+TWO_PI = float(np.float32(2.0 * np.float32(np.pi)))  # ref generators/mod.rs:15
 MIN_ENVELOPE = 0.001
 
 _LCG_A = 1103515245
@@ -52,6 +54,22 @@ def exp_envelope(n: int, decay_samples: float,
     return np.power(decay_rate, np.arange(n, dtype=np.float64)).astype(np.float32)
 
 
+def tick(freq: float, volume: float, decay_ms: float, sample_rate: float,
+         duration_s: float | None = None) -> np.ndarray:
+    """One metronome tick: sin(2π f t / sr) with an exponential decay
+    (ref metronome.rs:43-69)."""
+    decay_samples = sample_rate * (decay_ms / 1000.0)
+    if duration_s is None:
+        n = int(np.ceil(decay_samples)) + 1
+    else:
+        n = int(round(duration_s * sample_rate))
+    t = np.arange(n, dtype=np.float64)
+    phase_inc = freq * TWO_PI / sample_rate
+    env = exp_envelope(n, decay_samples)
+    return (np.sin(t * phase_inc).astype(np.float32) * np.float32(volume) * env
+            ).astype(np.float32)
+
+
 def noise_burst(volume: float, decay_ms: float, sample_rate: float,
                 n: int | None = None, seed: int = 12345) -> np.ndarray:
     """White-noise click transient with an exponential decay."""
@@ -60,6 +78,18 @@ def noise_burst(volume: float, decay_ms: float, sample_rate: float,
         n = int(np.ceil(decay_samples)) + 1
     env = exp_envelope(n, decay_samples)
     return (lcg_noise(n, seed) * np.float32(volume) * env).astype(np.float32)
+
+
+def calibration_click(sample_rate: float, volume: float = 0.8,
+                      n: int | None = None) -> np.ndarray:
+    """2500 Hz click + 15 ms noise burst, 50 ms sine decay (ref
+    generators/calibration.rs:77-133)."""
+    sine_decay = sample_rate * 0.05
+    if n is None:
+        n = int(np.ceil(sine_decay)) + 1
+    click = tick(2500.0, volume, 50.0, sample_rate, duration_s=n / sample_rate)
+    noise = noise_burst(volume * 0.5, 15.0, sample_rate, n=n)
+    return (click + noise).astype(np.float32)
 
 
 def tone_with_harmonics(freq: float, duration_s: float, sample_rate: float,

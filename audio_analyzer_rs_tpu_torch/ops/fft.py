@@ -7,6 +7,9 @@ Two backends:
   `band`, only the first `band` bins.  On a CUDA tensor this is kernel K1
   (ops/hopper_stft.py); on a CPU tensor its plain matmul version.
 
+`rfft_complex` and `irfft` (YIN's FFT autocorrelation) are library FFTs,
+as in the JAX package, which computes them with `jnp.fft`.
+
 The constant tables are built with the JAX module's own numpy formulas, so
 they are bit-equal to the reference's.
 """
@@ -82,3 +85,27 @@ def rfft_mag(frames: torch.Tensor, backend: str = DEFAULT_BACKEND,
     if backend != "dft":
         raise ValueError(f"backend={backend!r}: expected 'fft' or 'dft'")
     return dft_mag(frames.float(), band)
+
+
+def rfft_complex(frames: torch.Tensor, backend: str = DEFAULT_BACKEND
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(re, im) of the rDFT, [..., W] → two [..., W//2+1] float32 — for
+    callers that need phase.  "fft" is torch.fft (cuFFT on the card); "dft"
+    the float32 product with the rDFT table (a plain matmul, as the JAX
+    package leaves it to XLA)."""
+    if backend == "fft":
+        spec = torch.fft.rfft(frames.float(), dim=-1)
+        return spec.real.contiguous(), spec.imag.contiguous()
+    if backend != "dft":
+        raise ValueError(f"backend={backend!r}: expected 'fft' or 'dft'")
+    n = frames.shape[-1]
+    re_im = torch.matmul(frames.float(), rdft_trig(n, frames.device))
+    re_im = re_im.reshape(frames.shape[:-1] + (n // 2 + 1, 2))
+    return re_im[..., 0], re_im[..., 1]
+
+
+def irfft(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """Inverse real FFT of (re, im) [..., H] → [..., 2*(H-1)] float32,
+    normalised like `numpy.fft.irfft` (irfft(rfft(x)) == x)."""
+    return torch.fft.irfft(torch.complex(re.float(), im.float()),
+                           dim=-1).float()

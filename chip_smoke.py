@@ -26,13 +26,28 @@ Phases, one line each on standard output:
             N=4096; the per-frame cost as the slope between those N=64 and
             N=256 random raws (ns, and cycles at the SM clock nvidia-smi
             reads);
+       K4 onset scan, bitwise (bit patterns, every output and the final
+            state) to the plain scan on the scene's "fft" magnitudes at
+            S=128 x N=1024 and at S=1 x N=4096 with tick-suppressed and held
+            frames; timed at the segmented step (S=128 x N=4096) and its
+            first 1,024 frames, and at S=1 x N=131072 (the sequential
+            analyzer's chunk); the per-frame cost as the slope between
+            N=1024 and N=4096; the plain scan timed once at S=128 x N=4096;
   4. the main path: `segmented_pitch_analysis` over a 30-minute mixed scene at
      the default geometry (128 segments x 64-frame chunks), cold then warm, with
      every kernel's launch count over the warm run (and no plain
      select_stable call); then
      `segmented_pitch_analysis_batch` over 8 takes of 30 s;
   5. agreement: the sequential `PitchAnalyzer` on the first 5 minutes against
-     the segmented run (segment 0 bitwise, >= 99.9% of frames).
+     the segmented run (segment 0 bitwise, >= 99.9% of frames);
+  6. `analyze_buffer_segmented` over the 30-minute scene, cold then warm, with
+     K1-K4's launch counts over the warm run (K4's row takes its count) and
+     no plain onset step;
+  7. `analyze_buffer` over the first minute (per-frame structs);
+  8. `segmented_onset_analysis_batch` over the 8 takes;
+  9. onset agreement: the sequential `OnsetAnalyzer` on the first 5 minutes
+     against `segmented_onset_analysis` (segment 0 equal, the fired-frame
+     sets identical).
 Then the kernel table as one JSON line, and last
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero before
 the last line; with no CUDA device the script exits 1 and prints no result.
@@ -159,16 +174,19 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
 
-    from audio_analyzer_rs_tpu_torch import _build
+    from audio_analyzer_rs_tpu_torch import _build, analysis
     from audio_analyzer_rs_tpu_torch.models import generators as gen
     from audio_analyzer_rs_tpu_torch.models import segmented
-    from audio_analyzer_rs_tpu_torch.models.analyzer import PitchAnalyzer
-    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_stft,
-                                                 hopper_tracker, noisefloor,
-                                                 pitch, tracker)
+    from audio_analyzer_rs_tpu_torch.models.analyzer import (OnsetAnalyzer,
+                                                             PitchAnalyzer)
+    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_onset,
+                                                 hopper_stft, hopper_tracker,
+                                                 noisefloor, onset, pitch,
+                                                 tracker)
     from audio_analyzer_rs_tpu_torch.ops.fft import hann, rdft_trig
     from audio_analyzer_rs_tpu_torch.ops.stft import (FIDELITY_MAX_REL_MSE,
-                                                      spectral_rel_mse)
+                                                      spectral_rel_mse,
+                                                      windowed_mags)
     from audio_analyzer_rs_tpu_torch.utils.framing import (frame_signal,
                                                            num_frames)
     dev = torch.device("cuda")
@@ -364,6 +382,91 @@ def main() -> int:
                      per_frame_cycles=slope_cycles, sm_mhz=sm_mhz))
     del streams, chunk, frames, audio_dev
 
+    # K4: the onset scan, on the 30-minute scene's "fft" magnitudes as the
+    # segmented onset path gives them (128 streams, 4,096-frame steps).
+    o_win, o_hop = onset.WINDOW, onset.HOP
+    n_on = num_frames(len(audio), o_win, o_hop)
+    o_plan = segmented._plan_streams(
+        n_on, segmented.auto_segments(n_on, 128), 128, 4096, o_win, o_hop)
+    o_audio = torch.from_numpy(np.pad(
+        audio, (0, max(0, o_plan.max_sample - len(audio))))).to(dev)
+    o_streams = segmented._slice_streams(
+        o_audio, o_plan.stream_start * o_hop, o_plan.stream_samples)
+    mags4 = windowed_mags(frame_signal(o_streams[:, :o_plan.chunk_samples],
+                                       o_win, o_hop), o_win, "fft")
+    s_o, n_o = mags4.shape[:2]                   # 128 x 4096 x 129
+    gf_on = float(noisefloor.global_floor_linear(-96.0, onset.HALF))
+    gf4 = torch.full((s_o, n_o), gf_on, device=dev)
+    no4 = torch.zeros((s_o, n_o), dtype=torch.bool, device=dev)
+    st4 = onset.init_state(onset.HALF, dev, (s_o,))
+    st1 = onset.init_state(onset.HALF, dev, (1,))
+    in1k = (mags4[:, :1024].contiguous(), gf4[:, :1024].contiguous(),
+            no4[:, :1024].contiguous(), no4[:, :1024].contiguous())
+    ts1 = torch.zeros((1, 4096), dtype=torch.bool, device=dev)
+    hold1 = torch.zeros_like(ts1)
+    ts1[0, ::97] = True
+    hold1[0, 50::89] = True
+    in_one = (mags4[7:8].contiguous(), gf4[:1].contiguous(), ts1, hold1)
+    k4_err, k4_fired = 0.0, []
+    for label, st, inputs in (("S=128 N=1024", st4, in1k),
+                              ("S=1 N=4096", st1, in_one)):
+        st_k, out_k = hopper_onset.onset_scan(st, *inputs)
+        st_p, out_p = onset.onset_scan_plain(st, *inputs)
+        torch.cuda.synchronize()
+        for name, g, r in zip(onset.OnsetFrameOut._fields, out_k, out_p):
+            assert same_bits(g, r), f"K4 {label} {name} differs"
+        for name, g, r in zip(onset.OnsetState._fields, st_k, st_p):
+            assert same_bits(g, r), f"K4 {label} final {name} differs"
+        for g, r in zip(out_k, out_p):
+            if g.dtype == torch.float32:
+                k4_err = max(k4_err, float((g - r).abs().max()))
+        k4_fired.append(int(out_k.fired.sum()))
+    n_seq = 131072
+    mags_seq = windowed_mags(frame_signal(
+        o_audio[:(n_seq - 1) * o_hop + o_win], o_win, o_hop)[None], o_win,
+        "fft")
+    gf_seq = torch.full((1, n_seq), gf_on, device=dev)
+    no_seq = torch.zeros((1, n_seq), dtype=torch.bool, device=dev)
+    k4_ms = cuda_ms(lambda: hopper_onset.onset_scan(st4, mags4, gf4, no4,
+                                                    no4), KERNEL_REPS)
+    k4_ms1k = cuda_ms(lambda: hopper_onset.onset_scan(st4, *in1k),
+                      KERNEL_REPS)
+    k4_ms_seq = cuda_ms(lambda: hopper_onset.onset_scan(
+        st1, mags_seq, gf_seq, no_seq, no_seq), KERNEL_REPS)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    onset.onset_scan_plain(st4, mags4, gf4, no4, no4)
+    end.record()
+    end.synchronize()
+    k4_plain_ms = start.elapsed_time(end)
+    k4_slope_ns = (k4_ms - k4_ms1k) / (n_o - 1024) * 1e6
+    k4_slope_cycles = k4_slope_ns * sm_mhz / 1e3
+    _, out4 = hopper_onset.onset_scan(st4, mags4, gf4, no4, no4)
+    # Bytes: magnitudes, floors and flags in, the 8 per-frame outputs out,
+    # the state in and out; the per-bin work (~30 operations a bin and
+    # frame) is far below the FP32 rate's bound.
+    k4_bytes = nbytes(mags4, gf4, no4, no4, *out4) + 2 * nbytes(*st4)
+    k4_bound, k4_by = bound(k4_bytes, 30 * mags4.numel(), FP32_FLOPS)
+    say(f"K4 onset scan: bitwise equal to the plain scan (every output and "
+        f"the final state) on the scene's magnitudes at S=128 N=1024 and at "
+        f"S=1 N=4096 with tick-suppressed and held frames ({k4_fired} "
+        f"fired); S=128 N=4096 {k4_ms:.4f} ms, S=128 N=1024 "
+        f"{k4_ms1k:.4f} ms, S=1 N=131072 {k4_ms_seq:.3f} ms; per frame "
+        f"(N=1024 -> 4096) {k4_slope_ns:.1f} ns = {k4_slope_cycles:.0f} "
+        f"cycles at {sm_mhz:.0f} MHz; plain {k4_plain_ms:.1f} ms at S=128 "
+        f"N=4096 (one sample, ~60-80 launches a frame); bound "
+        f"{k4_bound:.4f} ms ({k4_by}: {k4_bytes / 1e6:.1f} MB)")
+    rows.append(dict(name="K4 onset (the onset recurrence)", route="cuda",
+                     source=f"{PKG}/csrc/onset.cu",
+                     replaces="audio_analyzer_rs_tpu/ops/onset.py:145",
+                     max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms,
+                     plain_samples=1, bound_ms=k4_bound, bound_by=k4_by,
+                     library_ms=None, ms_s128_n1024=k4_ms1k,
+                     ms_s1_n131072=k4_ms_seq, per_frame_ns=k4_slope_ns,
+                     per_frame_cycles=k4_slope_cycles, sm_mhz=sm_mhz))
+    del o_audio, o_streams, mags4, gf4, no4, in1k, in_one, mags_seq, out4
+
     # 4. The main path through the public entry points.
     counters = (hopper_stft, hopper_comb, hopper_tracker)
     t0 = time.perf_counter()
@@ -422,6 +525,107 @@ def main() -> int:
         f"{seq_s:.2f} s; segment 0 ({seg0} frames) bitwise equal; frame "
         f"agreement {agree:.6f} (>= {MIN_AGREEMENT})")
     assert agree >= MIN_AGREEMENT, agree
+
+    # 6. The offline analysis API over the 30-minute scene: every kernel of
+    # both pipelines, and no plain onset step on the CUDA path.
+    t0 = time.perf_counter()
+    arr = analysis.analyze_buffer_segmented(audio, SR)
+    cold = time.perf_counter() - t0
+    plain_step, steps = onset._step, []
+    onset._step = lambda *a: steps.append(1) or plain_step(*a)
+    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_onset)
+    for mod in counters:
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    arr = analysis.analyze_buffer_segmented(audio, SR)
+    warm = time.perf_counter() - t0
+    launches = [mod.LAUNCHES for mod in counters]
+    onset._step = plain_step
+    assert all(n > 0 for n in launches), launches
+    assert not steps, f"{len(steps)} plain onset steps on the CUDA path"
+    assert len(arr.rms) == n_total and arr.spectrogram.shape == (n_total,
+                                                                 half)
+    for col in (arr.rms, arr.energy, arr.centroid_hz, arr.flux,
+                arr.yin_f0_hz, arr.stable_freqs, arr.spectrogram):
+        assert np.isfinite(col).all()
+    assert arr.onsets, "no onset in 30 minutes with percussion"
+    assert arr.stable_valid.any() and arr.yin_voiced.any()
+    say(f"analysis: analyze_buffer_segmented 30 min ({n_total} pitch frames, "
+        f"{n_on} onset frames): cold {cold:.2f} s, warm {warm:.2f} s = "
+        f"{n_total / warm:,.0f} pitch frames/s; launches K1/K2/K3/K4 "
+        f"{launches}, plain onset steps 0; {len(arr.onsets)} onsets, "
+        f"{int(arr.stable_valid.any(1).sum())} frames with a stable pitch, "
+        f"{int(arr.yin_voiced.sum())} YIN-voiced frames")
+    rows[3]["launches"] = launches[3]
+    del arr
+    # Where the warm wall goes: the upload and each pass alone, warm, on
+    # the shared device copy; the feature chunks are the rest.
+    t0 = time.perf_counter()
+    shared = segmented._upload_f32(audio, dev)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    segmented.segmented_onset_analysis(audio, SR, device_audio=shared)
+    t_on = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    segmented.segmented_pitch_analysis(audio, SR, device_audio=shared)
+    t_pi = time.perf_counter() - t0
+    del shared
+    say(f"analysis: warm wall split: upload {t_up:.3f} s, onset pass "
+        f"{t_on:.3f} s, pitch pass {t_pi:.3f} s, feature chunks and "
+        f"readback (the rest) {warm - t_up - t_on - t_pi:.3f} s")
+
+    # 7. The sequential API over the first minute.
+    minute = audio[:int(60 * SR)]
+    t0 = time.perf_counter()
+    res = analysis.analyze_buffer(minute, SR)
+    ab_s = time.perf_counter() - t0
+    n60 = num_frames(len(minute), window, hop)
+    assert len(res.frames) == n60 == res.spectrogram.shape[0]
+    voiced = sum(f.yin_voiced for f in res.frames)
+    assert voiced > 0 and res.onsets
+    assert all(np.isfinite(f.rms) and np.isfinite(f.centroid_hz)
+               for f in res.frames)
+    say(f"analysis: analyze_buffer 60 s in {ab_s:.2f} s: {len(res.frames)} "
+        f"per-frame structs, {voiced} YIN-voiced, {len(res.onsets)} onsets, "
+        f"{sum(bool(f.stable_pitches) for f in res.frames)} with a stable "
+        f"pitch")
+
+    # 8. The batched onset path over the 8 takes.
+    t0 = time.perf_counter()
+    ores = segmented.segmented_onset_analysis_batch(takes, SR)
+    obatch_s = time.perf_counter() - t0
+    n_take_o = num_frames(int(30 * SR), o_win, o_hop)
+    for f, v, x, e in ores:
+        assert f.shape == v.shape == x.shape == e.shape == (n_take_o,)
+        assert np.isfinite(v).all() and np.isfinite(e).all()
+    assert any(f.any() for f, _, _, _ in ores), "no onset in 8 takes"
+    say(f"batch: segmented_onset_analysis_batch 8 takes x 30 s in "
+        f"{obatch_s:.2f} s; {sum(int(f.sum()) for f, _, _, _ in ores)} "
+        f"onsets")
+
+    # 9. Onset agreement: the sequential OnsetAnalyzer on the first 5
+    # minutes against the segmented run.
+    t0 = time.perf_counter()
+    oseq = OnsetAnalyzer(SR).process(five)
+    oseq_s = time.perf_counter() - t0
+    o5 = segmented.segmented_onset_analysis(five, SR)
+    n5o = num_frames(len(five), o_win, o_hop)
+    seg0o = segmented._plan_streams(
+        n5o, segmented.auto_segments(n5o, 128), 128, 4096, o_win, o_hop
+    ).payload_range(0, n5o)[1]
+    ref5 = (oseq.fired, oseq.velocity, oseq.flux, oseq.energy)
+    exact = all(np.array_equal(a[:seg0o], b[:seg0o])
+                for a, b in zip(o5, ref5))
+    assert np.array_equal(o5[0][:seg0o], oseq.fired[:seg0o])
+    assert np.array_equal(np.flatnonzero(o5[0]),
+                          np.flatnonzero(oseq.fired)), "onset sets differ"
+    say(f"agreement: onsets, 5 min ({n5o} frames), sequential OnsetAnalyzer "
+        f"{oseq_s:.2f} s; segment 0 ({seg0o} frames) "
+        + ("bitwise equal (fired, velocity, flux, energy)" if exact else
+           "equal in its decisions (fired), not bitwise: cuFFT's result "
+           "depends on the batch")
+        + f"; fired sets identical ({int(o5[0].sum())} onsets)")
 
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

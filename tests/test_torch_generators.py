@@ -33,3 +33,27 @@ def test_tone_with_harmonics_bit_equal(freq, harmonics):
 def test_noise_burst_bit_equal():
     np.testing.assert_array_equal(tgen.noise_burst(0.6, 20.0, SR, seed=997),
                                   jgen.noise_burst(0.6, 20.0, SR, seed=997))
+
+
+def test_two_pi_equal():
+    assert tgen.TWO_PI == jgen.TWO_PI
+
+
+@pytest.mark.parametrize("freq,decay_ms,duration", [(1000.0, 30.0, None),
+                                                    (2500.0, 50.0, 0.1),
+                                                    (440.0, 12.5, 0.02)])
+def test_tick_bit_equal(freq, decay_ms, duration):
+    for sr in (SR, 48000.0):
+        got = tgen.tick(freq, 0.7, decay_ms, sr, duration_s=duration)
+        ref = jgen.tick(freq, 0.7, decay_ms, sr, duration_s=duration)
+        assert got.dtype == ref.dtype == np.float32
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("sr,volume,n", [(SR, 0.8, None), (48000.0, 0.6, None),
+                                         (SR, 0.5, 700)])
+def test_calibration_click_bit_equal(sr, volume, n):
+    got = tgen.calibration_click(sr, volume=volume, n=n)
+    ref = jgen.calibration_click(sr, volume=volume, n=n)
+    assert got.dtype == ref.dtype == np.float32
+    np.testing.assert_array_equal(got, ref)

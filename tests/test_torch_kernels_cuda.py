@@ -9,8 +9,8 @@ test configuration:
 Small shapes of the main path's kinds; chip_smoke.py repeats the checks at
 the full main-path shapes and times them.  Tolerances: K1 max |Δ| <= 1e-5 ·
 max (3xTF32 on the tensor cores against cuBLAS FP32), and bitwise across
-batch geometries; K2 and K3 bitwise (K3's floats as bit patterns, so -0.0
-and +0.0 differ).
+batch geometries; K2, K3 and K4 bitwise (K3's and K4's floats as bit
+patterns, so -0.0 and +0.0 differ).
 """
 
 import numpy as np
@@ -18,10 +18,12 @@ import pytest
 import torch
 
 from audio_analyzer_rs_tpu_torch.models import generators as gen
-from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_stft,
-                                             hopper_tracker, noisefloor,
-                                             pitch, tracker)
+from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_onset,
+                                             hopper_stft, hopper_tracker,
+                                             noisefloor, onset, pitch,
+                                             tracker)
 from audio_analyzer_rs_tpu_torch.ops.fft import hann, rdft_trig
+from audio_analyzer_rs_tpu_torch.ops.stft import windowed_mags
 from audio_analyzer_rs_tpu_torch.utils.framing import frame_signal
 from test_torch_comb_loop import edge_rows
 from test_torch_tracker_select import _outside_state as outside_state
@@ -215,6 +217,99 @@ def test_k3_batched_calls_no_plain_select(dev, monkeypatch):
     got = tracker.tracker_scan_batched(st0, *raws)
     torch.cuda.synchronize()
     assert hopper_tracker.LAUNCHES == launches + 1
+    for a, b in zip((*got[1], *got[0]), (*want[1], *want[0])):
+        assert_same_bits(a, b)
+
+
+def _k4_inputs(dev, s, n, seed=5):
+    """Random magnitudes with bursts, global floors, and sprinkled tick and
+    hold frames: mags [S, N, 129], the rest [S, N]."""
+    rng = np.random.default_rng(seed)
+    mags = (rng.random((s, n, onset.HALF)) * 2.0).astype(np.float32)
+    if n:
+        hits = rng.random((s, n)) < 0.06
+        mags[hits] *= rng.uniform(5.0, 40.0, (int(hits.sum()), 1)).astype(
+            np.float32)
+    gf = rng.uniform(0.01, 0.08, (s, n)).astype(np.float32)
+    ts = rng.random((s, n)) < 0.03
+    hold = rng.random((s, n)) < 0.03
+    return tuple(torch.from_numpy(a).to(dev) for a in (mags, gf, ts, hold))
+
+
+def _assert_k4_matches_plain(st0, inputs):
+    """K4 against onset_scan_plain: every output and the final state, bit
+    for bit."""
+    st_k, out_k = hopper_onset.onset_scan(st0, *inputs)
+    st_p, out_p = onset.onset_scan_plain(st0, *inputs)
+    torch.cuda.synchronize()
+    for name, a, b in zip(onset.OnsetFrameOut._fields, out_k, out_p):
+        assert_same_bits(a, b, name)
+    for name, a, b in zip(onset.OnsetState._fields, st_k, st_p):
+        assert_same_bits(a, b, name)
+    return st_k, out_k
+
+
+@pytest.mark.parametrize("s,n", [(133, 150), (5, 0), (1, 4096), (3, 31)])
+def test_k4_matches_plain_bitwise(dev, s, n):
+    """More streams than SMs with a partial tile, no frames, one long
+    stream, and less than one tile."""
+    launches = hopper_onset.LAUNCHES
+    _, out = _assert_k4_matches_plain(
+        onset.init_state(onset.HALF, dev, (s,)), _k4_inputs(dev, s, n, s + n))
+    assert hopper_onset.LAUNCHES == launches + 1
+    if n >= 150:
+        assert bool(out.detected.any())
+
+
+def test_k4_state_carry(dev):
+    """A state carried across two calls gives the bits of one call."""
+    s, n1, n2 = 6, 70, 90
+    inputs = _k4_inputs(dev, s, n1 + n2, seed=8)
+    st0 = onset.init_state(onset.HALF, dev, (s,))
+    st_a, out_a = hopper_onset.onset_scan(
+        st0, *(x[:, :n1].contiguous() for x in inputs))
+    st_b, out_b = _assert_k4_matches_plain(
+        st_a, tuple(x[:, n1:].contiguous() for x in inputs))
+    st_f, out_f = hopper_onset.onset_scan(st0, *inputs)
+    torch.cuda.synchronize()
+    for a, b, f in zip(out_a, out_b, out_f):
+        assert_same_bits(torch.cat([a, b], 1), f)
+    for b, f in zip(st_b, st_f):
+        assert_same_bits(b, f)
+
+
+def test_k4_real_magnitudes_bitwise(dev):
+    """cuFFT magnitudes of a scene with clicks, as the onset path gives
+    them."""
+    x = gen.mixed_scene(6.0, SR, seed=2)
+    click = gen.calibration_click(SR, volume=0.7)
+    for t in (0.5, 1.7, 3.1, 4.4):
+        x[int(t * SR):int(t * SR) + len(click)] += click
+    streams = torch.from_numpy(x).to(dev).reshape(2, -1)
+    frames = frame_signal(streams, onset.WINDOW, onset.HOP)
+    mags = windowed_mags(frames, onset.WINDOW, "fft")
+    s, n = mags.shape[:2]
+    gf = torch.full((s, n), 0.0016, device=dev)
+    no = torch.zeros((s, n), dtype=torch.bool, device=dev)
+    _, out = _assert_k4_matches_plain(onset.init_state(onset.HALF, dev, (s,)),
+                                      (mags, gf, no, no))
+    assert bool(out.fired.any())
+
+
+def test_onset_scan_cuda_runs_no_plain_step(dev, monkeypatch):
+    """On CUDA tensors onset_scan is the one kernel launch."""
+    inputs = _k4_inputs(dev, 4, 100)
+    st0 = onset.init_state(onset.HALF, dev, (4,))
+    want = onset.onset_scan_plain(st0, *inputs)
+
+    def refuse(*args):
+        raise AssertionError("the plain onset step ran on the CUDA path")
+
+    monkeypatch.setattr(onset, "_step", refuse)
+    launches = hopper_onset.LAUNCHES
+    got = onset.onset_scan(st0, *inputs)
+    torch.cuda.synchronize()
+    assert hopper_onset.LAUNCHES == launches + 1
     for a, b in zip((*got[1], *got[0]), (*want[1], *want[0])):
         assert_same_bits(a, b)
 

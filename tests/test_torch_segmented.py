@@ -175,8 +175,11 @@ def test_unported_options_raise():
     x = np.zeros(int(SR), np.float32)
     with pytest.raises(NotImplementedError):
         tseg.segmented_pitch_analysis(x, SR, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # device_audio is ported: a float32 tensor of len(audio) samples.
+    with pytest.raises(ValueError):
         tseg.segmented_pitch_analysis(x, SR, device_audio=x, device="cpu")
+    tseg.segmented_pitch_analysis(x, SR, device_audio=torch.from_numpy(x),
+                                  device="cpu")
     with pytest.raises(NotImplementedError):
         tseg.segmented_pitch_analysis(x, SR, warmup_mode="floor",
                                       device="cpu")
@@ -203,6 +206,9 @@ def test_port_runs_without_jax_in_a_fresh_process():
         "x = gen.mixed_scene(3.0, 44100.0, seed=1)\n"
         "f, s, v = segmented_pitch_analysis(x, 44100.0, device='cpu')\n"
         "assert f.shape[1] == 8 and np.isfinite(f).all()\n"
+        "from audio_analyzer_rs_tpu_torch import analyze_buffer_segmented\n"
+        "a = analyze_buffer_segmented(x, 44100.0, device='cpu')\n"
+        "assert len(a.rms) == len(f) and np.isfinite(a.spectrogram).all()\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -236,4 +242,4 @@ def test_source_scan():
             assert name.split(".")[0] not in ("jax", "audio_analyzer_rs_tpu"), \
                 (path, name)
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == \
-        ["comb.cu", "stft.cu", "tracker.cu"]
+        ["comb.cu", "onset.cu", "stft.cu", "tracker.cu"]

@@ -13,7 +13,9 @@ Layer map (mirrors the JAX package):
   utils/framing      hop-strided framing (Tensor.unfold)
   ops/fft, ops/stft  Hann × rDFT magnitude; the "dft" backend is kernel K1
                      (ops/hopper_stft.py, csrc/stft.cu); rfft_complex/irfft
-  ops/noisefloor     per-bin noise-floor recurrence (plain torch)
+  ops/noisefloor     per-bin noise-floor recurrence (kernel K5:
+                     ops/hopper_noisefloor.py, csrc/noisefloor.cu)
+  ops/rounding       fma32: a*b + c rounded once, as the kernels' fmaf
   ops/pitch          peaks, interpolation, the harmonic comb (kernel K2:
                      ops/hopper_comb.py, csrc/comb.cu), gates, top-K, dedup
   ops/tracker        the 24-slot PitchTracker scan and its stable top-8

@@ -5,9 +5,9 @@ together, and the objects are linked into one shared library with a plain
 C interface, loaded with ctypes.  The library goes to
 `_build/` beside this file, named by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads the cached build.  No
-`--use_fast_math`: the comb and onset kernels rely on IEEE division, and the
-comb, tracker and onset kernels keep denormals (all three match their plain
-versions bitwise).
+`--use_fast_math`: the comb, onset and noise-floor kernels rely on IEEE
+division, and the comb, tracker, onset and noise-floor kernels keep
+denormals (all four match their plain versions bitwise).
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` turns a non-zero code into an exception.
@@ -50,6 +50,11 @@ _SIGNATURES = {
     # mags, global floor, tick, hold, state in (6), the 8 per-frame
     # outputs, state out (6), streams, frames, bins, stream
     "aat_onset_scan": (_P,) * 24 + (_I, _I, _I, _P),
+    # mags and its stream and frame strides, global floor, state in (4),
+    # effective floor, state out (4), streams, frames, band, state width,
+    # stream
+    "aat_noise_floor_scan": (_P, ctypes.c_longlong, ctypes.c_longlong)
+    + (_P,) * 10 + (_I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -5,35 +5,54 @@
 //
 // What bounds it on an H100: at the segmented step (S = 128 streams x N =
 // 4,096 frames x 129 bins) the magnitudes are 270 MB, ~0.081 ms of HBM
-// time; each stream is a serial recurrence over its N frames, so at small S
-// (the sequential analyzer, S = 1) the per-frame chain is the floor.  The
-// design keeps the chain short and off device memory:
+// time; each stream is a serial recurrence over its N frames, so the floor
+// is the per-frame chain of one stream (and at small S, the sequential
+// analyzer's S = 1, nothing else).  The design keeps every per-frame step
+// off any cross-thread wait, so that the chains set the pace:
 //  - A block a stream.  The bins are on the threads of NW = ceil(H / 32)
 //    bin warps (five for 129 bins; lanes past H are pads); each bin's floor
 //    and previous magnitude stay in registers for all N frames.
-//  - The bin threads stage the next 32-frame tile of magnitudes (and the
-//    global floors) into shared memory by cp.async while they work on this
-//    one, so a frame's reads, its neighbours' included, hit shared memory.
-//  - Per frame, each bin warp reduces its flux, energy, burst count and
-//    largest excess with shuffles and writes one partial a warp.  Nothing
-//    in the bin work waits for the scalar recurrence: a tile is one block
-//    barrier, not one a frame.
+//  - The bin threads stage 32-frame tiles of magnitudes (and the global
+//    floors) into shared memory by cp.async, three tiles ahead of the one
+//    they work on, so a frame's reads, its neighbours' included, hit
+//    shared memory and the loads' latency hides behind three tiles' work.
+//  - A tile is two phases a bin warp, with no shuffle in either.  First
+//    each lane runs its bin over the tile's 32 frames: the floor
+//    recurrence, the one chain, with no division on it (the burst test is
+//    `den < burst_limit(m)`, exact, and the limit depends on the magnitude
+//    alone), and the flux contribution, from magnitudes loaded 8 frames at
+//    a time ahead of their use.  Both leave their values in the warp's
+//    shared scratch (the divisor negated where the bin bursts).  Then,
+//    after a __syncwarp, lane f reduces frame f over the warp's 32 bins in
+//    registers from 16-byte shared loads: flux and energy as the tree
+//    below, the burst count, and the largest burst ratio by a tournament
+//    of exact comparisons (`keep_larger`) and one IEEE division.  Reducing
+//    each frame as it comes (shuffle trees, a ballot and a division a bin)
+//    would put all of that on one dependent chain a frame.
+//  - The division's check sends a zero numerator to its slow path, and
+//    digital silence makes ~40% of a recording's magnitudes zero: the
+//    numerator is kept off it (`div_guarded`).
 //  - One chain warp runs the tile behind: lane f combines frame f's partials
 //    across the warps and computes what depends on that frame alone (the
-//    silence gate, velocity, the burst trigger); then all lanes run the
-//    32-frame scalar recurrence (energy EMA, FluxTracker threshold, gates,
-//    refractory counter) in step, a frame's inputs broadcast by shuffle,
-//    and lane f keeps frame f's decisions and writes its outputs.
+//    silence gate, velocity, the burst trigger, the recurrence's products
+//    that do not depend on it); then all lanes run the 32-frame scalar
+//    recurrence (energy EMA, FluxTracker threshold, gates, refractory
+//    counter) in step, unrolled over a full tile so that one frame's gates
+//    overlap the next frame's EMA and threshold, keeping the decisions as
+//    bit masks for lane f to write out.  The tick and hold flags are read
+//    a tile ahead.  A tile is one block barrier, not one a frame.
 //
 // Rounding, as the plain version does it: the flux and energy sums are
-// `onset.tree_sum`'s tree (the bins padded with +0.0 to 256: shuffle-down
-// halving inside a warp, then across the 8 warp slots, absent warps +0.0);
-// fmaf exactly where XLA:CPU contracts (the bin weight, the floor blend,
-// the energy EMA, the threshold); the constant divisions (/ 3 in the
-// smoothing, / 50 in the velocity) as products with the float32
-// reciprocal, as XLA computes them; every other operation rounds on its
-// own (__fadd_rn and friends; `r` is IEEE division).  The max and the
-// burst count do not depend on the order.
+// `onset.tree_sum`'s tree (the bins padded with +0.0 to 256: inside each
+// group of 32 bins x[j] + x[j + k] for k = 16, 8, 4, 2, 1, then across the
+// 8 group slots, absent warps +0.0); fmaf exactly where XLA:CPU contracts
+// (the bin weight, the floor blend, the energy EMA, the threshold); the
+// constant divisions (/ 3 in the smoothing, / 50 in the velocity) as
+// products with the float32 reciprocal, as XLA computes them; every other
+// operation rounds on its own (__fadd_rn and friends; `r` is IEEE
+// division).  The max and the burst count do not depend on the order.
+// The kernel is exact for magnitudes that are 0 or in [2^-60, 2^60] (see
+// keep_larger); an audio spectrum's are.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,17 +61,31 @@
 namespace {
 
 constexpr int TF = 32;                // frames a tile: one chain lane each
+constexpr int NBUF = 4;               // magnitude tiles in shared memory
+constexpr int AHEAD = NBUF - 1;       // tiles staged ahead of the bin work
+constexpr int CHUNK = 8;              // frames a bin lane loads at once
 constexpr int MAX_WARPS = 8;          // bin warps: at most 256 bins
 constexpr int SLOTS = 8;              // the tree's cross-warp width
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int REFRACTORY = 3;
+constexpr int SCRATCH_STRIDE = TF + 4;  // a warp's scratch row: 16-byte
+                                        // loads by frame lanes, no conflict
 
 struct __align__(16) Partials {
   float flux[2][TF][SLOTS];           // per frame, per bin warp
   float energy[2][TF][SLOTS];
   float excess[2][TF][SLOTS];
   int bursts[2][TF][SLOTS];
-  float gfloor[2][TF];                // the tile's global floors
+  float gfloor[NBUF][TF];             // the tiles' global floors
+};
+
+// The chain warp's tile: per frame (by lane), the recurrence's inputs that
+// do not depend on it.
+struct __align__(16) Chain {
+  // flux, energy, flux * (1 - 0.84), flux * (1 - 0.89)
+  float4 flux[TF];
+  // energy * (1 - 0.84), energy * (1 - 0.95), the flags' bits (bit 0 burst
+  // trigger, 1 tick, 2 hold), unused
+  float4 ema[TF];
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -62,8 +95,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// All but the newest AHEAD - 1 committed groups have landed.
+__device__ __forceinline__ void cp_async_wait_ahead() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(AHEAD - 1) : "memory");
 }
 
 // The whole block; the bin warps and the chain warp reach it from their own
@@ -72,23 +110,100 @@ __device__ __forceinline__ void block_sync() {
   asm volatile("bar.sync 0;\n" ::: "memory");
 }
 
+// n / d, IEEE, for d >= 0.01: the slow path of the division's check
+// (FCHK) takes n == 0, which digital silence gives on ~40% of the scene's
+// frames; 0 / d is n itself, so the division sees 1 there instead.
+__device__ __forceinline__ float div_guarded(float n, float d) {
+  const float q = __fdiv_rn(n == 0.0f ? 1.0f : n, d);
+  return n == 0.0f ? n : q;
+}
+
+// The burst test without a division.  For den > 0, RN(m / den) > 2.5f
+// exactly when m / den > 2.5 + 2^-23 (that midpoint rounds to 2.5, whose
+// last bit is even), that is when den < m / c with c = 2.5 + 2^-23, that
+// is when den < RU(m / c): for m != 0, m / c is never a float (c's
+// significand is odd and 25 bits wide) and lies at least ~2^-48 (relative)
+// from every float, so RU of the double m * RN(1 / c), within 2^-52 of it,
+// is RU(m / c).  For m = 0 the limit is 0, which no den passes.
+// tests/test_torch_onset_kernel.py checks this against float division.
+__device__ __forceinline__ float burst_limit(float m) {
+  return __double2float_ru(static_cast<double>(m) * 0x1.99999851eb862p-2);
+}
+
+// Keeps in (ma, da) whichever of ma / da and mb / db is larger, compared
+// exactly and without a division: mb * da against ma * db, each product as
+// its float and the fma's exact rounding error (exact while the products
+// neither underflow nor overflow: magnitudes 0 or in [2^-60, 2^60], floors
+// in [0.01, 2^60]).  Ties keep a; RN is monotone, so the kept pair's
+// rounded ratio is the largest rounded ratio.
+__device__ __forceinline__ void keep_larger(float& ma, float& da, float mb,
+                                            float db) {
+  const float p1 = __fmul_rn(ma, db), p2 = __fmul_rn(mb, da);
+  const float e1 = fmaf(ma, db, -p1), e2 = fmaf(mb, da, -p2);
+  if (p2 > p1 || (p2 == p1 && e2 > e1)) {
+    ma = mb;
+    da = db;
+  }
+}
+
 // Bin threads: copy frames [f0, f0 + nt) of the stream (f0 counts from the
-// start of mags) and their global floors into buffer b.
+// start of mags) and their global floors into buffer b.  Thread i copies
+// bin i of each frame (coalesced along the bins) into a row of stride ms.
 __device__ void stage_tile(float* mt, Partials& p, int b, long long f0,
-                           int nt, int H, int nb,
+                           int nt, int H, int ms, int nb,
                            const float* __restrict__ mags,
                            const float* __restrict__ gf) {
-  float* dst = mt + b * TF * H;
-  const float* src = mags + f0 * H;
-  for (int k = threadIdx.x; k < nt * H; k += nb) cp_async4(dst + k, src + k);
-  for (int k = threadIdx.x; k < nt; k += nb)
+  const int i = threadIdx.x;
+  float* dst = mt + b * TF * ms + i;
+  const float* src = mags + f0 * H + i;
+  if (i < H)
+    for (int f = 0; f < nt; ++f) cp_async4(dst + f * ms, src + f * H);
+  for (int k = i; k < nt; k += nb)
     cp_async4(&p.gfloor[b][k], gf + f0 + k);
 }
 
-// The chain warp: frames [t0, t0 + nt) of the tile in buffer b.
-__device__ void chain_tile(const Partials& p, int b, long long f0, int nt,
-                           int nw, const uint8_t* __restrict__ ts,
-                           const uint8_t* __restrict__ hold, float& thr,
+// v[j] += v[j + K] for j < K: one level of the tree, unrolled.
+template <int K>
+__device__ __forceinline__ void halve(float* v) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) v[j] = __fadd_rn(v[j], v[j + K]);
+}
+
+// One level of the ratio tournament: pair j keeps the larger of j, j + K.
+template <int K>
+__device__ __forceinline__ void halve_ratio(float* m, float* d) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) keep_larger(m[j], d[j], m[j + K], d[j + K]);
+}
+
+// Lane f of a bin warp: the tree of 32 values (x[j] + x[j + k] for k = 16,
+// 8, 4, 2, 1) read from 16-byte aligned shared memory.
+__device__ __forceinline__ float tree32(const float* x) {
+  float v[16];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 lo = reinterpret_cast<const float4*>(x)[q];
+    const float4 hi = reinterpret_cast<const float4*>(x + 16)[q];
+    v[4 * q] = __fadd_rn(lo.x, hi.x);
+    v[4 * q + 1] = __fadd_rn(lo.y, hi.y);
+    v[4 * q + 2] = __fadd_rn(lo.z, hi.z);
+    v[4 * q + 3] = __fadd_rn(lo.w, hi.w);
+  }
+  halve<8>(v);
+  halve<4>(v);
+  halve<2>(v);
+  halve<1>(v);
+  return v[0];
+}
+
+// The chain warp: frames [f0, f0 + nt) of the tile in buffer b.  `flags`
+// holds each lane's frame's tick and hold bits (bits 1 and 2), loaded a tile
+// ahead.  Lane f first combines frame f's partials and computes what
+// depends on that frame alone into c; then the scalar recurrence runs over
+// the tile (every lane in step, the decisions kept as bit masks), its
+// inputs read from c as broadcasts that do not wait on the recurrence.
+__device__ void chain_tile(const Partials& p, Chain& c, int b, long long f0,
+                           int nt, int nw, unsigned flags, float& thr,
                            float& ema, int& since,
                            uint8_t* __restrict__ o_fired,
                            uint8_t* __restrict__ o_det,
@@ -102,7 +217,6 @@ __device__ void chain_tile(const Partials& p, int b, long long f0, int nt,
   const bool live = lane < nt;
   float flux = 0.0f, energy = 0.0f, excess = -INFINITY;
   int bursts = 0;
-  unsigned flags = 0u;                // bit 0 burst trigger, 1 tick, 2 hold
   if (live) {
     const float* pf = p.flux[b][lane];
     const float* pe = p.energy[b][lane];
@@ -112,12 +226,13 @@ __device__ void chain_tile(const Partials& p, int b, long long f0, int nt,
     energy = __fadd_rn(
         __fadd_rn(__fadd_rn(pe[0], pe[4]), __fadd_rn(pe[2], pe[6])),
         __fadd_rn(__fadd_rn(pe[1], pe[5]), __fadd_rn(pe[3], pe[7])));
-    for (int w = 0; w < nw; ++w) {
-      excess = fmaxf(excess, p.excess[b][lane][w]);
-      bursts += p.bursts[b][lane][w];
+#pragma unroll
+    for (int w = 0; w < MAX_WARPS; ++w) {
+      if (w < nw) {
+        excess = fmaxf(excess, p.excess[b][lane][w]);
+        bursts += p.bursts[b][lane][w];
+      }
     }
-    flags |= ts[f0 + lane] != 0 ? 2u : 0u;
-    flags |= hold[f0 + lane] != 0 ? 4u : 0u;
   }
   flux = bursts < 2 ? 0.0f : flux;                       // silence gate
   const float velocity = fminf(
@@ -125,43 +240,73 @@ __device__ void chain_tile(const Partials& p, int b, long long f0, int nt,
             0.0f),
       1.0f);
   flags |= (excess > 3.0f && bursts >= 3) ? 1u : 0u;
+  c.flux[lane] = make_float4(flux, energy,
+                             __fmul_rn(flux, __fsub_rn(1.0f, 0.84f)),
+                             __fmul_rn(flux, __fsub_rn(1.0f, 0.89f)));
+  c.ema[lane] = make_float4(__fmul_rn(energy, __fsub_rn(1.0f, 0.84f)),
+                            __fmul_rn(energy, __fsub_rn(1.0f, 0.95f)),
+                            __uint_as_float(flags), 0.0f);
+  __syncwarp();
 
-  bool my_det = false, my_rising = false, my_fired = false;
-  int my_since = 0;
-  for (int k = 0; k < nt; ++k) {                         // uniform
-    const float fk = __shfl_sync(FULL, flux, k);
-    const float ek = __shfl_sync(FULL, energy, k);
-    const unsigned gk = __shfl_sync(FULL, flags, k);
-    const float em = ek > ema ? 0.84f : 0.95f;
-    ema = fmaf(ema, em, __fmul_rn(ek, __fsub_rn(1.0f, em)));
+  // The decisions stay in registers as bit masks (bit k: frame k), so no
+  // store comes between one frame's loads and the next.  The counter is
+  // rebuilt from the reset mask: frame f's counter is f - j - 1 after the
+  // last reset j < f, or the tile's first counter + f.
+  const int since_tile = since;
+  unsigned det_bits = 0u, rising_bits = 0u, fired_bits = 0u, reset_bits = 0u;
+  auto frame = [&](int k) {
+    const float4 fx = c.flux[k], em = c.ema[k];
+    const float fk = fx.x, ek = fx.y;
+    const unsigned gk = __float_as_uint(em.z);
+    const bool e_up = ek > ema;
+    ema = fmaf(ema, e_up ? 0.84f : 0.95f, e_up ? em.x : em.y);
     const bool is_onset = fk > thr;
-    const float mem = is_onset ? 0.84f : 0.89f;
-    thr = fmaxf(fmaf(thr, mem, __fmul_rn(fk, __fsub_rn(1.0f, mem))), 0.9f);
+    thr = fmaxf(fmaf(thr, is_onset ? 0.84f : 0.89f, is_onset ? fx.z : fx.w),
+                0.9f);
     const bool det =
         is_onset && fk > __fmul_rn(thr, 1.5f) && (gk & 1u) != 0u;
     const bool rising = ek > __fmul_rn(ema, 1.5f);
     const bool fired = det && (gk & 2u) == 0u && rising && since >= REFRACTORY;
-    if (lane == k) {
-      my_det = det;
-      my_rising = rising;
-      my_fired = fired;
-      my_since = since;
-    }
-    since = ((fired && (gk & 4u) == 0u) || (det && since < REFRACTORY))
-                ? 0
-                : since + 1;
+    const bool reset =
+        (fired && (gk & 4u) == 0u) || (det && since < REFRACTORY);
+    const unsigned bit = 1u << k;
+    det_bits |= det ? bit : 0u;
+    rising_bits |= rising ? bit : 0u;
+    fired_bits |= fired ? bit : 0u;
+    reset_bits |= reset ? bit : 0u;
+    since = reset ? 0 : since + 1;
+  };
+  // A full tile is unrolled, so the compiler overlaps one frame's gates
+  // with the next frame's EMA and threshold.
+  if (nt == TF) {
+#pragma unroll
+    for (int k = 0; k < TF; ++k) frame(k);
+  } else {
+    for (int k = 0; k < nt; ++k) frame(k);
   }
+  const unsigned before = reset_bits & ((1u << lane) - 1u);
+  const int my_since =
+      before ? lane - (31 - __clz(before)) - 1 : since_tile + lane;
   if (live) {
     const long long o = f0 + lane;
-    o_fired[o] = my_fired ? 1 : 0;
-    o_det[o] = my_det ? 1 : 0;
+    o_fired[o] = (fired_bits >> lane) & 1u;
+    o_det[o] = (det_bits >> lane) & 1u;
     o_vel[o] = velocity;
     o_flux[o] = flux;
     o_energy[o] = energy;
     o_bursts[o] = bursts;
-    o_rising[o] = my_rising ? 1 : 0;
+    o_rising[o] = (rising_bits >> lane) & 1u;
     o_since[o] = my_since;
   }
+}
+
+// The chain warp's tick and hold bits for frames [f0, f0 + nt), by lane.
+__device__ __forceinline__ unsigned tick_hold(const uint8_t* __restrict__ ts,
+                                              const uint8_t* __restrict__ hold,
+                                              long long f0, int nt) {
+  const int lane = threadIdx.x & 31;
+  if (lane >= nt) return 0u;
+  return (ts[f0 + lane] != 0 ? 2u : 0u) | (hold[f0 + lane] != 0 ? 4u : 0u);
 }
 
 __global__ void __launch_bounds__(32 * (MAX_WARPS + 1), 1)
@@ -181,23 +326,30 @@ onset_kernel(const float* __restrict__ mags, const float* __restrict__ gf,
              int* __restrict__ since1, int N, int H) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Partials& p = *reinterpret_cast<Partials*>(smem_raw);
-  float* mt = reinterpret_cast<float*>(&p + 1);   // [2][TF * H] magnitudes
   const int nw = (H + 31) / 32;
   const int nb = nw * 32;                         // bin threads
+  const int ms = nb + 4;                          // a tile row's stride
+  float* mt = reinterpret_cast<float*>(&p + 1);   // [NBUF][TF][ms] mags
+  float* scratch = mt + NBUF * TF * ms;           // [nw][2][TF][stride]
+                                                  // then the chain's tile
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int s = blockIdx.x;                       // the block's stream
   const long long row = (long long)s * N;         // its first frame
   const int ntiles = (N + TF - 1) / TF;
 
-  // Warp slots no bin warp writes stay +0.0: the tree's pads.
+  // Warp slots no bin warp writes stay +0.0, and so do the tile rows' pad
+  // bins (no staging writes them): the tree's pads.
   for (int k = threadIdx.x; k < 2 * TF * SLOTS; k += blockDim.x) {
     (&p.flux[0][0][0])[k] = 0.0f;
     (&p.energy[0][0][0])[k] = 0.0f;
   }
+  for (int r = warp; r < NBUF * TF; r += nw + 1)
+    for (int c = H + lane; c < ms; c += 32) mt[r * ms + c] = 0.0f;
 
   if (warp < nw) {                                // bin warps
     const int i = threadIdx.x;                    // the bin
     const bool real = i < H;
+    const bool smoothed = i > 0 && i < H - 1;      // not an edge bin
     const float weight =
         real ? fmaf(-static_cast<float>(i), __frcp_rn(static_cast<float>(H)),
                     1.0f)
@@ -205,56 +357,134 @@ onset_kernel(const float* __restrict__ mags, const float* __restrict__ gf,
     float prev = real ? prev0[(long long)s * H + i] : 0.0f;
     float floor = real ? floor0[(long long)s * H + i] : 0.0f;
     bool init = init0[s] != 0;
-    if (ntiles > 0) stage_tile(mt, p, 0, row, min(TF, N), H, nb, mags, gf);
-    cp_async_wait_all();
+    float* contribs = scratch + warp * 2 * TF * SCRATCH_STRIDE;
+    float* dens = contribs + TF * SCRATCH_STRIDE;  // -den where a burst
+    if (!real)
+      for (int f = 0; f < TF; ++f) {              // pads: no flux, ratio 0
+        contribs[f * SCRATCH_STRIDE + lane] = 0.0f;
+        dens[f * SCRATCH_STRIDE + lane] = 1.0f;
+      }
+    // AHEAD tiles in flight; one commit group a tile (empty past the end).
+    for (int k = 0; k < AHEAD; ++k) {
+      if (k < ntiles)
+        stage_tile(mt, p, k, row + k * TF, min(TF, N - k * TF), H, ms, nb,
+                   mags, gf);
+      cp_async_commit();
+    }
+    cp_async_wait_ahead();
     block_sync();
     for (int t = 0; t < ntiles; ++t) {
-      const int b = t & 1;
+      const int b = t & 1, buf = t % NBUF;
       const int nt = min(TF, N - t * TF);
-      if (t + 1 < ntiles)
-        stage_tile(mt, p, b ^ 1, row + (t + 1) * TF,
-                   min(TF, N - (t + 1) * TF), H, nb, mags, gf);
-      const float* tile = mt + b * TF * H;
-#pragma unroll 4
-      for (int f = 0; f < nt; ++f) {
-        const float* mf = tile + f * H;
-        float m = 0.0f, contrib = 0.0f, excess = -INFINITY;
-        bool burst = false;
-        if (real) {
-          const float g = p.gfloor[b][f];
-          m = mf[i];
-          const float sm =
-              (i > 0 && i < H - 1)
-                  ? __fmul_rn(__fadd_rn(__fadd_rn(mf[i - 1], m), mf[i + 1]),
-                              1.0f / 3.0f)
-                  : m;
-          const float diff = __fsub_rn(sm, prev);
-          contrib = diff > 0.0f ? __fmul_rn(diff, weight) : 0.0f;
+      if (t + AHEAD < ntiles)
+        stage_tile(mt, p, (t + AHEAD) % NBUF, row + (t + AHEAD) * TF,
+                   min(TF, N - (t + AHEAD) * TF), H, ms, nb, mags, gf);
+      cp_async_commit();
+      const float* tile = mt + buf * TF * ms;
+      if (real) {
+        // Phase 1: for each frame, the floor recurrence (the one chain,
+        // with no division on it: burst_limit does not depend on it),
+        // keeping the divisor for the ratios (negated where the bin
+        // bursts), and the flux contribution.
+        const int li = smoothed ? i - 1 : i, ri = smoothed ? i + 1 : i;
+        auto bin_frame = [&](int f, float m, float l, float r, float g) {
+          const float limit = burst_limit(m);
           const float f0 = init ? floor : fmaxf(m, g);
-          excess = __fdiv_rn(m, fmaxf(f0, fmaxf(g, 0.01f)));
-          burst = excess > 2.5f;
+          const float den = fmaxf(f0, fmaxf(g, 0.01f));
+          const bool burst = den < limit;
           const float d = __fsub_rn(m, f0);
           floor = burst ? __fmul_rn(m, 1.3f)
                         : fmaf(m > f0 ? 0.1f : 0.04f, d, f0);
+          init = true;
+          dens[f * SCRATCH_STRIDE + lane] = burst ? -den : den;
+          const float sm =
+              smoothed ? __fmul_rn(__fadd_rn(__fadd_rn(l, m), r), 1.0f / 3.0f)
+                       : m;
+          const float diff = __fsub_rn(sm, prev);
+          contribs[f * SCRATCH_STRIDE + lane] =
+              diff > 0.0f ? __fmul_rn(diff, weight) : 0.0f;
           prev = m;
-        }
-        init = true;
-        float fl = contrib, en = m, mx = excess;
+        };
+        if (nt == TF) {
+          // A full tile in chunks of CHUNK frames, each chunk's loads
+          // issued before the previous chunk's work: the compiler does
+          // not move a shared-memory load above a shared-memory store, so
+          // loads issued frame by frame would each wait out their latency.
+          float cm[CHUNK], cl[CHUNK], cr[CHUNK], cg[CHUNK];
+          auto load = [&](int f0, float* m, float* l, float* r, float* g) {
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          fl = __fadd_rn(fl, __shfl_down_sync(FULL, fl, off));
-          en = __fadd_rn(en, __shfl_down_sync(FULL, en, off));
-          mx = fmaxf(mx, __shfl_down_sync(FULL, mx, off));
-        }
-        const int cnt = __popc(__ballot_sync(FULL, burst));
-        if (lane == 0) {
-          p.flux[b][f][warp] = fl;
-          p.energy[b][f][warp] = en;
-          p.excess[b][f][warp] = mx;
-          p.bursts[b][f][warp] = cnt;
+            for (int u = 0; u < CHUNK; ++u) {
+              const float* mf = tile + (f0 + u) * ms;
+              m[u] = mf[i];
+              l[u] = mf[li];
+              r[u] = mf[ri];
+              g[u] = p.gfloor[buf][f0 + u];
+            }
+          };
+          load(0, cm, cl, cr, cg);
+#pragma unroll
+          for (int c0 = 0; c0 < TF; c0 += CHUNK) {
+            float nm[CHUNK], nl[CHUNK], nr[CHUNK], ng[CHUNK];
+            if (c0 + CHUNK < TF) load(c0 + CHUNK, nm, nl, nr, ng);
+#pragma unroll
+            for (int u = 0; u < CHUNK; ++u)
+              bin_frame(c0 + u, cm[u], cl[u], cr[u], cg[u]);
+#pragma unroll
+            for (int u = 0; u < CHUNK; ++u) {
+              cm[u] = nm[u];
+              cl[u] = nl[u];
+              cr[u] = nr[u];
+              cg[u] = ng[u];
+            }
+          }
+        } else {
+          for (int f = 0; f < nt; ++f) {
+            const float* mf = tile + f * ms;
+            bin_frame(f, mf[i], mf[li], mf[ri], p.gfloor[buf][f]);
+          }
         }
       }
-      cp_async_wait_all();
+      __syncwarp();
+      // Phase 2: lane f reduces frame f over the warp's 32 bins: the
+      // flux and energy trees, the burst count, and the largest ratio, as
+      // a tournament of exact comparisons and one division.
+      if (lane < nt) {
+        const float4* m4 =
+            reinterpret_cast<const float4*>(tile + lane * ms + warp * 32);
+        const float4* d4 =
+            reinterpret_cast<const float4*>(dens + lane * SCRATCH_STRIDE);
+        float wm[16], wd[16];
+        int cnt = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 ma = m4[q], mb = m4[q + 4];
+          const float4 da = d4[q], db = d4[q + 4];
+          cnt += (da.x < 0.0f) + (da.y < 0.0f) + (da.z < 0.0f) +
+                 (da.w < 0.0f) + (db.x < 0.0f) + (db.y < 0.0f) +
+                 (db.z < 0.0f) + (db.w < 0.0f);
+          wm[4 * q] = ma.x;
+          wm[4 * q + 1] = ma.y;
+          wm[4 * q + 2] = ma.z;
+          wm[4 * q + 3] = ma.w;
+          wd[4 * q] = fabsf(da.x);
+          wd[4 * q + 1] = fabsf(da.y);
+          wd[4 * q + 2] = fabsf(da.z);
+          wd[4 * q + 3] = fabsf(da.w);
+          keep_larger(wm[4 * q], wd[4 * q], mb.x, fabsf(db.x));
+          keep_larger(wm[4 * q + 1], wd[4 * q + 1], mb.y, fabsf(db.y));
+          keep_larger(wm[4 * q + 2], wd[4 * q + 2], mb.z, fabsf(db.z));
+          keep_larger(wm[4 * q + 3], wd[4 * q + 3], mb.w, fabsf(db.w));
+        }
+        halve_ratio<8>(wm, wd);
+        halve_ratio<4>(wm, wd);
+        halve_ratio<2>(wm, wd);
+        halve_ratio<1>(wm, wd);
+        p.flux[b][lane][warp] = tree32(contribs + lane * SCRATCH_STRIDE);
+        p.energy[b][lane][warp] = tree32(tile + lane * ms + warp * 32);
+        p.excess[b][lane][warp] = div_guarded(wm[0], wd[0]);
+        p.bursts[b][lane][warp] = cnt;
+      }
+      cp_async_wait_ahead();
       block_sync();
     }
     if (real) {
@@ -265,20 +495,27 @@ onset_kernel(const float* __restrict__ mags, const float* __restrict__ gf,
     return;
   }
 
-  // The chain warp.
+  // The chain warp, a tile behind the bin warps.
+  Chain& c =
+      *reinterpret_cast<Chain*>(scratch + nw * 2 * TF * SCRATCH_STRIDE);
   float thr = thr0[s], ema = ema0[s];
   int since = since0[s];
+  unsigned flags = tick_hold(ts, hold, row, min(TF, N));
   block_sync();
   for (int t = 0; t < ntiles; ++t) {
-    if (t > 0)
-      chain_tile(p, (t - 1) & 1, row + (t - 1) * TF, TF, nw, ts, hold, thr,
+    if (t > 0) {
+      const unsigned next = tick_hold(ts, hold, row + t * TF,
+                                      min(TF, N - t * TF));
+      chain_tile(p, c, (t - 1) & 1, row + (t - 1) * TF, TF, nw, flags, thr,
                  ema, since, o_fired, o_det, o_vel, o_flux, o_energy,
                  o_bursts, o_rising, o_since);
+      flags = next;
+    }
     block_sync();
   }
   if (ntiles > 0)
-    chain_tile(p, (ntiles - 1) & 1, row + (ntiles - 1) * TF,
-               N - (ntiles - 1) * TF, nw, ts, hold, thr, ema, since, o_fired,
+    chain_tile(p, c, (ntiles - 1) & 1, row + (ntiles - 1) * TF,
+               N - (ntiles - 1) * TF, nw, flags, thr, ema, since, o_fired,
                o_det, o_vel, o_flux, o_energy, o_bursts, o_rising, o_since);
   if (lane == 0) {
     thr1[s] = thr;
@@ -307,8 +544,11 @@ int aat_onset_scan(const float* mags, const float* gf, const uint8_t* ts,
   if (H < 2 || H > 32 * MAX_WARPS || N < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nw = (H + 31) / 32;
-  const int smem = static_cast<int>(sizeof(Partials)) +
-                   2 * TF * H * static_cast<int>(sizeof(float));
+  const int ms = nw * 32 + 4;
+  const int smem =
+      static_cast<int>(sizeof(Partials) + sizeof(Chain)) +
+      (NBUF * TF * ms + nw * 2 * TF * SCRATCH_STRIDE) *
+          static_cast<int>(sizeof(float));
   const cudaError_t e = cudaFuncSetAttribute(
       onset_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -2,8 +2,8 @@
 audio_analyzer_rs_tpu/models/analyzer.py; ref src/audio_io/stft.rs:155-441,
 src/analysis/onset.rs:104-546).
 
-Pitch: frame → Hann × rDFT magnitude (K1) → per-bin noise-floor scan →
-harmonic-comb pitch extraction (K2) → PitchTracker scan (K3).  Onset:
+Pitch: frame → Hann × rDFT magnitude (K1) → per-bin noise-floor scan (K5)
+→ harmonic-comb pitch extraction (K2) → PitchTracker scan (K3).  Onset:
 frame → Hann × FFT magnitude (cuFFT) → onset scan (K4).  The functions take
 a leading stream axis S: state leaves [S, ...], frames [S, N, W], per-frame
 inputs [S, N].

@@ -1,0 +1,106 @@
+"""K5 — the per-bin noise-floor recurrence over S streams, as one Hopper
+kernel (csrc/noisefloor.cu).
+
+Replaces: the `lax.scan` of audio_analyzer_rs_tpu/ops/noisefloor.py
+`noise_floor_scan` (:98 full width, :107 banded), which XLA compiles to one
+device loop.  It has no Pallas twin; as plain PyTorch each frame is ~30
+small launches on [S, B] tensors, so the scan is a kernel here.
+
+What bounds it on an H100: bytes at the segmented step (S = 128 streams x
+N = 64 frames x B = 464 bins: 15.2 MB of magnitudes read, 15.2 MB of
+effective floors written, ~9.5 us at 3.35 TB/s), and the per-frame chain of
+each bin wherever S is small (the sequential `PitchAnalyzer`, S = 1).
+
+Design (the source note in csrc/noisefloor.cu has the detail): a thread a
+(stream, bin) with the state in registers, a loop over frames with the
+next frames' loads issued ahead, coalesced along the bins.  The kernel
+scans the first B columns; the state above B (frozen, or seeded once from
+full-width magnitudes) is joined in torch by `noisefloor.with_tail`, a few
+launches a call.
+
+`noise_floor_scan` is the wrapper: on CPU tensors the plain scan, on CUDA
+tensors the kernel (or it raises).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import _build
+
+LAUNCHES = 0
+
+
+def check_args(state, mags, global_floor, band: int) -> torch.Tensor:
+    """Raise ValueError on what the kernel does not take; return mags as
+    [S, N, H'] (a view where the leading axes allow it)."""
+    lead = tuple(state.initialized.shape)
+    half = state.floor.shape[-1]
+    if mags.dim() != len(lead) + 2 or tuple(mags.shape[:len(lead)]) != lead:
+        raise ValueError(f"noise_floor_scan: mags must be {lead} + (N, H'), "
+                         f"got {tuple(mags.shape)}")
+    n, width = mags.shape[-2:]
+    if not 1 <= band <= min(half, width):
+        raise ValueError(f"noise_floor_scan: band {band} must be in [1, "
+                         f"{min(half, width)}]")
+    expect = {
+        "mags": (mags, torch.float32, lead + (n, width)),
+        "global_floor": (global_floor, torch.float32, lead + (n,)),
+        "floor": (state.floor, torch.float32, lead + (half,)),
+        "prev_mag": (state.prev_mag, torch.float32, lead + (half,)),
+        "volatility": (state.volatility, torch.float32, lead + (half,)),
+        "initialized": (state.initialized, torch.bool, lead),
+    }
+    for name, (t, dtype, shape) in expect.items():
+        if t.device != mags.device:
+            raise ValueError("noise_floor_scan: all tensors must share one "
+                             "device")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"noise_floor_scan: {name} must be {dtype} "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        if name != "mags" and not t.is_contiguous():
+            raise ValueError(f"noise_floor_scan: {name} must be contiguous")
+    if mags.numel() and mags.stride(-1) != 1:
+        raise ValueError("noise_floor_scan: mags needs unit stride along "
+                         "the bins")
+    m3 = mags.reshape(math.prod(lead), n, width)
+    if m3.data_ptr() % 4:
+        raise ValueError("noise_floor_scan: mags must be 4-byte aligned")
+    return m3
+
+
+def noise_floor_scan(state, mags, global_floor, band: int):
+    """state: NoiseFloorState with leaves [..., H] / [...]; mags [..., N,
+    H'] float32 with unit stride along the bins, H' >= band; global_floor
+    [..., N] float32; 1 <= band <= H → (state, effective floor [..., N,
+    band])."""
+    from . import noisefloor
+    if mags.device.type == "cpu":
+        return noisefloor.noise_floor_scan_plain(state, mags, global_floor,
+                                                 band)
+    if mags.device.type != "cuda":
+        raise ValueError(f"noise_floor_scan: unsupported device "
+                         f"{mags.device}")
+    m3 = check_args(state, mags, global_floor, band)
+    s, n = m3.shape[:2]
+    lead = tuple(state.initialized.shape)
+    dev = mags.device
+    eff = torch.empty(lead + (n, band), dtype=torch.float32, device=dev)
+    if n == 0 or s == 0:
+        return state, eff
+    sub = noisefloor.NoiseFloorState(
+        *(torch.empty(lead + (band,), dtype=torch.float32, device=dev)
+          for _ in range(3)),
+        torch.empty_like(state.initialized))
+    code = _build.lib().aat_noise_floor_scan(
+        m3.data_ptr(), m3.stride(0), m3.stride(1), global_floor.data_ptr(),
+        *(t.data_ptr() for t in state), eff.data_ptr(),
+        *(t.data_ptr() for t in sub), s, n, band, state.floor.shape[-1],
+        ctypes.c_void_p(_build.stream_ptr(mags)))
+    _build.check(code, "aat_noise_floor_scan")
+    global LAUNCHES
+    LAUNCHES += 1
+    return noisefloor.with_tail(state, sub, mags, global_floor), eff

@@ -1,15 +1,17 @@
 """Variance-aware per-bin noise floor (port of
 audio_analyzer_rs_tpu/ops/noisefloor.py; ref src/audio_io/stft.rs:209-367).
 
-The recurrence runs as a loop over frames on tensors with any leading batch
-axes (a segment-stream axis S in the segmented pipeline).
+The recurrence runs on tensors with any leading batch axes (a segment-stream
+axis S in the segmented pipeline).  `noise_floor_scan` runs kernel K5
+(ops/hopper_noisefloor.py, csrc/noisefloor.cu) on CUDA tensors and
+`noise_floor_scan_plain`, a loop over `_step`, on CPU tensors.
 
 Rounding: the JAX scan compiled by XLA:CPU contracts the alpha blend and the
 floor update into fused multiply-adds (its bitwise oracle is
-`noise_floor_np(fma=True)`).  This port computes those two expressions in
-float64 and rounds once to float32 — the oracle's `_fma32` — so it is
-bitwise equal to the reference on every device, independent of what a
-compiler would contract.
+`noise_floor_np(fma=True)`); it does not contract the volatility EMA.  This
+port computes the two fused expressions with `rounding.fma32`, which rounds
+once to float32 as a hardware FMA does, and the kernel with `fmaf`, so the
+plain loop, the kernel and the reference are bitwise equal.
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from . import hopper_noisefloor
+from .rounding import fma32
 
 FLOOR_BASE_ALPHA = 0.04
 FLOOR_FAST_ALPHA = 0.35
@@ -45,11 +50,6 @@ def init_state(half_size: int, device="cuda", batch: tuple = ()
                            torch.zeros(batch, dtype=torch.bool, device=device))
 
 
-def _fma32(a, b, c):
-    """a*b + c rounded once to float32 (the product is exact in float64)."""
-    return (a.double() * b + c).float()
-
-
 def _step(state: NoiseFloorState, mags: torch.Tensor, global_floor):
     """One frame: mags [..., B], global_floor [...] → (new_state,
     effective_floor [..., B])."""
@@ -62,11 +62,10 @@ def _step(state: NoiseFloorState, mags: torch.Tensor, global_floor):
     above_ratio = mags / floor.clamp_min(0.01)
     vol_norm = (vol / mags.clamp_min(0.05)).clamp(0.0, 1.0)
     is_sustained = (above_ratio > NOTE_RATIO) & (vol_norm < NOTE_VOL_MAX)
-    alpha_hot = _fma32(vol_norm, _FAST_MINUS_BASE32, _BASE32)
+    alpha_hot = fma32(vol_norm, _FAST_MINUS_BASE32, _BASE32)
     alpha = torch.where(mags > floor, alpha_hot, FLOOR_RELEASE)
     updated = torch.where(is_sustained, floor,
-                          _fma32(alpha, (mags - floor).double(),
-                                 floor.double()))
+                          fma32(alpha, mags - floor, floor))
 
     init = state.initialized[..., None]
     new_floor = torch.where(init, updated, init_floor)
@@ -77,33 +76,28 @@ def _step(state: NoiseFloorState, mags: torch.Tensor, global_floor):
     return new_state, effective
 
 
-def noise_floor_scan(state: NoiseFloorState, mags: torch.Tensor,
-                     global_floor: torch.Tensor, band: int | None = None):
-    """mags [..., N, H'], global_floor [..., N] → (final state,
-    effective_floor [..., N, B]).
-
-    `band`: run the recurrence on the first `band` bins only and carry the
-    state above it through frozen (B = band).  With full-width magnitudes
-    an uninitialized state's above-band floor is seeded once by the
-    first-frame rule; with banded magnitudes the tail stays frozen.
-    band=None (or >= H) scans the full width and needs full-width mags."""
+def _scan_width(state: NoiseFloorState, mags: torch.Tensor,
+                band: int | None) -> int:
+    """The scanned width B: `band`, or the state's full width H when band
+    is None or >= H (which needs full-width magnitudes)."""
     half = state.floor.shape[-1]
-    n = mags.shape[-2]
-    full = band is None or band >= half
-    if full:
+    if band is None or band >= half:
         if mags.shape[-1] < half:
             raise ValueError("full-width scan needs full-width magnitudes")
-        band = half
-    sub = NoiseFloorState(state.floor[..., :band], state.prev_mag[..., :band],
-                          state.volatility[..., :band], state.initialized)
-    eff = torch.empty(mags.shape[:-1] + (band,), dtype=torch.float32,
-                      device=mags.device)
-    for i in range(n):
-        sub, eff[..., i, :] = _step(sub, mags[..., i, :band],
-                                    global_floor[..., i])
-    if full or n == 0:
-        return (sub if n else state), eff
+        return half
+    return band
 
+
+def with_tail(state: NoiseFloorState, sub: NoiseFloorState,
+              mags: torch.Tensor, global_floor: torch.Tensor
+              ) -> NoiseFloorState:
+    """The scanned state `sub` (width B) joined to the state above B: frozen
+    while banded, but with full-width magnitudes an uninitialized state's
+    tail is seeded once by the first-frame rule.  `mags` has N >= 1
+    frames."""
+    band, half = sub.floor.shape[-1], state.floor.shape[-1]
+    if band == half:
+        return sub
     init = state.initialized[..., None]
     if mags.shape[-1] >= half:
         first = mags[..., 0, band:half]
@@ -113,12 +107,45 @@ def noise_floor_scan(state: NoiseFloorState, mags: torch.Tensor,
     else:
         tail_floor = state.floor[..., band:]
         tail_prev = state.prev_mag[..., band:]
-    new_state = NoiseFloorState(
+    return NoiseFloorState(
         torch.cat([sub.floor, tail_floor], -1),
         torch.cat([sub.prev_mag, tail_prev], -1),
         torch.cat([sub.volatility, state.volatility[..., band:]], -1),
         sub.initialized)
-    return new_state, eff
+
+
+def noise_floor_scan_plain(state: NoiseFloorState, mags: torch.Tensor,
+                           global_floor: torch.Tensor,
+                           band: int | None = None):
+    """The plain scan, a loop over `_step`: arguments and results as
+    `noise_floor_scan`."""
+    band = _scan_width(state, mags, band)
+    n = mags.shape[-2]
+    sub = NoiseFloorState(state.floor[..., :band], state.prev_mag[..., :band],
+                          state.volatility[..., :band], state.initialized)
+    eff = torch.empty(mags.shape[:-1] + (band,), dtype=torch.float32,
+                      device=mags.device)
+    if n == 0:
+        return state, eff
+    for i in range(n):
+        sub, eff[..., i, :] = _step(sub, mags[..., i, :band],
+                                    global_floor[..., i])
+    return with_tail(state, sub, mags, global_floor), eff
+
+
+def noise_floor_scan(state: NoiseFloorState, mags: torch.Tensor,
+                     global_floor: torch.Tensor, band: int | None = None):
+    """mags [..., N, H'], global_floor [..., N] → (final state,
+    effective_floor [..., N, B]).  Kernel K5 on CUDA tensors,
+    `noise_floor_scan_plain` on CPU tensors.
+
+    `band`: run the recurrence on the first `band` bins only and carry the
+    state above it through frozen (B = band).  With full-width magnitudes
+    an uninitialized state's above-band floor is seeded once by the
+    first-frame rule; with banded magnitudes the tail stays frozen.
+    band=None (or >= H) scans the full width and needs full-width mags."""
+    return hopper_noisefloor.noise_floor_scan(state, mags, global_floor,
+                                              _scan_width(state, mags, band))
 
 
 def global_floor_linear(noise_floor_db: float, half_size: int) -> np.float32:

@@ -22,9 +22,9 @@ Rounding, so that the plain loop, the kernel and the JAX scan agree:
   fma(thr, mem, flux*(1 - mem)); and it divides by a constant as a product
   with the float32 reciprocal (the smoothing's / 3, the velocity's / 50).
   tests/test_torch_onset.py finds each of these from JAX's bits.  The port
-  computes the contracted ones with `_fma32`, one rounding to float32, and
-  the kernel with `fmaf`; everything else rounds after each operation, and
-  `r`'s division of two tensors is IEEE division everywhere.
+  computes the contracted ones with `rounding.fma32`, one rounding to
+  float32, and the kernel with `fmaf`; everything else rounds after each
+  operation, and `r`'s division of two tensors is IEEE division everywhere.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from . import hopper_onset
+from .rounding import fma32
 
 WINDOW = 256
 HOP = 64
@@ -118,30 +119,12 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
-def _fma32(a, b, c) -> torch.Tensor:
-    """a*b + c with one rounding to float32, as a fused multiply-add gives
-    it, for float32 operands (tensors or Python floats exact in float32).
-    The product is exact in float64; the sum is made round-to-odd in
-    float64 (TwoSum gives its error), so the final rounding to float32 is
-    the correct one — no double rounding."""
-    a, b, c = (v.double() if isinstance(v, torch.Tensor) else v
-               for v in (a, b, c))
-    p = a * b
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.inf, -torch.inf).double()
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.float()
-
-
 @lru_cache(maxsize=16)
 def _bin_constants(half: int, device: torch.device):
     """The flux weight 1 - i/half (as XLA:CPU computes it, fma(-i, 1/half,
     1)) and the mask of the two unsmoothed edge bins."""
     i = torch.arange(half, dtype=torch.float32, device=device)
-    return _fma32(-i, _f32(1.0 / half), 1.0), (i == 0) | (i == half - 1)
+    return fma32(-i, _f32(1.0 / half), 1.0), (i == 0) | (i == half - 1)
 
 
 def _step(state: OnsetState, mags, global_floor, tick_suppressed,
@@ -167,7 +150,7 @@ def _step(state: OnsetState, mags, global_floor, tick_suppressed,
     burst = r > BIN_BURST_RATIO
     rate = torch.where(mags > floor0, _f32(FLOOR_RISE), _f32(FLOOR_DECAY))
     floor1 = torch.where(burst, mags * _f32(FLOOR_OVERCOMPENSATE),
-                         _fma32(rate.float(), mags - floor0, floor0))
+                         fma32(rate.float(), mags - floor0, floor0))
     burst_count = burst.sum(-1, dtype=torch.int32)
     max_excess = r.amax(-1)
 
@@ -177,13 +160,13 @@ def _step(state: OnsetState, mags, global_floor, tick_suppressed,
     # Energy EMA, asymmetric (ref onset.rs:341-350).
     ema_mem = torch.where(energy > state.energy_ema, _f32(ENERGY_EMA_RISE),
                           _f32(ENERGY_EMA_DECAY)).float()
-    energy_ema = _fma32(state.energy_ema, ema_mem, energy * (1.0 - ema_mem))
+    energy_ema = fma32(state.energy_ema, ema_mem, energy * (1.0 - ema_mem))
 
     # FluxTracker (ref onset.rs:67-83).
     is_onset = flux > state.threshold
     mem = torch.where(is_onset, _f32(FLUX_RISE_MEMORY),
                       _f32(FLUX_DECAY_MEMORY)).float()
-    threshold = _fma32(state.threshold, mem, flux * (1.0 - mem)).clamp_min(
+    threshold = fma32(state.threshold, mem, flux * (1.0 - mem)).clamp_min(
         _f32(FLUX_THRESHOLD_FLOOR))
     flux_onset = is_onset & (flux > threshold * _f32(FLUX_MULTIPLIER))
 

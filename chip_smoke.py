@@ -33,16 +33,23 @@ Phases, one line each on standard output:
             first 1,024 frames, and at S=1 x N=131072 (the sequential
             analyzer's chunk); the per-frame cost as the slope between
             N=1024 and N=4096; the plain scan timed once at S=128 x N=4096;
+       K5 noise-floor scan, bitwise (bit patterns, the effective floors and
+            the final state) to the plain scan on the step's K1 magnitudes
+            (S=128 x N=64, band 464) from fresh and carried states, at S=1 x
+            N=4096 with a full-width state (the sequential analyzer's call)
+            and at full width (band=None); timed at S=128 x N=64 alone and
+            through the wrapper with the 1,025-wide state, and at S=1 x
+            N=4096; the plain scan timed once at S=128 x N=64;
   4. the main path: `segmented_pitch_analysis` over a 30-minute mixed scene at
      the default geometry (128 segments x 64-frame chunks), cold then warm, with
-     every kernel's launch count over the warm run (and no plain
-     select_stable call); then
+     the launch counts of K1, K2, K3 and K5 over the warm run (and no plain
+     select_stable call and no plain noise-floor step); then
      `segmented_pitch_analysis_batch` over 8 takes of 30 s;
   5. agreement: the sequential `PitchAnalyzer` on the first 5 minutes against
      the segmented run (segment 0 bitwise, >= 99.9% of frames);
   6. `analyze_buffer_segmented` over the 30-minute scene, cold then warm, with
-     K1-K4's launch counts over the warm run (K4's row takes its count) and
-     no plain onset step;
+     K1-K5's launch counts over the warm run (K4's row takes its count) and
+     no plain onset or noise-floor step;
   7. `analyze_buffer` over the first minute (per-frame structs);
   8. `segmented_onset_analysis_batch` over the 8 takes;
   9. onset agreement: the sequential `OnsetAnalyzer` on the first 5 minutes
@@ -179,10 +186,11 @@ def main() -> int:
     from audio_analyzer_rs_tpu_torch.models import segmented
     from audio_analyzer_rs_tpu_torch.models.analyzer import (OnsetAnalyzer,
                                                              PitchAnalyzer)
-    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_onset,
-                                                 hopper_stft, hopper_tracker,
-                                                 noisefloor, onset, pitch,
-                                                 tracker)
+    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
+                                                 hopper_noisefloor,
+                                                 hopper_onset, hopper_stft,
+                                                 hopper_tracker, noisefloor,
+                                                 onset, pitch, tracker)
     from audio_analyzer_rs_tpu_torch.ops.fft import hann, rdft_trig
     from audio_analyzer_rs_tpu_torch.ops.stft import (FIDELITY_MAX_REL_MSE,
                                                       spectral_rel_mse,
@@ -380,6 +388,83 @@ def main() -> int:
                      ms_random_s128_n64=k3_ms64, ms_random_s128_n256=k3_ms256,
                      ms_s1_n4096=k3_ms4096, per_frame_ns=slope_ns,
                      per_frame_cycles=slope_cycles, sm_mhz=sm_mhz))
+
+    # K5: the noise-floor scan, bitwise to the plain loop on the step's K1
+    # magnitudes (fresh, then the state carried into the next step), on the
+    # sequential analyzer's call (S=1 x N=4096, a full-width state, banded
+    # magnitudes) and at full width (band=None, cuFFT magnitudes).
+    def k1_mags(x):
+        return hopper_stft.dft_mag(x, trig, win)
+
+    prev_chunk = streams[:, 64 * hop:64 * hop + plan.chunk_samples]
+    mags_prev = k1_mags(frame_signal(prev_chunk, window, hop))
+    n_seq5 = 4096
+    mags_seq5 = k1_mags(frame_signal(
+        audio_dev[:(n_seq5 - 1) * hop + window], window, hop)[None])
+    gf_seq5 = torch.full((1, n_seq5), gf[0, 0].item(), device=dev)
+    mags_full = windowed_mags(frames, window, "fft")
+    st128 = noisefloor.init_state(half, dev, (128,))
+    st_one = noisefloor.init_state(half, dev, (1,))
+    st_carried, _ = noisefloor.noise_floor_scan_plain(st128, mags_prev, gf,
+                                                      kc)
+    k5_cases = (("step, fresh", st128, mags, gf, kc),
+                ("step, carried", st_carried, mags, gf, kc),
+                ("S=1 N=4096", st_one, mags_seq5, gf_seq5, kc),
+                ("full width", st128, mags_full, gf, None))
+    k5_err = 0.0
+    for label, st, m5, g5, band5 in k5_cases:
+        st_k, eff_k = noisefloor.noise_floor_scan(st, m5, g5, band5)
+        st_p, eff_p = noisefloor.noise_floor_scan_plain(st, m5, g5, band5)
+        torch.cuda.synchronize()
+        assert same_bits(eff_k, eff_p), f"K5 {label} effective differs"
+        for name, g, r in zip(noisefloor.NoiseFloorState._fields, st_k,
+                              st_p):
+            assert same_bits(g, r), f"K5 {label} final {name} differs"
+        k5_err = max(k5_err, float((eff_k - eff_p).abs().max()))
+    # Timed alone at a state as wide as the band (no tail to join), and
+    # through the wrapper with the path's 1,025-wide state (the tail's
+    # torch ops included).
+    st_band = noisefloor.init_state(kc, dev, (128,))
+    st_band1 = noisefloor.init_state(kc, dev, (1,))
+    k5_ms = cuda_ms(lambda: hopper_noisefloor.noise_floor_scan(
+        st_band, mags, gf, kc), KERNEL_REPS)
+    k5_ms_seq = cuda_ms(lambda: hopper_noisefloor.noise_floor_scan(
+        st_band1, mags_seq5, gf_seq5, kc), KERNEL_REPS)
+    k5_wrapper_ms = cuda_ms(lambda: noisefloor.noise_floor_scan(
+        st128, mags, gf, kc), KERNEL_REPS)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    noisefloor.noise_floor_scan_plain(st128, mags, gf, kc)
+    end.record()
+    end.synchronize()
+    k5_plain_ms = start.elapsed_time(end)
+    # Bytes: the band of the magnitudes and the global floors read, the
+    # effective floors written, the band of the state in and out; ~30
+    # operations a bin and frame are far below the FP32 rate's bound.
+    s5, n5f = mags.shape[:2]
+    k5_bytes = (2 * s5 * n5f * kc * 4 + nbytes(gf)
+                + 2 * (3 * s5 * kc * 4 + s5))
+    k5_bound, k5_by = bound(k5_bytes, 30 * s5 * n5f * kc, FP32_FLOPS)
+    say(f"K5 noise floor: bitwise equal to the plain scan (effective floors "
+        f"and the final state) on the step's K1 magnitudes "
+        f"{tuple(mags.shape)} at band {kc} from fresh and carried states, at S=1 N={n_seq5} "
+        f"with a {half}-wide state, and at full width (band=None); S=128 "
+        f"N=64 {k5_ms * 1e3:.2f} us alone, {k5_wrapper_ms * 1e3:.2f} us "
+        f"through the wrapper with the {half}-wide state; S=1 N={n_seq5} "
+        f"{k5_ms_seq:.4f} ms = "
+        f"{k5_ms_seq / n_seq5 * 1e6 * sm_mhz / 1e3:.0f} cycles a frame; "
+        f"plain {k5_plain_ms:.1f} ms at S=128 N=64 (one sample, ~30 "
+        f"launches a frame); bound {k5_bound * 1e3:.2f} us ({k5_by}: "
+        f"{k5_bytes / 1e6:.1f} MB)")
+    k5_row = dict(name="K5 noise floor (the per-bin floor recurrence)",
+                  route="cuda", source=f"{PKG}/csrc/noisefloor.cu",
+                  replaces="audio_analyzer_rs_tpu/ops/noisefloor.py:98",
+                  max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain_ms,
+                  plain_samples=1, bound_ms=k5_bound, bound_by=k5_by,
+                  library_ms=None, wrapper_ms=k5_wrapper_ms,
+                  ms_s1_n4096=k5_ms_seq, sm_mhz=sm_mhz)
+    del mags_prev, mags_seq5, mags_full
     del streams, chunk, frames, audio_dev
 
     # K4: the onset scan, on the 30-minute scene's "fft" magnitudes as the
@@ -465,15 +550,18 @@ def main() -> int:
                      library_ms=None, ms_s128_n1024=k4_ms1k,
                      ms_s1_n131072=k4_ms_seq, per_frame_ns=k4_slope_ns,
                      per_frame_cycles=k4_slope_cycles, sm_mhz=sm_mhz))
+    rows.append(k5_row)
     del o_audio, o_streams, mags4, gf4, no4, in1k, in_one, mags_seq, out4
 
     # 4. The main path through the public entry points.
-    counters = (hopper_stft, hopper_comb, hopper_tracker)
+    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_noisefloor)
     t0 = time.perf_counter()
     sf, ss, sv = segmented.segmented_pitch_analysis(audio, SR)
     cold = time.perf_counter() - t0
     plain_select, selects = tracker.select_stable, []
     tracker.select_stable = lambda *a: selects.append(1) or plain_select(*a)
+    plain_nf_step, nf_steps = noisefloor._step, []
+    noisefloor._step = lambda *a: nf_steps.append(1) or plain_nf_step(*a)
     for mod in counters:
         mod.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -481,17 +569,19 @@ def main() -> int:
     warm = time.perf_counter() - t0
     launches = [mod.LAUNCHES for mod in counters]
     tracker.select_stable = plain_select
+    noisefloor._step = plain_nf_step
     assert all(n > 0 for n in launches), launches
     assert not selects, f"{len(selects)} plain select_stable calls"
+    assert not nf_steps, f"{len(nf_steps)} plain floor steps on the CUDA path"
     assert sf.shape == ss.shape == sv.shape == (n_total, 8), sf.shape
     assert np.isfinite(sf).all() and np.isfinite(ss).all()
     assert sv.any(), "no stable pitch in 30 minutes of tones"
     say(f"main path: segmented_pitch_analysis 30 min ({n_total} frames): "
         f"cold {cold:.2f} s, warm {warm:.2f} s = {n_total / warm:,.0f} "
-        f"frames/s; launches K1/K2/K3 {launches}, plain select_stable "
-        f"calls 0; "
+        f"frames/s; launches K1/K2/K3/K5 {launches}, plain select_stable "
+        f"calls 0, plain floor steps 0; "
         f"{int(sv.any(1).sum())} frames with a stable pitch")
-    for row, n in zip(rows, launches):
+    for row, n in zip(rows[:3] + rows[4:], launches):
         row["launches"] = n
 
     takes = [audio[i * int(30 * SR):(i + 1) * int(30 * SR)] for i in range(8)]
@@ -533,7 +623,9 @@ def main() -> int:
     cold = time.perf_counter() - t0
     plain_step, steps = onset._step, []
     onset._step = lambda *a: steps.append(1) or plain_step(*a)
-    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_onset)
+    noisefloor._step = lambda *a: nf_steps.append(1) or plain_nf_step(*a)
+    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_onset,
+                hopper_noisefloor)
     for mod in counters:
         mod.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -541,8 +633,10 @@ def main() -> int:
     warm = time.perf_counter() - t0
     launches = [mod.LAUNCHES for mod in counters]
     onset._step = plain_step
+    noisefloor._step = plain_nf_step
     assert all(n > 0 for n in launches), launches
     assert not steps, f"{len(steps)} plain onset steps on the CUDA path"
+    assert not nf_steps, f"{len(nf_steps)} plain floor steps on the CUDA path"
     assert len(arr.rms) == n_total and arr.spectrogram.shape == (n_total,
                                                                  half)
     for col in (arr.rms, arr.energy, arr.centroid_hz, arr.flux,
@@ -552,8 +646,9 @@ def main() -> int:
     assert arr.stable_valid.any() and arr.yin_voiced.any()
     say(f"analysis: analyze_buffer_segmented 30 min ({n_total} pitch frames, "
         f"{n_on} onset frames): cold {cold:.2f} s, warm {warm:.2f} s = "
-        f"{n_total / warm:,.0f} pitch frames/s; launches K1/K2/K3/K4 "
-        f"{launches}, plain onset steps 0; {len(arr.onsets)} onsets, "
+        f"{n_total / warm:,.0f} pitch frames/s; launches K1/K2/K3/K4/K5 "
+        f"{launches}, plain onset and floor steps 0; {len(arr.onsets)} "
+        f"onsets, "
         f"{int(arr.stable_valid.any(1).sum())} frames with a stable pitch, "
         f"{int(arr.yin_voiced.sum())} YIN-voiced frames")
     rows[3]["launches"] = launches[3]

@@ -9,8 +9,8 @@ test configuration:
 Small shapes of the main path's kinds; chip_smoke.py repeats the checks at
 the full main-path shapes and times them.  Tolerances: K1 max |Δ| <= 1e-5 ·
 max (3xTF32 on the tensor cores against cuBLAS FP32), and bitwise across
-batch geometries; K2, K3 and K4 bitwise (K3's and K4's floats as bit
-patterns, so -0.0 and +0.0 differ).
+batch geometries; K2, K3, K4 and K5 bitwise (K3's, K4's and K5's floats as
+bit patterns, so -0.0 and +0.0 differ).
 """
 
 import numpy as np
@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from audio_analyzer_rs_tpu_torch.models import generators as gen
-from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_onset,
+from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
+                                             hopper_noisefloor, hopper_onset,
                                              hopper_stft, hopper_tracker,
                                              noisefloor, onset, pitch,
                                              tracker)
@@ -315,13 +316,111 @@ def test_onset_scan_cuda_runs_no_plain_step(dev, monkeypatch):
 
 
 def test_noise_floor_device_matches_cpu(dev, frames):
-    """The plain floor recurrence gives the same bits on the card as on the
-    CPU (its fused steps are rounded in float64, not left to a compiler)."""
+    """K5 on K1's magnitudes gives the bits of the plain floor recurrence on
+    the CPU (its fused steps rounded once on both)."""
     mags = hopper_stft.dft_mag(frames, rdft_trig(W, dev)[:, :2 * (KC + 1)],
                                hann(W, dev))
     gf = torch.full(mags.shape[:2], 0.01, device=dev)
-    _, eff = noisefloor.noise_floor_scan(
+    launches = hopper_noisefloor.LAUNCHES
+    st, eff = noisefloor.noise_floor_scan(
         noisefloor.init_state(HALF, dev, (4,)), mags, gf, KC)
-    _, eff_cpu = noisefloor.noise_floor_scan(
+    torch.cuda.synchronize()
+    assert hopper_noisefloor.LAUNCHES == launches + 1
+    st_cpu, eff_cpu = noisefloor.noise_floor_scan_plain(
         noisefloor.init_state(HALF, "cpu", (4,)), mags.cpu(), gf.cpu(), KC)
-    assert torch.equal(eff.cpu(), eff_cpu)
+    assert_same_bits(eff, eff_cpu)
+    for a, b in zip(st, st_cpu):
+        assert_same_bits(a, b)
+
+
+def _k5_inputs(dev, s, n, width, seed):
+    """Spectrum-like magnitudes [S, N, width]: a noise bed, sustained
+    partials with small jitter (the floor's held branch) and bursts; per-
+    frame global floors [S, N]."""
+    rng = np.random.default_rng(seed)
+    mags = rng.exponential(0.02, (s, n, width)).astype(np.float32)
+    held = rng.random((s, 1, width)) < 0.05
+    level = rng.uniform(0.5, 20.0, (s, 1, width))
+    jitter = 1.0 + 0.02 * rng.standard_normal((s, n, width))
+    mags = np.where(held, level * jitter, mags).astype(np.float32)
+    hits = rng.random((s, n, width)) < 0.01
+    mags[hits] *= np.float32(50.0)
+    gf = rng.uniform(1e-3, 0.05, (s, n)).astype(np.float32)
+    return torch.from_numpy(mags).to(dev), torch.from_numpy(gf).to(dev)
+
+
+def _k5_state(dev, s, seed):
+    """A mid-stream state from outside: random floors, previous magnitudes
+    and volatilities, every other stream uninitialized."""
+    rng = np.random.default_rng(seed)
+    leaves = [torch.from_numpy(rng.uniform(0.0, 2.0, (s, HALF)).astype(
+        np.float32)).to(dev) for _ in range(3)]
+    init = torch.from_numpy(np.arange(s) % 2 == 0).to(dev)
+    return noisefloor.NoiseFloorState(*leaves, init)
+
+
+def _assert_k5_matches_plain(st0, mags, gf, band):
+    """K5 (through noise_floor_scan) against noise_floor_scan_plain on the
+    card: the effective floors and the whole final state, bit for bit."""
+    launches = hopper_noisefloor.LAUNCHES
+    st_k, eff_k = noisefloor.noise_floor_scan(st0, mags, gf, band)
+    st_p, eff_p = noisefloor.noise_floor_scan_plain(st0, mags, gf, band)
+    torch.cuda.synchronize()
+    assert hopper_noisefloor.LAUNCHES == launches + (mags.shape[-2] > 0)
+    assert eff_k.shape == eff_p.shape
+    assert_same_bits(eff_k, eff_p, "effective")
+    for name, a, b in zip(noisefloor.NoiseFloorState._fields, st_k, st_p):
+        assert_same_bits(a, b, name)
+    return st_k, eff_k
+
+
+@pytest.mark.parametrize("width,band", [(KC + 1, KC), (HALF, None),
+                                        (HALF, KC)])
+@pytest.mark.parametrize("s,n", [(128, 64), (1, 4096), (3, 0), (5, 31),
+                                 (133, 64)])
+def test_k5_matches_plain_bitwise(dev, s, n, width, band):
+    """The segmented step, the sequential analyzer's chunk, no frames, less
+    than one look-ahead group, more streams than SMs; banded magnitudes at
+    band 464, full width, and full-width magnitudes at band 464 (the tail
+    seeded); from fresh states and from a state handed in."""
+    mags, gf = _k5_inputs(dev, s, n, width, seed=s + n + width)
+    _assert_k5_matches_plain(noisefloor.init_state(HALF, dev, (s,)), mags,
+                             gf, band)
+    _assert_k5_matches_plain(_k5_state(dev, s, seed=n), mags, gf, band)
+
+
+def test_k5_state_carry_and_unbatched(dev):
+    """A state carried across two calls gives the bits of one call; an
+    unbatched state [H] with mags [N, H'] takes the same kernel."""
+    mags, gf = _k5_inputs(dev, 6, 150, KC + 1, seed=3)
+    st0 = noisefloor.init_state(HALF, dev, (6,))
+    st_a, eff_a = noisefloor.noise_floor_scan(
+        st0, mags[:, :70].contiguous(), gf[:, :70].contiguous(), KC)
+    st_b, eff_b = _assert_k5_matches_plain(
+        st_a, mags[:, 70:].contiguous(), gf[:, 70:].contiguous(), KC)
+    st_f, eff_f = noisefloor.noise_floor_scan(st0, mags, gf, KC)
+    torch.cuda.synchronize()
+    assert_same_bits(torch.cat([eff_a, eff_b], 1), eff_f)
+    for b, f in zip(st_b, st_f):
+        assert_same_bits(b, f)
+    _assert_k5_matches_plain(noisefloor.init_state(HALF, dev), mags[2],
+                             gf[2], KC)
+
+
+def test_noise_floor_scan_cuda_runs_no_plain_step(dev, monkeypatch):
+    """On CUDA tensors noise_floor_scan is the one kernel launch (and the
+    tail's few torch ops)."""
+    mags, gf = _k5_inputs(dev, 4, 100, HALF, seed=9)
+    st0 = noisefloor.init_state(HALF, dev, (4,))
+    want = noisefloor.noise_floor_scan_plain(st0, mags, gf, KC)
+
+    def refuse(*args):
+        raise AssertionError("the plain floor step ran on the CUDA path")
+
+    monkeypatch.setattr(noisefloor, "_step", refuse)
+    launches = hopper_noisefloor.LAUNCHES
+    got = noisefloor.noise_floor_scan(st0, mags, gf, KC)
+    torch.cuda.synchronize()
+    assert hopper_noisefloor.LAUNCHES == launches + 1
+    for a, b in zip((got[1], *got[0]), (want[1], *want[0])):
+        assert_same_bits(a, b)

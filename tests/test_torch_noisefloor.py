@@ -1,9 +1,10 @@
 """PyTorch port, noise floor against the JAX package: bitwise.
 
 The same magnitudes go to both.  The port rounds the two fused
-multiply-adds exactly as XLA:CPU's contraction does (float64, rounded once),
+multiply-adds exactly as XLA:CPU's contraction does (once, `rounding.fma32`),
 so it equals `noise_floor_scan(band=464)` and `noise_floor_np(fma=True)`
-bit for bit.
+bit for bit.  `noise_floor_scan` on CPU tensors is `noise_floor_scan_plain`;
+both are held to JAX here.
 """
 
 import jax
@@ -17,6 +18,7 @@ from audio_analyzer_rs_tpu.ops import noisefloor as jnf
 from audio_analyzer_rs_tpu.ops.stft import stft_mags_np
 from audio_analyzer_rs_tpu_torch import interop
 from audio_analyzer_rs_tpu_torch.ops import noisefloor as tnf
+from audio_analyzer_rs_tpu_torch.ops import rounding
 
 torch.set_num_threads(1)
 
@@ -108,3 +110,99 @@ def test_segment_axis_rows_are_independent(mags_gf):
         _, one = _port_scan(tnf.init_state(HALF, "cpu"), stack[r], gfs[r],
                             BAND)
         np.testing.assert_array_equal(eff[r].numpy(), one.numpy())
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+def _midpoint_triples(rng, n):
+    """a*b + c whose exact value lies just below a float32 midpoint of c:
+    c has an odd last bit, a*b = half an ulp of c times (1 - 2^-46).  The
+    float64 sum rounds onto the midpoint, so rounding it again to float32
+    (ties to even) misses by one ulp; one rounding does not."""
+    c = (rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(-30, 30, n)).astype(
+        np.float32)
+    c = (c.view(np.uint32) | np.uint32(1)).view(np.float32)
+    half_ulp = np.spacing(c).astype(np.float64) / 2.0
+    e = np.log2(half_ulp).astype(np.int64)
+    e1 = rng.integers(-10, 10, n)
+    a = (2.0 ** e1 * (1 + 2.0 ** -23)).astype(np.float32)
+    b = (2.0 ** (e - e1) * (1 - 2.0 ** -23)).astype(np.float32)
+    sign = rng.choice([-1.0, 1.0], n).astype(np.float32)
+    return a * sign, b, c * sign
+
+
+def test_fma32_rounds_once_like_jax():
+    """rounding.fma32 against jitted JAX x*y + z on the CPU (which XLA
+    contracts into a hardware FMA): the constructed case, a family of
+    near-midpoint sums where rounding twice misses, and random triples."""
+    jfma = jax.jit(lambda x, y, z: x * y + z)
+    f32 = np.float32
+
+    def port(a, b, c):
+        return rounding.fma32(*(torch.from_numpy(np.asarray(v, f32))
+                                for v in (a, b, c))).numpy()
+
+    def twice(a, b, c):
+        return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+                + np.asarray(c, np.float64)).astype(f32)
+
+    one = (f32(2.0 ** -12 * (1 + 2.0 ** -23)),
+           f32(2.0 ** -12 * (1 - 2.0 ** -23)), f32(1 + 2.0 ** -23))
+    assert _bits(jfma(*one)) == 0x3F800001
+    assert _bits(port(*one)) == 0x3F800001
+    assert _bits(twice(*one)) == 0x3F800002       # the old double rounding
+
+    rng = np.random.default_rng(7)
+    a, b, c = _midpoint_triples(rng, 1000)
+    want = _bits(jfma(a, b, c))
+    np.testing.assert_array_equal(_bits(port(a, b, c)), want)
+    assert (_bits(twice(a, b, c)) != want).all()
+
+    n = 4000
+    a = (rng.uniform(1, 2, n) * 2.0 ** rng.integers(-20, 20, n)
+         * rng.choice([-1, 1], n)).astype(f32)
+    b = (rng.uniform(1, 2, n) * 2.0 ** rng.integers(-20, 20, n)).astype(f32)
+    c = (-(a.astype(np.float64) * b) * rng.uniform(0.5, 2.0, n)).astype(f32)
+    np.testing.assert_array_equal(_bits(port(a, b, c)),
+                                  _bits(jfma(a, b, c)))
+
+
+@pytest.mark.parametrize("band,banded", [(BAND, False), (BAND, True),
+                                         (None, False)])
+def test_plain_scan_bitwise_carried_and_handed_over(mags_gf, band, banded):
+    """noise_floor_scan_plain itself, in two calls with the state carried and
+    with a JAX state handed over, against one JAX call and the numpy
+    oracle; banded magnitudes (465 columns) freeze the tail."""
+    mags, gf = mags_gf
+    if banded:
+        mags = np.ascontiguousarray(mags[:, :BAND + 1])
+    k = mags.shape[0] // 3
+    st_j, eff_j = jnf.noise_floor_scan(jnf.init_state(HALF),
+                                       jnp.asarray(mags), jnp.asarray(gf),
+                                       band)
+
+    def plain(st, lo, hi):
+        return tnf.noise_floor_scan_plain(st, torch.from_numpy(mags[lo:hi]),
+                                          torch.from_numpy(gf[lo:hi]), band)
+
+    st_a, eff_a = plain(tnf.init_state(HALF, "cpu"), 0, k)
+    st_b, eff_b = plain(st_a, k, None)
+    np.testing.assert_array_equal(
+        np.concatenate([eff_a.numpy(), eff_b.numpy()]), np.asarray(eff_j))
+    for leaf_t, leaf_j in zip(interop.to_numpy(st_b), _jax_state_np(st_j)):
+        np.testing.assert_array_equal(leaf_t, leaf_j)
+    if not banded:
+        width = BAND if band else HALF
+        np.testing.assert_array_equal(
+            eff_b.numpy(), jnf.noise_floor_np(mags, gf, fma=True)[k:, :width])
+
+    st_jk, _ = jnf.noise_floor_scan(jnf.init_state(HALF),
+                                    jnp.asarray(mags[:k]),
+                                    jnp.asarray(gf[:k]), band)
+    handed = interop.noise_floor_state(jax.tree.map(np.asarray, st_jk), "cpu")
+    st_h, eff_h = plain(handed, k, None)
+    np.testing.assert_array_equal(eff_h.numpy(), eff_b.numpy())
+    for leaf_h, leaf_b in zip(st_h, st_b):
+        assert torch.equal(leaf_h, leaf_b)

@@ -26,7 +26,7 @@ from audio_analyzer_rs_tpu.ops import onset as jon
 from audio_analyzer_rs_tpu_torch import interop
 from audio_analyzer_rs_tpu_torch.models import generators as gen
 from audio_analyzer_rs_tpu_torch.models.analyzer import OnsetAnalyzer
-from audio_analyzer_rs_tpu_torch.ops import onset
+from audio_analyzer_rs_tpu_torch.ops import onset, rounding
 
 torch.set_num_threads(1)
 
@@ -206,9 +206,9 @@ def test_tree_sum_order():
 
 def _fma_np(a, b, c):
     """a*b + c rounded once to float32 (numpy, via the port's helper)."""
-    return onset._fma32(torch.from_numpy(np.asarray(a, f32)),
-                        torch.from_numpy(np.asarray(b, f32)),
-                        torch.from_numpy(np.asarray(c, f32))).numpy()
+    return rounding.fma32(torch.from_numpy(np.asarray(a, f32)),
+                          torch.from_numpy(np.asarray(b, f32)),
+                          torch.from_numpy(np.asarray(c, f32))).numpy()
 
 
 def test_rounding_forms_match_jax_bits():

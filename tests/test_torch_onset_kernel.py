@@ -1,0 +1,129 @@
+"""Kernel K4's division-free steps (csrc/onset.cu), transcribed to numpy and
+held bitwise to what the plain onset scan computes with float32 division.
+
+- `burst_limit_np` is the kernel's burst test: a bin bursts when its
+  divisor den < RU(m * RN(1 / c)) in float32, c = 2.5 + 2^-23, with the
+  double constant read from the kernel's source.  Held to RN(m / den) >
+  2.5f on divisors and magnitudes a few ulps around the threshold, zeros
+  and random pairs.
+- `keep_larger_np` is the kernel's exact ratio comparison (the products as
+  float and fma error pairs); its tournament over a warp's 32 bins is held
+  to the largest RN(m / den).
+- `tree32_np` is the kernel's 32-value sum order, held to `onset.tree_sum`.
+
+The card test (tests/test_torch_kernels_cuda.py) holds the kernel itself to
+`onset_scan_plain`.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from audio_analyzer_rs_tpu_torch.ops import onset
+
+torch.set_num_threads(1)
+
+F32 = np.float32
+SOURCE = (Path(onset.__file__).resolve().parent.parent / "csrc"
+          / "onset.cu")
+
+
+def _inverse_c() -> float:
+    """burst_limit's double constant, as the kernel spells it."""
+    m = re.search(r"static_cast<double>\(m\) \* (0x[0-9a-f.]+p[-+]\d+)\)",
+                  SOURCE.read_text())
+    return float.fromhex(m.group(1))
+
+
+INV_C = _inverse_c()
+
+
+def fma_np(a, b, c):
+    """a*b + c rounded once to float32: the exact float64 product, the sum
+    made round-to-odd in float64 by TwoSum."""
+    a, b, c = (np.asarray(v, np.float64) for v in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    odd = s.view(np.int64) & 1
+    s = np.where((err != 0) & (odd == 0),
+                 np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return s.astype(F32)
+
+
+def burst_limit_np(m):
+    """__double2float_ru(double(m) * INV_C)."""
+    q = np.asarray(m, F32).astype(np.float64) * INV_C
+    t = q.astype(F32)
+    return np.where(t.astype(np.float64) < q, np.nextafter(t, F32(np.inf)),
+                    t).astype(F32)
+
+
+def keep_larger_np(ma, da, mb, db):
+    """The kernel's keep_larger: (m, d) of the larger ratio, a on ties."""
+    p1, p2 = (ma * db).astype(F32), (mb * da).astype(F32)
+    e1, e2 = fma_np(ma, db, -p1), fma_np(mb, da, -p2)
+    b = (p2 > p1) | ((p2 == p1) & (e2 > e1))
+    return np.where(b, mb, ma), np.where(b, db, da)
+
+
+def tree32_np(x):
+    v = x[..., :16] + x[..., 16:]
+    for k in (8, 4, 2, 1):
+        v = v[..., :k] + v[..., k:2 * k]
+    return v[..., 0]
+
+
+def test_inverse_constant_is_rn_of_one_over_c():
+    from fractions import Fraction
+    c = Fraction(5, 2) + Fraction(1, 2 ** 23)
+    assert INV_C == float(1 / c)
+    assert abs(Fraction(INV_C) - 1 / c) <= (1 / c) / 2 ** 53
+
+
+@pytest.mark.parametrize("scale", [2.0 ** -20, 0.01, 1.0, 37.0, 2.0 ** 20])
+def test_burst_limit_matches_division(scale):
+    rng = np.random.default_rng(int(scale * 1000) % 997)
+    n = 400_000
+    den = (rng.uniform(1.0, 2.0, n) * scale).astype(F32)
+    den = np.maximum(den, F32(0.01))
+    near = (den.astype(np.float64) * 2.5).astype(F32)
+    m = (near.view(np.int32)
+         + rng.integers(-6, 7, n).astype(np.int32)).view(F32)
+    m[::11] = 0.0
+    m[::13] = (rng.random(len(m[::13])) * 3.0 * scale).astype(F32)
+    want = (m / den) > F32(2.5)
+    np.testing.assert_array_equal(den < burst_limit_np(m), want)
+    assert want.any() and not want.all()
+
+
+def test_tournament_finds_the_largest_rounded_ratio():
+    """A warp's 32 bins: ratios that tie in float32, differ by an ulp, or
+    are zero; the tournament's pair gives the largest RN(m / den)."""
+    rng = np.random.default_rng(4)
+    rows = 20_000
+    den = (rng.uniform(0.01, 30.0, (rows, 32))).astype(F32)
+    base = rng.uniform(0.0, 8.0, (rows, 1))
+    jitter = 1.0 + rng.integers(-2, 3, (rows, 32)) * 2.0 ** -24
+    m = (base * jitter * den).astype(F32)
+    m[rng.random((rows, 32)) < 0.2] = 0.0
+    wm, wd = keep_larger_np(m[:, :16], den[:, :16], m[:, 16:], den[:, 16:])
+    for k in (8, 4, 2, 1):
+        wm, wd = keep_larger_np(wm[:, :k], wd[:, :k], wm[:, k:2 * k],
+                                wd[:, k:2 * k])
+    got = (wm[:, 0] / wd[:, 0]).astype(F32)
+    want = (m / den).astype(F32).max(1)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_tree32_is_tree_sums_order():
+    rng = np.random.default_rng(5)
+    x = (rng.random((500, 32)) * rng.choice([1e-3, 1.0, 1e3], (500, 32))
+         ).astype(F32)
+    want = onset.tree_sum(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(tree32_np(x).view(np.uint32),
+                                  want.view(np.uint32))

@@ -242,4 +242,4 @@ def test_source_scan():
             assert name.split(".")[0] not in ("jax", "audio_analyzer_rs_tpu"), \
                 (path, name)
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == \
-        ["comb.cu", "onset.cu", "stft.cu", "tracker.cu"]
+        ["comb.cu", "noisefloor.cu", "onset.cu", "stft.cu", "tracker.cu"]

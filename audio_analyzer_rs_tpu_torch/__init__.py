@@ -25,8 +25,20 @@ Layer map (mirrors the JAX package):
   ops/features       RMS, energy, centroid, rolloff, flux (plain torch)
   ops/yin            YIN f0 from an FFT autocorrelation (plain torch)
   models/analyzer    PitchAnalyzer and OnsetAnalyzer (sequential streaming)
+                     and fused_slot_step, the live engine's per-slot
+                     program (both flows, carries on the device)
   models/segmented   segment-parallel and batched offline pitch and onset
                      analysis
+  api/engine         AudioEngine, the uniffi-shaped live engine: virtual
+                     audio device, host reducer and AGC, tuner, onset
+                     detection with loopback calibration, practice
+                     sessions, JSON polling
+  api/device         the virtual audio device and its input sources
+  ops/reducer,       the host (numpy) conditioning and dynamics the engine
+  ops/dynamics       runs per slot; runtime: the C++ reducer when built
+  models/{sources,calibration,metronome,synth,player,tuner}, practice/,
+  theory, transport, tracing, utils/{midi,wav}
+                     host modules, copies of the JAX package's
   interop            JAX-package states (as numpy) <-> this package's states
 
 Every entry point takes `device` (default "cuda"); nothing picks the CPU on
@@ -51,6 +63,9 @@ _EXPORTS = {
                          "segmented_pitch_analysis_batch",
                          "segmented_onset_analysis_batch"),
     "models.analyzer": ("PitchAnalyzer", "OnsetAnalyzer"),
+    "api.engine": ("AudioEngine",),
+    "transport": ("MusicalTransport",),
+    "runtime": ("decode_file", "encode_file", "decode_available"),
 }
 
 

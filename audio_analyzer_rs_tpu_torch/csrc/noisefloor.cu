@@ -28,9 +28,15 @@
 // `div_guarded`).  Every constant is the float32 value the plain
 // version uses, as a hex float (tests/test_torch_noisefloor_kernel.py reads
 // them from this file): float literals, never double ones, so that no
-// compare is promoted to double.  fmaxf and fminf drop a NaN where
-// torch.maximum propagates it; the path's magnitudes are finite, so K5 is
-// not NaN-faithful and does not pretend to be.
+// compare is promoted to double.
+//
+// NaN, as the plain version does it: torch.maximum, torch.minimum and
+// torch.clamp keep a NaN operand, where fmaxf and fminf drop it, so the
+// kernel takes its max and min through max_nan / min_nan; a comparison
+// with a NaN is false on both sides; and div_guarded divides whenever the
+// divisor is NaN (0 / NaN is NaN).  The NaN's bits may differ from the
+// plain version's; where a NaN stands is the same.  A NaN magnitude makes
+// its bin's floor NaN from then on, in both.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,12 +59,28 @@ constexpr float RELEASE = 0x1.47ae14p-6f;            // 0.02
 constexpr float INIT_SCALE = 0x1.4p+2f;              // 5.0
 constexpr float EFFECTIVE_SCALE = 0x1.4p+1f;         // 2.5
 
-// n / d, IEEE, for d >= 0.01: the slow path of the division's check
-// (FCHK) takes n == 0, which digital silence gives on ~40% of the scene's
-// frames; 0 / d is n itself, so the division sees 1 there instead.
+// n / d, IEEE, for d >= 0.01 or NaN: the slow path of the division's
+// check (FCHK) takes n == 0, which digital silence gives on ~40% of the
+// scene's frames; 0 / d is n itself for such a d, so the division sees 1
+// there instead (and 1 / NaN is the NaN that 0 / NaN is).
 __device__ __forceinline__ float div_guarded(float n, float d) {
   const float q = __fdiv_rn(n == 0.0f ? 1.0f : n, d);
-  return n == 0.0f ? n : q;
+  return n == 0.0f && d == d ? n : q;
+}
+
+// The larger / smaller of a and b, NaN if either is NaN (torch.maximum,
+// torch.minimum): PTX max.NaN / min.NaN (sm_80 and later), one instruction
+// each like fmaxf / fminf; the NaN they give is the canonical one.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -103,20 +125,20 @@ noise_floor_kernel(const float* __restrict__ mags, long long ms_s,
         const float delta = fabsf(__fsub_rn(m, prev));
         const float v = __fadd_rn(__fmul_rn(vol, VOL_MEMORY),
                                   __fmul_rn(delta, VOL_NEW));
-        const float above = div_guarded(m, fmaxf(floor, FLOOR_EPS));
-        const float vn =
-            fminf(fmaxf(div_guarded(v, fmaxf(m, MAG_EPS)), 0.0f), 1.0f);
+        const float above = div_guarded(m, max_nan(floor, FLOOR_EPS));
+        const float vn = min_nan(
+            max_nan(div_guarded(v, max_nan(m, MAG_EPS)), 0.0f), 1.0f);
         const bool sustained = above > NOTE_RATIO && vn < NOTE_VOL_MAX;
         const float alpha =
             m > floor ? fmaf(vn, FAST_MINUS_BASE, BASE_ALPHA) : RELEASE;
         const float updated =
             sustained ? floor : fmaf(alpha, __fsub_rn(m, floor), floor);
-        floor = init ? updated : fmaxf(m, __fmul_rn(g, INIT_SCALE));
+        floor = init ? updated : max_nan(m, __fmul_rn(g, INIT_SCALE));
         vol = init ? v : vol;
         prev = m;
         init = true;
         e_out[(long long)(f0 + u) * B] =
-            fminf(floor, __fmul_rn(g, EFFECTIVE_SCALE));
+            min_nan(floor, __fmul_rn(g, EFFECTIVE_SCALE));
       }
     }
 #pragma unroll

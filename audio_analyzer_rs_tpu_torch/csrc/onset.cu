@@ -53,6 +53,16 @@
 // division).  The max and the burst count do not depend on the order.
 // The kernel is exact for magnitudes that are 0 or in [2^-60, 2^60] (see
 // keep_larger); an audio spectrum's are.
+//
+// NaN, as the plain version does it (live audio can hold one): the max
+// and the clamps of the floor, divisor and velocity keep a NaN (max_nan /
+// min_nan, as torch.maximum and torch.clamp), where fmaxf and fminf drop
+// it; a bin whose magnitude or divisor is NaN stores its divisor as NaN,
+// which wins the ratio tournament, so the frame's largest ratio is NaN as
+// torch.amax makes it; comparisons with a NaN are false on both sides.
+// The flux is never NaN (a NaN difference adds +0.0), so the threshold's
+// clamp stays fmaxf.  The NaN's bits may differ from the plain version's;
+// where a NaN stands is the same.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -115,7 +125,22 @@ __device__ __forceinline__ void block_sync() {
 // frames; 0 / d is n itself, so the division sees 1 there instead.
 __device__ __forceinline__ float div_guarded(float n, float d) {
   const float q = __fdiv_rn(n == 0.0f ? 1.0f : n, d);
-  return n == 0.0f ? n : q;
+  return n == 0.0f && d == d ? n : q;
+}
+
+// The larger / smaller of a and b, NaN if either is NaN (torch.maximum,
+// torch.minimum): PTX max.NaN / min.NaN (sm_80 and later), one instruction
+// each like fmaxf / fminf; the NaN they give is the canonical one.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // The burst test without a division.  For den > 0, RN(m / den) > 2.5f
@@ -135,12 +160,13 @@ __device__ __forceinline__ float burst_limit(float m) {
 // its float and the fma's exact rounding error (exact while the products
 // neither underflow nor overflow: magnitudes 0 or in [2^-60, 2^60], floors
 // in [0.01, 2^60]).  Ties keep a; RN is monotone, so the kept pair's
-// rounded ratio is the largest rounded ratio.
+// rounded ratio is the largest rounded ratio.  A NaN divisor (a NaN ratio)
+// wins, and once kept stays: its products are NaN and compare false.
 __device__ __forceinline__ void keep_larger(float& ma, float& da, float mb,
                                             float db) {
   const float p1 = __fmul_rn(ma, db), p2 = __fmul_rn(mb, da);
   const float e1 = fmaf(ma, db, -p1), e2 = fmaf(mb, da, -p2);
-  if (p2 > p1 || (p2 == p1 && e2 > e1)) {
+  if (p2 > p1 || (p2 == p1 && e2 > e1) || db != db) {
     ma = mb;
     da = db;
   }
@@ -229,15 +255,16 @@ __device__ void chain_tile(const Partials& p, Chain& c, int b, long long f0,
 #pragma unroll
     for (int w = 0; w < MAX_WARPS; ++w) {
       if (w < nw) {
-        excess = fmaxf(excess, p.excess[b][lane][w]);
+        excess = max_nan(excess, p.excess[b][lane][w]);
         bursts += p.bursts[b][lane][w];
       }
     }
   }
   flux = bursts < 2 ? 0.0f : flux;                       // silence gate
-  const float velocity = fminf(
-      fmaxf(__fmul_rn(fmaxf(flux, __fmul_rn(excess, 5.0f)), 1.0f / 50.0f),
-            0.0f),
+  const float velocity = min_nan(
+      max_nan(
+          __fmul_rn(max_nan(flux, __fmul_rn(excess, 5.0f)), 1.0f / 50.0f),
+          0.0f),
       1.0f);
   flags |= (excess > 3.0f && bursts >= 3) ? 1u : 0u;
   c.flux[lane] = make_float4(flux, energy,
@@ -389,14 +416,15 @@ onset_kernel(const float* __restrict__ mags, const float* __restrict__ gf,
         const int li = smoothed ? i - 1 : i, ri = smoothed ? i + 1 : i;
         auto bin_frame = [&](int f, float m, float l, float r, float g) {
           const float limit = burst_limit(m);
-          const float f0 = init ? floor : fmaxf(m, g);
-          const float den = fmaxf(f0, fmaxf(g, 0.01f));
+          const float f0 = init ? floor : max_nan(m, g);
+          const float den = max_nan(f0, max_nan(g, 0.01f));
           const bool burst = den < limit;
           const float d = __fsub_rn(m, f0);
           floor = burst ? __fmul_rn(m, 1.3f)
                         : fmaf(m > f0 ? 0.1f : 0.04f, d, f0);
           init = true;
-          dens[f * SCRATCH_STRIDE + lane] = burst ? -den : den;
+          dens[f * SCRATCH_STRIDE + lane] =
+              m != m ? m : (burst ? -den : den);
           const float sm =
               smoothed ? __fmul_rn(__fadd_rn(__fadd_rn(l, m), r), 1.0f / 3.0f)
                        : m;

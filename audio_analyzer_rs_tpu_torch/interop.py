@@ -4,8 +4,11 @@ The JAX package's `NoiseFloorState`, `TrackerState` and `OnsetState` are
 NamedTuples of arrays; given as numpy arrays (with or without a leading
 stream axis S) they become this port's states on a device, and back.  Field
 names and order are the same in both packages, so a state converts leaf by
-leaf.  The system has no weights: its constant tables (Hann, rDFT trig) are
-rebuilt from the same numpy formulas on both sides.
+leaf.  The live engine's fused path carries three more values from slot to
+slot (the pitch and onset ring tails and the onset->pitch pending flag);
+`fused_carries` converts them.  The system has no weights: its constant
+tables (Hann, rDFT trig) are rebuilt from the same numpy formulas on both
+sides.
 """
 
 from __future__ import annotations
@@ -57,3 +60,29 @@ def to_numpy(state: NamedTuple) -> NamedTuple:
     """A port state → the same NamedTuple with numpy leaves; the JAX
     package's class of the same name takes them as `Cls(*leaves)`."""
     return type(state)(*(leaf.detach().cpu().numpy() for leaf in state))
+
+
+class FusedCarries(NamedTuple):
+    """The fused slot program's carries besides the three states, as
+    `fused_slot_step` takes them: pending bool [1], the tails float32."""
+    pending: torch.Tensor
+    p_tail: torch.Tensor
+    o_tail: torch.Tensor
+
+
+def fused_carries(pending, p_tail, o_tail, device="cuda") -> FusedCarries:
+    """The JAX engine's fused carries (its `_resident` "pending", "p_tail"
+    and "o_tail", as numpy: pending a bool scalar, the tails 1-D) → this
+    port's, on `device`.  With the three states converted as above, a port
+    engine or `fused_slot_step` continues from the JAX one's mid-session
+    state."""
+    pending = np.asarray(pending, bool).reshape(-1)
+    if pending.shape != (1,):
+        raise ValueError(f"pending must be one flag, got shape "
+                         f"{np.shape(pending)}")
+    tails = tuple(np.asarray(t, np.float32) for t in (p_tail, o_tail))
+    if any(t.ndim != 1 for t in tails):
+        raise ValueError("the tails must be 1-D")
+    return FusedCarries(torch.from_numpy(pending.copy()).to(device),
+                        *(torch.from_numpy(t.copy()).to(device)
+                          for t in tails))

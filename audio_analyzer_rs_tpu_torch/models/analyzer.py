@@ -1,12 +1,13 @@
-"""Pitch and onset analyzer pipelines (port of the offline halves of
-audio_analyzer_rs_tpu/models/analyzer.py; ref src/audio_io/stft.rs:155-441,
-src/analysis/onset.rs:104-546).
+"""Pitch and onset analyzer pipelines and the live engine's fused per-slot
+step (port of audio_analyzer_rs_tpu/models/analyzer.py; ref
+src/audio_io/stft.rs:155-441, src/analysis/onset.rs:104-546).
 
 Pitch: frame → Hann × rDFT magnitude (K1) → per-bin noise-floor scan (K5)
 → harmonic-comb pitch extraction (K2) → PitchTracker scan (K3).  Onset:
 frame → Hann × FFT magnitude (cuFFT) → onset scan (K4).  The functions take
 a leading stream axis S: state leaves [S, ...], frames [S, N, W], per-frame
-inputs [S, N].
+inputs [S, N].  `fused_slot_step` runs both flows for one live audio slot
+(S = 1) with its carries on the device.
 """
 
 from __future__ import annotations
@@ -86,6 +87,10 @@ class PitchAnalyzer:
     hop: int = PITCH_HOP
     backend: str = PITCH_BACKEND
     device: str = "cuda"
+    # Per-frame spectrum/floor records (the devtools recorder); the engine
+    # reads it to decide on fusion.  Recording is not ported yet, so
+    # process() raises while one is attached.
+    debug_recorder: object = None
     # Frames per device call; longer inputs are split with the state
     # carried (the pipeline is a scan, so results are identical).
     max_chunk_frames: int = 4096
@@ -99,6 +104,7 @@ class PitchAnalyzer:
         self.nf_state = noisefloor.init_state(self.window // 2 + 1,
                                               self.device, (1,))
         self.tr_state = tracker.init_state(self.device, (1,))
+        self.frames_consumed = 0
 
     def process(self, samples: np.ndarray, global_floor_db: float = -96.0,
                 onset_pending: Optional[np.ndarray] = None,
@@ -107,6 +113,10 @@ class PitchAnalyzer:
         PitchChunkOut with [n, ...] leaves), or None when no frame
         completed.  `onset_pending`: optional [n_frames] bool onset flags
         (ref stft.rs:387); `onset_first` marks just the first frame."""
+        if self.debug_recorder is not None:
+            raise NotImplementedError(
+                "PitchAnalyzer: per-frame debug records (debug_recorder) "
+                "are not ported yet")
         buf = np.concatenate([self._tail, np.asarray(samples, np.float32)])
         n = num_frames(len(buf), self.window, self.hop)
         if n == 0:
@@ -135,6 +145,7 @@ class PitchAnalyzer:
                 onsets_dev[None, c0:c1], self.sample_rate, self.window,
                 self.hop, self.backend)
             outs.append(out)
+        self.frames_consumed += n
         return PitchChunkOut(*(torch.cat(parts, 1)[0].cpu().numpy()
                                for parts in zip(*outs)))
 
@@ -160,6 +171,141 @@ def onset_analyze_frames(state, frames, global_floor, tick_suppressed,
     state, out = onset_ops.onset_scan(state, mags, global_floor,
                                       tick_suppressed, calibration_hold)
     return state, OnsetChunkOut(*out)
+
+
+class FusedSlotOut(NamedTuple):
+    """Per-slot result of `fused_slot_step` (the live engine's fused path):
+    the tracker's stable outputs [n_p, 8] (all the live tuner consumes, ref
+    stft.rs:387-390) and the full onset per-frame record ([n_o] each).  The
+    ring tails and the pending flag are not here: they stay on the device
+    from slot to slot as separate carries."""
+    stable_freqs: torch.Tensor
+    stable_scores: torch.Tensor
+    stable_valid: torch.Tensor
+    onset: OnsetChunkOut
+
+
+def pack_fused_out(out: FusedSlotOut) -> torch.Tensor:
+    """A FusedSlotOut flattened into one float32 vector, so that a slot reads
+    back one buffer: the leaves in field order (the JAX package's
+    `pack_fused_out` order).  Bool and int32 leaves cast exactly (0/1 flags;
+    counters far below 2^24)."""
+    leaves = (out.stable_freqs, out.stable_scores, out.stable_valid,
+              *out.onset)
+    return torch.cat([leaf.reshape(-1).float() for leaf in leaves])
+
+
+def fused_out_len(n_p: int, n_o: int) -> int:
+    """Packed length of one FusedSlotOut with n_p pitch / n_o onset frames."""
+    return 3 * n_p * 8 + 8 * n_o
+
+
+def unpack_fused_out(vec: np.ndarray, n_p: int, n_o: int) -> FusedSlotOut:
+    """Host-side inverse of `pack_fused_out`: numpy leaves."""
+    vec = np.asarray(vec, np.float32)
+    if len(vec) != fused_out_len(n_p, n_o):
+        raise ValueError(f"unpack_fused_out: {len(vec)} values, expected "
+                         f"{fused_out_len(n_p, n_o)}")
+    off = 0
+
+    def take(n, shape, dtype):
+        nonlocal off
+        part = vec[off:off + n].reshape(shape)
+        off += n
+        if dtype is bool:
+            return part > 0.5
+        return part.astype(dtype) if dtype is not np.float32 else part
+
+    sf = take(n_p * 8, (n_p, 8), np.float32)
+    ss = take(n_p * 8, (n_p, 8), np.float32)
+    sv = take(n_p * 8, (n_p, 8), bool)
+    onset = OnsetChunkOut(*(take(n_o, (n_o,), d) for d in (
+        bool, bool, np.float32, np.float32, np.float32, np.int32, bool,
+        np.int32)))
+    return FusedSlotOut(sf, ss, sv, onset)
+
+
+def fused_slot_step(nf_state, tr_state, onset_state, pending, p_tail, o_tail,
+                    host_vec, sample_rate: float, slot_len: int,
+                    p_window: int = PITCH_WINDOW, p_hop: int = PITCH_HOP,
+                    o_window: int = ONSET_WINDOW, o_hop: int = ONSET_HOP,
+                    pitch_backend: str = PITCH_BACKEND,
+                    onset_backend: str = DEFAULT_BACKEND):
+    """One live audio slot through both flows, with every carry on the
+    device: the ring tails, the three states and the onset->pitch `pending`
+    flag go in and come out as tensors and are never read back.
+
+    State leaves carry a stream axis of 1; `pending` is bool [1]; the tails
+    are float32 [p_tail_len] / [o_tail_len]; `host_vec` is the slot's one
+    upload, float32 on the device:
+        [slot | gf_pitch_lin | gf_onset_lin | calibration_hold |
+         tick_suppressed (n_o entries, 0/1)]
+    with n_p / n_o = num_frames(tail + slot) implied by the lengths.
+    Returns (nf_state, tr_state, onset_state, pending, p_tail, o_tail, out),
+    `out` the slot's FusedSlotOut packed into one float32 vector
+    (`pack_fused_out`; the host reads it back once and unpacks it with
+    `unpack_fused_out`).
+
+    Semantics are those of the engine's sequential consumers: the onset
+    flow first, then the pitch flow with onsets[0] = pending | any(fired).
+    While `calibration_hold` is set, fires do not reach the tracker (the
+    sequential path never sets the engine's pending flag before
+    calibration).  A ramp-up slot with no pitch frame (n_p == 0) leaves the
+    flag set for the next one; a slot with no onset frame (n_o == 0) runs
+    no onset kernel.  Port of the JAX package's `fused_slot_step`
+    (models/analyzer.py:308)."""
+    dev = host_vec.device
+    p_tail_len, o_tail_len = p_tail.shape[0], o_tail.shape[0]
+    n_p = num_frames(p_tail_len + slot_len, p_window, p_hop)
+    n_o = num_frames(o_tail_len + slot_len, o_window, o_hop)
+    if host_vec.shape != (slot_len + 3 + n_o,):
+        raise ValueError(f"fused_slot_step: host_vec must be "
+                         f"[{slot_len + 3 + n_o}], got "
+                         f"{tuple(host_vec.shape)}")
+    slot = host_vec[:slot_len]
+    gf_p = host_vec[slot_len:slot_len + 1]
+    gf_o = host_vec[slot_len + 1:slot_len + 2]
+    hold = host_vec[slot_len + 2:slot_len + 3] > 0.5
+    tick_sup = (host_vec[slot_len + 3:] > 0.5)[None]
+
+    o_buf = torch.cat([o_tail, slot]) if o_tail_len else slot
+    fired_any = torch.zeros(1, dtype=torch.bool, device=dev)
+    if n_o:
+        o_frames = frame_signal(o_buf[:(n_o - 1) * o_hop + o_window],
+                                o_window, o_hop)[None]
+        onset_state, o_out = onset_analyze_frames(
+            onset_state, o_frames, gf_o.expand(1, n_o).contiguous(),
+            tick_sup, hold.expand(1, n_o).contiguous(), o_window,
+            onset_backend)
+        fired_any = o_out.fired.any(-1) & ~hold
+        o_out = OnsetChunkOut(*(leaf[0] for leaf in o_out))
+    else:                                               # ramp-up variants
+        zf = torch.zeros(0, dtype=torch.float32, device=dev)
+        zb = torch.zeros(0, dtype=torch.bool, device=dev)
+        zi = torch.zeros(0, dtype=torch.int32, device=dev)
+        o_out = OnsetChunkOut(zb, zb, zf, zf, zf, zi, zb, zi)
+    o_new_tail = o_buf[n_o * o_hop:]
+
+    p_buf = torch.cat([p_tail, slot]) if p_tail_len else slot
+    if n_p:
+        p_frames = frame_signal(p_buf[:(n_p - 1) * p_hop + p_window],
+                                p_window, p_hop)[None]
+        onsets = torch.zeros((1, n_p), dtype=torch.bool, device=dev)
+        onsets[:, 0] = pending | fired_any
+        nf_state, tr_state, pout = pitch_analyze_frames(
+            nf_state, tr_state, p_frames, gf_p.expand(1, n_p).contiguous(),
+            onsets, sample_rate, p_window, p_hop, pitch_backend)
+        sf, ss, sv = (pout.stable_freqs[0], pout.stable_scores[0],
+                      pout.stable_valid[0])
+        pending = torch.zeros_like(pending)
+    else:
+        sf = torch.zeros((0, 8), dtype=torch.float32, device=dev)
+        ss = torch.zeros((0, 8), dtype=torch.float32, device=dev)
+        sv = torch.zeros((0, 8), dtype=torch.bool, device=dev)
+        pending = pending | fired_any
+    p_new_tail = p_buf[n_p * p_hop:]
+    return (nf_state, tr_state, onset_state, pending, p_new_tail, o_new_tail,
+            pack_fused_out(FusedSlotOut(sf, ss, sv, o_out)))
 
 
 @dataclass

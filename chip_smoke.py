@@ -54,10 +54,26 @@ Phases, one line each on standard output:
   8. `segmented_onset_analysis_batch` over the 8 takes;
   9. onset agreement: the sequential `OnsetAnalyzer` on the first 5 minutes
      against `segmented_onset_analysis` (segment 0 equal, the fired-frame
-     sets identical).
-Then the kernel table as one JSON line, and last
-{"ok": true, "device": {...}}.  Any failure raises and exits non-zero before
-the last line; with no CUDA device the script exits 1 and prints no result.
+     sets identical);
+ 10. the live engine: `AudioEngine(device="cuda")` in the app's practice
+     configuration (tuner and onset detection over a 60 s mixed scene at
+     48 kHz, 1,024-sample slots, loopback calibration), `prepare()` first,
+     then 2,812 slots, each one fused per-slot program: the host ms a slot
+     (p50, p99, max, and the slots over the 21.33 ms budget), K1-K5's
+     launches over the run and a slot, which host reducer ran, and each
+     kernel's time at its live shape beside its bound; 200 slots with the
+     host ms split by stage (reducer, inputs, dispatch, readback, posts);
+     a profiled window of 100 slots (kernel launches and card-busy ms a
+     slot); the same first
+     10 s with the sequential consumers, bitwise equal slot for slot; the
+     same 10 s on the CPU (the plain versions), onset events identical,
+     tuner notes equal on >= 99.9% of slots and floats within the CPU
+     test's tolerances; and a NaN sample at 5 s, card against CPU the same
+     way.
+Then the kernel table as one JSON line, the card's name and power limit, and
+last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
+before the last line; with no CUDA device the script exits 1 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -168,6 +184,282 @@ def frame_agreement(a_freqs, a_valid, b_freqs, b_valid) -> float:
                 == sorted(np.round(b_freqs[i][b_valid[i]], 1))
                 for i in range(n))
     return agree / max(n, 1)
+
+
+LIVE_SR = 48000.0
+LIVE_SLOT = 1024
+LIVE_SLOTS = 2812                 # 60 s of 21.33 ms slots
+LIVE_BUDGET_MS = LIVE_SLOT / LIVE_SR * 1e3
+PARITY_SLOTS = 469                # the first 10 s
+CENTS_TOL = 0.02                  # tests/test_torch_engine.py's tolerances
+VELOCITY_TOL = 1e-4
+TUNER_EXACT = ("label", "mode", "system", "base_freq", "key")
+
+
+def live_session(scene, device: str, slots: int, fused: bool = True,
+                 prepare: bool = False, on_slot=None):
+    """The app's practice session on `device`: returns (engine, per-slot
+    polls (tuner, onsets, dynamics), per-slot host ms of advance(),
+    prepare()'s result or None).  on_slot(i) runs before slot i."""
+    from audio_analyzer_rs_tpu_torch import AudioEngine
+    from audio_analyzer_rs_tpu_torch.api.device import ArraySource
+    e = AudioEngine(input_source=ArraySource(scene), sample_rate=LIVE_SR,
+                    buffer_size=LIVE_SLOT, loopback_latency_samples=2048,
+                    loopback_gain=1.0, device=device)
+    e.fused_streaming = fused
+    prep = e.prepare() if prepare else None
+    tuner, onset = e.start_tuner(), e.start_onset_detection()
+    slot_s = LIVE_SLOT / LIVE_SR
+    polls, host_ms = [], []
+    for i in range(slots):
+        if on_slot is not None:
+            on_slot(i)
+        t0 = time.perf_counter()
+        e.advance(slot_s)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        polls.append((tuner.poll_output(), onset.poll_onsets(),
+                      e.poll_dynamics()))
+    return e, polls, host_ms, prep
+
+
+def card_vs_cpu(card, cpu, label: str) -> str:
+    """The card's polled JSON against the CPU run's, slot for slot: dynamics
+    and onset events (count, raw sample offset, beat) identical, velocity
+    within VELOCITY_TOL; tuner note sets equal on >= MIN_AGREEMENT of the
+    slots, and where they are, the rest exact and cents within CENTS_TOL.
+    Raises on a failure; returns a summary."""
+    assert len(card) == len(cpu)
+    same_notes = events = 0
+    for k, ((ct, co, cd), (pt, po, pd)) in enumerate(zip(card, cpu)):
+        assert cd == pd, f"{label} slot {k}: dynamics {cd} != {pd}"
+        co, po = json.loads(co), json.loads(po)
+        assert len(co) == len(po), f"{label} slot {k}: onsets {co} != {po}"
+        for a, b in zip(co, po):
+            assert (a["raw_sample_offset"], a["beat_position"]) == (
+                b["raw_sample_offset"], b["beat_position"]), (label, k, a, b)
+            assert abs(a["velocity"] - b["velocity"]) <= VELOCITY_TOL, \
+                (label, k, a, b)
+        events += len(co)
+        ct, pt = json.loads(ct), json.loads(pt)
+        if ct["notes"] != pt["notes"]:
+            continue
+        same_notes += 1
+        for key in TUNER_EXACT:
+            assert ct[key] == pt[key], (label, k, key, ct, pt)
+        if ct["notes"]:
+            assert abs(ct["cents"] - pt["cents"]) <= CENTS_TOL, (label, k)
+            assert max(abs(a - b) for a, b in zip(
+                ct["accuracies"], pt["accuracies"])) <= CENTS_TOL, (label, k)
+    share = same_notes / len(card)
+    assert share >= MIN_AGREEMENT, (label, share)
+    return (f"{len(card)} slots, {events} onset events identical, tuner "
+            f"notes equal on {share:.4%} of slots")
+
+
+def live_phase(rows, card: str) -> None:
+    """Phase 10, the live engine on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+    from audio_analyzer_rs_tpu_torch.models import generators as gen
+    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
+                                                 hopper_noisefloor,
+                                                 hopper_onset, hopper_stft,
+                                                 hopper_tracker, noisefloor,
+                                                 onset, pitch, tracker)
+    from audio_analyzer_rs_tpu_torch.ops.fft import hann, rdft_trig
+    from audio_analyzer_rs_tpu_torch.ops.stft import windowed_mags
+    from audio_analyzer_rs_tpu_torch.utils.framing import frame_signal
+    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_onset,
+                hopper_noisefloor)
+    scene = gen.mixed_scene(60.5, LIVE_SR, seed=11)
+    dev = torch.device("cuda")
+
+    # The session: prepare(), then the counts set to 0 just before the
+    # 2,812 slots and read just after; the launches a slot over slots
+    # 1000-1099.
+    marks = {}
+
+    def mark(i):
+        if i == 0:
+            for mod in counters:
+                mod.LAUNCHES = 0
+        if i in (1000, 1100):
+            marks[i] = [mod.LAUNCHES for mod in counters]
+
+    e, polls, host_ms, prep = live_session(scene, "cuda", LIVE_SLOTS,
+                                           prepare=True, on_slot=mark)
+    launches = [mod.LAUNCHES for mod in counters]
+    per_slot = [(b - a) / 100 for a, b in zip(marks[1000], marks[1100])]
+    assert all(n > 0 for n in launches), launches
+    assert e._fused_slots > 0, "the fused path never engaged"
+    events = sum(len(json.loads(o)) for _, o, _ in polls)
+    assert events > 0, "no onset event in 60 s with percussion"
+    assert sum(bool(json.loads(t)["notes"]) for t, _, _ in polls) > 100
+    reducer = "native C++" if e.native_reducer is not None else "Python"
+    ms = sorted(host_ms)
+    p50, p99 = ms[len(ms) // 2], ms[int(0.99 * (len(ms) - 1))]
+    over = sum(t > LIVE_BUDGET_MS for t in host_ms)
+    say(f"live: AudioEngine on {card}: prepare() {prep['total_s']:.2f} s, "
+        f"variants {prep['variants']}; {LIVE_SLOTS} slots of {LIVE_SLOT} "
+        f"samples at {LIVE_SR:.0f} Hz, {e._fused_slots} fused; host ms a "
+        f"slot p50 {p50:.3f}, p99 {p99:.3f}, max {ms[-1]:.3f}, "
+        f"{over} slots over {LIVE_BUDGET_MS:.2f} ms (first slot "
+        f"{host_ms[0]:.3f}); launches K1/K2/K3/K4/K5 over the run "
+        f"{launches}, a slot over slots 1000-1099 {per_slot}; host reducer "
+        f"{reducer}; {events} onset events")
+
+    # Where a slot's host time goes: 200 slots with the engine's stages
+    # timed on the host clock (the readback is where the host waits for
+    # the card).
+    from audio_analyzer_rs_tpu_torch import runtime
+    from audio_analyzer_rs_tpu_torch.api.engine import AudioEngine
+    stages = ((AudioEngine, "_fused_inputs", "inputs"),
+              (AudioEngine, "_dispatch_slot", "dispatch"),
+              (AudioEngine, "_fused_drain_entry", "readback+posts"),
+              (AudioEngine, "_fused_post", "posts"),
+              (runtime.NativeReducer, "process_slot", "reducer"))
+    spent = {key: 0.0 for _, _, key in stages}
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    saved = [(cls, attr, getattr(cls, attr)) for cls, attr, _ in stages]
+    for (cls, attr, key), (_, _, fn) in zip(stages, saved):
+        setattr(cls, attr, timed(fn, key))
+    try:
+        _, _, split_ms, _ = live_session(scene, "cuda", 200)
+    finally:
+        for cls, attr, fn in saved:
+            setattr(cls, attr, fn)
+    per = {key: v * 1e3 / 200 for key, v in spent.items()}
+    per["readback"] = per.pop("readback+posts") - per["posts"]
+    total = sum(split_ms) / 200
+    say(f"live: host ms a slot by stage over 200 slots (of {total:.3f} in "
+        f"advance()): " + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
+        + f", the rest {total - sum(per.values()):.3f}")
+
+    # Where a slot's time goes: 100 slots under torch.profiler, the CUDA
+    # kernels launched and the card's busy time.
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        live_session(scene, "cuda", 100)
+    kern = [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0))
+                  for ev in kern)
+    n_kern = sum(ev.count for ev in kern)
+    top = sorted(kern, key=lambda ev: -getattr(
+        ev, "self_device_time_total", getattr(ev, "self_cuda_time_total",
+                                              0)))[:6]
+    if busy_us > 0:
+        say(f"live: profiled 100 slots: {n_kern / 100:.1f} CUDA kernels a "
+            f"slot, card busy {busy_us / 100 / 1e3:.4f} ms a slot; top: "
+            + "; ".join(f"{ev.key[:48]} x{ev.count / 100:.0f} "
+                        f"{getattr(ev, 'self_device_time_total', 0) / 100:.1f}"
+                        f" us" for ev in top))
+    else:
+        say("live: profiled 100 slots: the profiler saw no device time "
+            "(card-busy ms a slot not measured)")
+
+    # Each kernel at its live shape (one stream: 2 pitch frames, 16 onset
+    # frames), timed beside its bound; inputs from the scene's slot 1000.
+    x = torch.from_numpy(scene).to(dev)
+    half = 1025
+    bin_w = float(np.float32(LIVE_SR) / np.float32(2048))
+    kc = pitch.candidate_band(bin_w, half)
+    min_bin, max_bin = pitch._bins(bin_w, half, pitch.MIN_FREQ,
+                                   pitch.MAX_FREQ)
+    buf = x[1000 * LIVE_SLOT:1000 * LIVE_SLOT + 512 + 2048].clone()
+    frames = frame_signal(buf, 2048, 512)[None]               # [1, 2, 2048]
+    trig = rdft_trig(2048, dev)[:, :2 * (kc + 1)]
+    win = hann(2048, dev)
+    mags = hopper_stft.dft_mag(frames, trig, win)
+    gf = torch.full((1, 2), 0.002, device=dev)
+    st_nf = noisefloor.init_state(kc, dev, (1,))
+    _, eff = hopper_noisefloor.noise_floor_scan(st_nf, mags, gf, kc)
+    pm, frac, m_c, _, _ = pitch._pre_comb(mags[0], eff[0], min_bin, max_bin,
+                                          kc)
+    m_c = m_c.contiguous()
+    pf = pitch.extract_pitches(mags[0], eff[0], bin_w, true_half=half)
+    raws = (pf.freqs[None], pf.scores[None], pf.valid[None],
+            torch.zeros((1, 2), dtype=torch.bool, device=dev))
+    st_tr = tracker.init_state(dev, (1,))
+    o_frames = frame_signal(x[1000 * LIVE_SLOT:1000 * LIVE_SLOT + 15 * 64
+                              + 256], 256, 64)[None]           # [1, 16, 256]
+    o_mags = windowed_mags(o_frames, 256, "fft")
+    o_in = (o_mags, torch.full((1, 16), 0.0016, device=dev),
+            torch.zeros((1, 16), dtype=torch.bool, device=dev),
+            torch.zeros((1, 16), dtype=torch.bool, device=dev))
+    st_on = onset.init_state(onset.HALF, dev, (1,))
+    k3_out = hopper_tracker.tracker_scan(st_tr, *raws)
+    k4_out = hopper_onset.onset_scan(st_on, *o_in)
+    live = {
+        "K1": (lambda: hopper_stft.dft_mag(frames, trig, win),
+               nbytes(buf, trig, win, mags),
+               3 * 2 * 2 * 2048 * trig.shape[1], TF32_FLOPS),
+        "K2": (lambda: hopper_comb.comb(pm, frac, m_c, half, max_bin),
+               nbytes(pm, frac, m_c) + 3 * pm.numel() * 4, 0, FP32_FLOPS),
+        "K3": (lambda: hopper_tracker.tracker_scan(st_tr, *raws),
+               nbytes(*raws, *k3_out[1]) + 2 * nbytes(*st_tr), 0,
+               FP32_FLOPS),
+        "K4": (lambda: hopper_onset.onset_scan(st_on, *o_in),
+               nbytes(*o_in, *k4_out[1]) + 2 * nbytes(*st_on),
+               30 * o_mags.numel(), FP32_FLOPS),
+        "K5": (lambda: hopper_noisefloor.noise_floor_scan(st_nf, mags, gf,
+                                                          kc),
+               2 * 2 * kc * 4 + nbytes(gf) + 2 * (3 * kc * 4 + 1),
+               30 * 2 * kc, FP32_FLOPS),
+    }
+    parts = []
+    for row, (name, (fn, nb, ops, rate)), n_run, n_slot in zip(
+            sorted(rows, key=lambda r: r["name"]), live.items(), launches,
+            per_slot):
+        t_ms = cuda_ms(fn, KERNEL_REPS)
+        b_ms, b_by = bound(nb, ops, rate)
+        row.update(launches_live=n_run, launches_live_per_slot=n_slot,
+                   live_ms=t_ms, live_bound_ms=b_ms, live_bound_by=b_by)
+        parts.append(f"{name} {t_ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} "
+                     f"us, {b_by})")
+    say("live: kernels at the live shapes (S=1: K1 [1, 2, 2048], K2 [2, "
+        f"{kc}], K3 N=2, K4 [1, 16, 129], K5 [1, 2, {kc}]): "
+        + "; ".join(parts))
+    del x
+
+    # Fused against sequential on the card, the first 10 s: bitwise.
+    _, seq, _, _ = live_session(scene, "cuda", PARITY_SLOTS, fused=False)
+    for k, (a, b) in enumerate(zip(polls[:PARITY_SLOTS], seq)):
+        assert a == b, f"live slot {k}: fused {a} != sequential {b}"
+    say(f"live: fused against sequential on the card, the first "
+        f"{PARITY_SLOTS} slots: polled JSON bitwise equal")
+
+    # The card against the CPU (the plain versions), the same 10 s.
+    t0 = time.perf_counter()
+    _, cpu, _, _ = live_session(scene, "cpu", PARITY_SLOTS)
+    cpu_s = time.perf_counter() - t0
+    say(f"live: card against CPU ({cpu_s:.1f} s on the CPU): "
+        + card_vs_cpu(polls[:PARITY_SLOTS], cpu, "card vs CPU"))
+
+    # One NaN sample at 5 s: the card does what the CPU run does.
+    nan_scene = scene[:int(10.5 * LIVE_SR)].copy()
+    nan_scene[int(5.0 * LIVE_SR)] = np.nan
+    _, nan_card, _, _ = live_session(nan_scene, "cuda", PARITY_SLOTS)
+    _, nan_cpu, _, _ = live_session(nan_scene, "cpu", PARITY_SLOTS)
+    summary = card_vs_cpu(nan_card, nan_cpu, "NaN card vs CPU")
+    first = int(5.0 * LIVE_SR) // LIVE_SLOT
+    after = nan_card[first + 1:]
+    say(f"live: NaN sample at 5 s, card against CPU: {summary}; after it "
+        f"({len(after)} slots): last dynamics {after[-1][2]}, "
+        f"{sum('nan' in d for _, _, d in after)} slots with a NaN dynamics "
+        f"field, {sum(len(json.loads(o)) for _, o, _ in after)} onset "
+        f"events, {sum(bool(json.loads(t)['notes']) for t, _, _ in after)}"
+        f" slots with tuner notes (last {json.loads(after[-1][0])['notes']})")
 
 
 def main() -> int:
@@ -722,7 +1014,11 @@ def main() -> int:
            "depends on the batch")
         + f"; fired sets identical ({int(o5[0].sum())} onsets)")
 
+    # 10. The live engine.
+    live_phase(rows, card)
+
     say(json.dumps({"kernels": rows}))
+    say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -217,10 +217,13 @@ def test_package_exports():
                  "segmented_pitch_analysis", "segmented_onset_analysis",
                  "segmented_pitch_analysis_batch",
                  "segmented_onset_analysis_batch", "PitchAnalyzer",
-                 "OnsetAnalyzer"):
+                 "OnsetAnalyzer", "AudioEngine", "MusicalTransport",
+                 "decode_file", "encode_file", "decode_available"):
         assert getattr(aat, name) is not None
+    from audio_analyzer_rs_tpu_torch.api.engine import AudioEngine
+    assert aat.AudioEngine is AudioEngine
     with pytest.raises(AttributeError):
-        aat.AudioEngine          # the live engine is not ported yet
+        aat.EnginePool           # the engine pool is not ported yet
 
 
 def test_features_on_the_fft_backend_spectrum():

@@ -11,6 +11,12 @@ the full main-path shapes and times them.  Tolerances: K1 max |Δ| <= 1e-5 ·
 max (3xTF32 on the tensor cores against cuBLAS FP32), and bitwise across
 batch geometries; K2, K3, K4 and K5 bitwise (K3's, K4's and K5's floats as
 bit patterns, so -0.0 and +0.0 differ).
+
+The live engine's shapes (one stream at 48 kHz: 1-3 pitch frames and 15-17
+onset frames a slot, every state carried from call to call) and NaN input
+(live audio can hold one) have tests of their own: with a NaN, every
+kernel must put its NaNs where its plain version does, and agree bit for
+bit (K1 within its tolerance) everywhere else.
 """
 
 import numpy as np
@@ -30,6 +36,7 @@ from test_torch_comb_loop import edge_rows
 from test_torch_tracker_select import _outside_state as outside_state
 from test_torch_tracker_select import _random_raws as k3_random_raws
 from test_torch_tracker_select import assert_same_bits
+from test_torch_tracker_select import _bits as bits
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -39,6 +46,11 @@ W, HOP, HALF = 2048, 512, 1025
 BIN_W = float(np.float32(SR) / np.float32(W))
 KC = pitch.candidate_band(BIN_W, HALF)
 MIN_BIN, MAX_BIN = pitch._bins(BIN_W, HALF, pitch.MIN_FREQ, pitch.MAX_FREQ)
+# The live engine's rate.
+SR48 = 48000.0
+BIN_W48 = float(np.float32(SR48) / np.float32(W))
+KC48 = pitch.candidate_band(BIN_W48, HALF)
+MIN48, MAX48 = pitch._bins(BIN_W48, HALF, pitch.MIN_FREQ, pitch.MAX_FREQ)
 
 
 @pytest.fixture
@@ -424,3 +436,202 @@ def test_noise_floor_scan_cuda_runs_no_plain_step(dev, monkeypatch):
     assert hopper_noisefloor.LAUNCHES == launches + 1
     for a, b in zip((got[1], *got[0]), (want[1], *want[0])):
         assert_same_bits(a, b)
+
+
+# ── NaN input and the live engine's shapes ───────────────────────────────
+
+def assert_same_bits_nan(got, want, msg=""):
+    """NaN where the other has NaN (any NaN bits), equal bits elsewhere."""
+    g, w = bits(got), bits(want)
+    if got.dtype == torch.float32:
+        gn = np.isnan(got.detach().cpu().numpy())
+        wn = np.isnan(want.detach().cpu().numpy())
+        np.testing.assert_array_equal(gn, wn, err_msg=f"{msg} NaN positions")
+        g, w = np.where(gn, 0, g), np.where(wn, 0, w)
+    np.testing.assert_array_equal(g, w, err_msg=msg)
+
+
+def assert_close_nan(got, want, msg=""):
+    """K1's check with NaNs: the same NaN positions, and max |Δ| <= 1e-5 ·
+    max over the rest."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=msg)
+    ok = ~np.isnan(w)
+    if ok.any():
+        assert np.abs(g[ok] - w[ok]).max() <= 1e-5 * np.abs(w[ok]).max(), msg
+
+
+def _nan_k5_inputs(dev, s, n, width, seed):
+    """_k5_inputs with NaN bins, a whole NaN frame, NaN in a fresh
+    stream's first frame and a NaN global floor."""
+    mags, gf = _k5_inputs(dev, s, n, width, seed)
+    mags[0, 3, 10:14] = float("nan")
+    mags[s - 1, n // 2] = float("nan")
+    mags[s // 2, 0, 100] = float("nan")
+    gf[s // 3, n // 3] = float("nan")
+    return mags, gf
+
+
+@pytest.mark.parametrize("width,band", [(KC + 1, KC), (HALF, None)])
+def test_k5_keeps_nans(dev, width, band):
+    """K5 puts its NaNs where the plain scan does, from fresh states and
+    from a state handed in, at the segmented step's shape."""
+    mags, gf = _nan_k5_inputs(dev, 128, 64, width, seed=21)
+    for st0 in (noisefloor.init_state(HALF, dev, (128,)),
+                _k5_state(dev, 128, seed=22)):
+        st_k, eff_k = noisefloor.noise_floor_scan(st0, mags, gf, band)
+        st_p, eff_p = noisefloor.noise_floor_scan_plain(st0, mags, gf, band)
+        torch.cuda.synchronize()
+        assert bool(eff_p.isnan().any())
+        assert_same_bits_nan(eff_k, eff_p, "effective")
+        for name, a, b in zip(noisefloor.NoiseFloorState._fields, st_k,
+                              st_p):
+            assert_same_bits_nan(a, b, name)
+
+
+def test_k4_keeps_nans(dev):
+    """K4 with NaN bins, whole NaN frames and a NaN global floor: NaNs
+    where the plain scan has them, every decision equal, from fresh and
+    carried states."""
+    mags, gf, ts, hold = _k4_inputs(dev, 6, 150, seed=23)
+    mags[0, 10, 5] = float("nan")
+    mags[1, 40] = float("nan")
+    mags[2, 0, 64] = float("nan")
+    mags[3, 149, 128] = float("nan")
+    gf[4, 77] = float("nan")
+    st = onset.init_state(onset.HALF, dev, (6,))
+    for lo, hi in ((0, 70), (70, 150)):
+        part = tuple(t[:, lo:hi].contiguous() for t in (mags, gf, ts, hold))
+        st_k, out_k = hopper_onset.onset_scan(st, *part)
+        st_p, out_p = onset.onset_scan_plain(st, *part)
+        torch.cuda.synchronize()
+        for name, a, b in zip(onset.OnsetFrameOut._fields, out_k, out_p):
+            assert_same_bits_nan(a, b, name)
+        for name, a, b in zip(onset.OnsetState._fields, st_k, st_p):
+            assert_same_bits_nan(a, b, name)
+        st = st_k
+    assert bool(out_p.velocity.isnan().any())
+
+
+def _live_scene(dev, seconds, nan_at=None):
+    """A 48 kHz mixed scene with calibration clicks (four in its first
+    0.25 s), on the card; one NaN sample at `nan_at` seconds."""
+    x = gen.mixed_scene(seconds, SR48, seed=11)
+    click = gen.calibration_click(SR48, volume=0.7)
+    for t in (0.03, 0.09, 0.15, 0.21, 1.3):
+        x[int(t * SR48):int(t * SR48) + len(click)] += click
+    if nan_at is not None:
+        x[int(nan_at * SR48)] = np.nan
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_live_pitch_kernels(dev, n, nan):
+    """K1, K5, K2 and K3 as the live engine calls them: one stream, n pitch
+    frames a call, 12 calls in a row on a fresh buffer each (the ring tail
+    and the slot joined), every state carried from the first, fresh, call.
+    K5, K2 and K3 bitwise to their plain versions on the same inputs; K1
+    within 1e-5 · max of its plain version and bitwise to the same frames
+    in one batch.  With a NaN sample in call 5's frames, NaNs where the
+    plain versions have them."""
+    calls = 12
+    x = _live_scene(dev, 3.0, nan_at=(5 * n * HOP + 100) / SR48
+                    if nan else None)
+    trig = rdft_trig(W, dev)[:, :2 * (KC48 + 1)]
+    win = hann(W, dev)
+    one_batch = hopper_stft.dft_mag(
+        frame_signal(x[:(calls * n - 1) * HOP + W], W, HOP), trig, win)
+    nf = noisefloor.init_state(HALF, dev, (1,))
+    tr = tracker.init_state(dev, (1,))
+    gf = torch.full((1, n), 0.002, device=dev)
+    stable = 0
+    for c in range(calls):
+        buf = x[c * n * HOP:(c * n + n - 1) * HOP + W].clone()
+        frames = frame_signal(buf, W, HOP)[None]
+        mags = hopper_stft.dft_mag(frames, trig, win)
+        assert_close_nan(mags, hopper_stft.dft_mag_plain(frames, trig, win),
+                         f"K1 call {c}")
+        assert_same_bits_nan(mags[0], one_batch[c * n:(c + 1) * n],
+                             f"K1 call {c} against one batch")
+        nf_k, eff = noisefloor.noise_floor_scan(nf, mags, gf, KC48)
+        nf_p, eff_p = noisefloor.noise_floor_scan_plain(nf, mags, gf, KC48)
+        assert_same_bits_nan(eff, eff_p, f"K5 call {c}")
+        for a, b in zip(nf_k, nf_p):
+            assert_same_bits_nan(a, b, f"K5 state call {c}")
+        flat, floor = mags.reshape(n, -1), eff.reshape(n, -1)
+        pm, frac, m_c, _, _ = pitch._pre_comb(flat, floor, MIN48, MAX48,
+                                              KC48)
+        m_c = m_c.contiguous()
+        got = hopper_comb.comb(pm, frac, m_c, HALF, MAX48)
+        ref = pitch._comb(pm, frac, m_c, HALF, MAX48)
+        for g, r in zip(got, ref):
+            assert_same_bits_nan(g, r, f"K2 call {c}")
+        pf = pitch.extract_pitches(flat, floor, BIN_W48, true_half=HALF)
+        onsets = torch.zeros((1, n), dtype=torch.bool, device=dev)
+        onsets[0, 0] = c % 4 == 1
+        raws = (pf.freqs[None], pf.scores[None], pf.valid[None], onsets)
+        st_k, out_k = hopper_tracker.tracker_scan(tr, *raws)
+        st_p, emits = tracker.tracker_scan_plain(tr, *raws)
+        out_p = tracker.select_stable(*emits)
+        torch.cuda.synchronize()
+        for a, b in zip((*out_k, *st_k), (*out_p, *st_p)):
+            assert_same_bits_nan(a, b, f"K3 call {c}")
+        stable += int(out_k[2].sum())
+        nf, tr = nf_k, st_k
+    if nan:
+        assert bool(nf.floor.isnan().any())
+    else:
+        assert stable > 0
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("n", [15, 16, 17])
+def test_live_onset_kernel(dev, n, nan):
+    """K4 as the live engine calls it: one stream, n onset frames a call of
+    cuFFT magnitudes, with tick-suppressed and held frames, 12 calls in a
+    row with the state carried from the first, fresh, call; bitwise to the
+    plain scan (NaNs where it has them)."""
+    calls = 12
+    x = _live_scene(dev, 3.0, nan_at=(4 * n * 64 + 40) / SR48
+                    if nan else None)
+    frames = frame_signal(x[:(calls * n - 1) * 64 + onset.WINDOW],
+                          onset.WINDOW, 64)
+    mags_all = windowed_mags(frames, onset.WINDOW, "fft")
+    rng = np.random.default_rng(n)
+    st = onset.init_state(onset.HALF, dev, (1,))
+    fired = 0
+    for c in range(calls):
+        mags = mags_all[c * n:(c + 1) * n][None].contiguous()
+        gf = torch.full((1, n), 0.0016, device=dev)
+        ts, hold = (torch.from_numpy(rng.random((1, n)) < 0.1).to(dev)
+                    for _ in range(2))
+        st_k, out_k = hopper_onset.onset_scan(st, mags, gf, ts, hold)
+        st_p, out_p = onset.onset_scan_plain(st, mags, gf, ts, hold)
+        torch.cuda.synchronize()
+        for name, a, b in zip(onset.OnsetFrameOut._fields, out_k, out_p):
+            assert_same_bits_nan(a, b, f"{name} call {c}")
+        for name, a, b in zip(onset.OnsetState._fields, st_k, st_p):
+            assert_same_bits_nan(a, b, f"{name} state call {c}")
+        fired += int(out_k.fired.sum())
+        st = st_k
+    if not nan:
+        assert fired > 0
+
+
+def test_fft_mags_are_batch_independent(dev):
+    """One onset frame's "fft" magnitudes (cuFFT) in batches of 1, 16, 63,
+    64, 65 and 129 frames, the frame at the batch's first, middle and last
+    row: the same bits in every batch."""
+    x = _live_scene(dev, 2.0)
+    frames = frame_signal(x, onset.WINDOW, 64)
+    k = 300
+    want = windowed_mags(frames[k:k + 1], onset.WINDOW, "fft")[0]
+    for b in (1, 16, 63, 64, 65, 129):
+        for start in (k, k - b // 2, k - b + 1):
+            got = windowed_mags(frames[start:start + b], onset.WINDOW, "fft")
+            assert_same_bits(got[k - start], want, f"batch {b} at {start}")
+            got = windowed_mags(frames[None, start:start + b],
+                                onset.WINDOW, "fft")
+            assert_same_bits(got[0, k - start], want,
+                             f"[1, {b}] batch at {start}")

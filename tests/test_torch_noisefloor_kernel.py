@@ -4,7 +4,9 @@ the plain floor scan, bitwise; and the wrapper's argument checks.
 `kernel_np` is what one thread of K5 does for its (stream, bin), run for all
 bins at once: numpy float32 operations, each rounded on its own, the two
 fused steps rounded once (`fma_np`), and the constants read from the
-kernel's source as it spells them (hex floats).  It is the CPU check of the
+kernel's source as it spells them (hex floats).  Its max and min keep a NaN
+(np.maximum / np.minimum, the kernel's max_nan / min_nan), so it holds the
+kernel's NaN rules to the plain scan too.  It is the CPU check of the
 kernel's literals and of which expressions it fuses; the card test
 (tests/test_torch_kernels_cuda.py) holds the kernel itself to
 `noise_floor_scan_plain`.
@@ -58,8 +60,9 @@ def fma_np(a, b, c):
 
 def div_guarded_np(n, d):
     """The kernel's division: IEEE, with 1 in place of a zero numerator and
-    the zero put back."""
-    return np.where(n == 0, n, np.where(n == 0, F32(1), n) / d).astype(F32)
+    the zero put back unless the divisor is NaN."""
+    q = (np.where(n == 0, F32(1), n) / d).astype(F32)
+    return np.where((n == 0) & ~np.isnan(d), n, q).astype(F32)
 
 
 def kernel_np(floor, prev, vol, init, mags, gf):
@@ -147,6 +150,36 @@ def test_kernel_np_matches_plain_bitwise(scene, width, band):
         init = got_st.initialized.clone()
         init[1] = False
         st = got_st._replace(initialized=init)
+
+
+def test_kernel_np_matches_plain_with_nans(scene):
+    """NaN magnitudes (single bins, a whole frame, a fresh stream's first
+    frame) and a NaN global floor: the NaN positions equal and every other
+    value bitwise, in the effective floors and the final state."""
+    mags, gf = scene
+    mags = np.ascontiguousarray(mags[..., :BAND + 1]).copy()
+    gf = gf.copy()
+    mags[0, 3, 10:14] = np.nan
+    mags[1, 40] = np.nan
+    mags[2, 0, 100] = np.nan
+    gf[2, 60] = np.nan
+    st = tnf.init_state(HALF, "cpu", (3,))
+    got_st, got_eff = tnf.noise_floor_scan_plain(
+        st, torch.from_numpy(mags), torch.from_numpy(gf), BAND)
+    assert np.isnan(got_eff.numpy()).any()
+    for s in range(3):
+        floor, prev, vol, eff = kernel_np(
+            st.floor[s, :BAND].numpy(), st.prev_mag[s, :BAND].numpy(),
+            st.volatility[s, :BAND].numpy(), False, mags[s, :, :BAND],
+            gf[s])
+        for got, want in ((got_eff[s], eff), (got_st.floor[s, :BAND], floor),
+                          (got_st.prev_mag[s, :BAND], prev),
+                          (got_st.volatility[s, :BAND], vol)):
+            got = got.numpy()
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+            ok = ~np.isnan(want)
+            np.testing.assert_array_equal(got[ok].view(np.uint32),
+                                          want[ok].view(np.uint32))
 
 
 def _args(s=2, n=5, width=BAND + 1):

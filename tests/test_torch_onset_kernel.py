@@ -8,7 +8,8 @@ held bitwise to what the plain onset scan computes with float32 division.
   and random pairs.
 - `keep_larger_np` is the kernel's exact ratio comparison (the products as
   float and fma error pairs); its tournament over a warp's 32 bins is held
-  to the largest RN(m / den).
+  to the largest RN(m / den), and to NaN where a bin's divisor is NaN (the
+  kernel stores a NaN divisor for a NaN magnitude), as torch.amax keeps it.
 - `tree32_np` is the kernel's 32-value sum order, held to `onset.tree_sum`.
 
 The card test (tests/test_torch_kernels_cuda.py) holds the kernel itself to
@@ -64,11 +65,28 @@ def burst_limit_np(m):
 
 
 def keep_larger_np(ma, da, mb, db):
-    """The kernel's keep_larger: (m, d) of the larger ratio, a on ties."""
+    """The kernel's keep_larger: (m, d) of the larger ratio, a on ties, b
+    where its divisor is NaN."""
     p1, p2 = (ma * db).astype(F32), (mb * da).astype(F32)
     e1, e2 = fma_np(ma, db, -p1), fma_np(mb, da, -p2)
-    b = (p2 > p1) | ((p2 == p1) & (e2 > e1))
+    b = (p2 > p1) | ((p2 == p1) & (e2 > e1)) | np.isnan(db)
     return np.where(b, mb, ma), np.where(b, db, da)
+
+
+def div_guarded_np(n, d):
+    """The kernel's division: IEEE, with 1 in place of a zero numerator and
+    the zero put back unless the divisor is NaN."""
+    q = (np.where(n == 0, F32(1), n) / d).astype(F32)
+    return np.where((n == 0) & ~np.isnan(d), n, q).astype(F32)
+
+
+def tournament_np(m, den):
+    """A warp's 32 bins [rows, 32] → the kernel's largest ratio a row."""
+    wm, wd = keep_larger_np(m[:, :16], den[:, :16], m[:, 16:], den[:, 16:])
+    for k in (8, 4, 2, 1):
+        wm, wd = keep_larger_np(wm[:, :k], wd[:, :k], wm[:, k:2 * k],
+                                wd[:, k:2 * k])
+    return div_guarded_np(wm[:, 0], wd[:, 0])
 
 
 def tree32_np(x):
@@ -111,13 +129,30 @@ def test_tournament_finds_the_largest_rounded_ratio():
     jitter = 1.0 + rng.integers(-2, 3, (rows, 32)) * 2.0 ** -24
     m = (base * jitter * den).astype(F32)
     m[rng.random((rows, 32)) < 0.2] = 0.0
-    wm, wd = keep_larger_np(m[:, :16], den[:, :16], m[:, 16:], den[:, 16:])
-    for k in (8, 4, 2, 1):
-        wm, wd = keep_larger_np(wm[:, :k], wd[:, :k], wm[:, k:2 * k],
-                                wd[:, k:2 * k])
-    got = (wm[:, 0] / wd[:, 0]).astype(F32)
+    got = tournament_np(m, den)
     want = (m / den).astype(F32).max(1)
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_tournament_keeps_a_nan_ratio():
+    """Rows with a NaN divisor in any of the 32 bins, at any place and next
+    to zero magnitudes, give NaN; the other rows their largest ratio."""
+    rng = np.random.default_rng(6)
+    rows = 4_000
+    den = rng.uniform(0.01, 30.0, (rows, 32)).astype(F32)
+    m = (rng.uniform(0.0, 8.0, (rows, 32)) * den).astype(F32)
+    m[rng.random((rows, 32)) < 0.3] = 0.0
+    nan_rows = rng.random(rows) < 0.3
+    den[nan_rows, rng.integers(0, 32, rows)[nan_rows]] = np.nan
+    den[:40, :] = np.nan
+    m[:20, :] = 0.0
+    got = tournament_np(m, den)
+    want = (m / den).astype(F32).max(1)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(want).sum() == nan_rows[40:].sum() + 40
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(got[ok].view(np.uint32),
+                                  want[ok].view(np.uint32))
 
 
 def test_tree32_is_tree_sums_order():

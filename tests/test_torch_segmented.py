@@ -209,6 +209,13 @@ def test_port_runs_without_jax_in_a_fresh_process():
         "from audio_analyzer_rs_tpu_torch import analyze_buffer_segmented\n"
         "a = analyze_buffer_segmented(x, 44100.0, device='cpu')\n"
         "assert len(a.rms) == len(f) and np.isfinite(a.spectrogram).all()\n"
+        "from audio_analyzer_rs_tpu_torch import AudioEngine\n"
+        "from audio_analyzer_rs_tpu_torch.api.device import ArraySource\n"
+        "e = AudioEngine(input_source=ArraySource(x[:48000]), "
+        "sample_rate=48000.0, device='cpu')\n"
+        "t, o = e.start_tuner(), e.start_onset_detection()\n"
+        "e.advance(0.5)\n"
+        "assert e._fused_slots > 0 and t.poll_output() and o.poll_onsets()\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -24,22 +24,32 @@ Layer map (mirrors the JAX package):
                      ops/hopper_onset.py, csrc/onset.cu)
   ops/features       RMS, energy, centroid, rolloff, flux (plain torch)
   ops/yin            YIN f0 from an FFT autocorrelation (plain torch)
-  models/analyzer    PitchAnalyzer and OnsetAnalyzer (sequential streaming)
-                     and fused_slot_step, the live engine's per-slot
-                     program (both flows, carries on the device)
+  models/analyzer    PitchAnalyzer and OnsetAnalyzer (sequential streaming);
+                     fused_slot_step, the live engine's per-slot program
+                     (both flows, carries on the device) for one engine or
+                     K lanes; fused_slot_agg_step (A slots chained) and
+                     fused_slot_pool_step (an engine pool's wave)
   models/segmented   segment-parallel and batched offline pitch and onset
                      analysis
   api/engine         AudioEngine, the uniffi-shaped live engine: virtual
                      audio device, host reducer and AGC, tuner, onset
                      detection with loopback calibration, practice
                      sessions, JSON polling
+  api/pool           EnginePool: K live engines in lockstep, each slot wave
+                     one batched slot program, deferred readback,
+                     speculative calibration, capacity padding
+  api/rpc            RpcServer: the line-delimited JSON-RPC surface, with
+                     sessions and pool.join
+  checkpoint         save/load of analyzer, transport and engine state
+                     (the JAX package's file format)
   api/device         the virtual audio device and its input sources
   ops/reducer,       the host (numpy) conditioning and dynamics the engine
   ops/dynamics       runs per slot; runtime: the C++ reducer when built
   models/{sources,calibration,metronome,synth,player,tuner}, practice/,
   theory, transport, tracing, utils/{midi,wav}
                      host modules, copies of the JAX package's
-  interop            JAX-package states (as numpy) <-> this package's states
+  interop            JAX-package states and fused carries (as numpy) <->
+                     this package's
 
 Every entry point takes `device` (default "cuda"); nothing picks the CPU on
 its own.
@@ -64,6 +74,7 @@ _EXPORTS = {
                          "segmented_onset_analysis_batch"),
     "models.analyzer": ("PitchAnalyzer", "OnsetAnalyzer"),
     "api.engine": ("AudioEngine",),
+    "api.pool": ("EnginePool",),
     "transport": ("MusicalTransport",),
     "runtime": ("decode_file", "encode_file", "decode_available"),
 }

@@ -14,13 +14,15 @@ engine's torch device (`device`, default "cuda"; the tests pass "cpu", which
 runs every kernel's plain version) and are fed per callback; the fan-out is
 plain function calls instead of the reference's SlotPool + SPSC rings.
 
-Port of the JAX package's api/engine.py at pipeline depth 0 and one slot a
-dispatch: with the tuner and onset detection both running, each slot is
-one `fused_slot_step` (one upload, the kernels, one readback).  Deferred
-readback (`pipeline_depth` >= 1), slot aggregation (`aggregate_slots` > 1)
-with its speculative calibration, the engine pool and the debug recorder
-are not ported yet: the knobs stay, and a value other than 0 / 1 raises
-NotImplementedError at the next slot.
+Port of the JAX package's api/engine.py: with the tuner and onset detection
+both running, each slot is one `fused_slot_step` (one upload, the kernels,
+one packed readback), or a lane of an `EnginePool` wave (api/pool.py).
+`pipeline_depth` N >= 1 defers each slot's readback by N slots: the packed
+result is copied into page-locked host memory behind a CUDA event, and the
+drain waits on that event alone.  `aggregate_slots` A > 1 runs A slots in
+one `fused_slot_agg_step`.  Calibration slots at depth >= 1 dispatch
+speculatively and roll back at the calibration transition.  The debug
+recorder is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..models.analyzer import (OnsetAnalyzer, PitchAnalyzer, fused_slot_step,
+from ..models.analyzer import (OnsetAnalyzer, PitchAnalyzer, fused_out_len,
+                               fused_slot_agg_step, fused_slot_step,
                                unpack_fused_out)
 from ..models.calibration import CalibrationClick
 from ..models.metronome import Metronome as MetronomeSource
@@ -84,6 +87,42 @@ class FileError(AudioEngineError):
 class InternalError(AudioEngineError):
     def __init__(self, msg):
         super().__init__(f"Internal engine error: {msg}")
+
+
+# ── Host <-> device transfers of the fused path ──────────────────────────
+
+def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A float32 host array onto `device`: on CUDA through page-locked
+    memory, asynchronously (the caching host allocator does not reuse the
+    staging block before the copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(host, np.float32))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class Readback:
+    """A deferred device->host read of one packed result vector (the GPU
+    form of the JAX package's `copy_to_host_async`): on CUDA the copy into
+    a page-locked buffer is queued now, with an event recorded behind it on
+    the current stream; `wait()` waits on that event alone, then numpy
+    reads the buffer.  The buffer belongs to this object, so nothing reuses
+    it while its entry is queued.  A CPU vector is already on the host."""
+
+    def __init__(self, vec: torch.Tensor):
+        if vec.device.type != "cuda":
+            self._host, self._event = vec, None
+            return
+        self._host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
+        self._host.copy_(vec, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record(torch.cuda.current_stream(vec.device))
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
 
 
 # ── Exported objects (ref lib.rs:63-351) ─────────────────────────────────
@@ -559,6 +598,43 @@ class _OnsetConsumer:
                 self.detection._push(event)
                 e.onset_pending = True
 
+    def _calibration_transition(self, out, base: int, anchor: dict) -> bool:
+        """Would `_post(out, base, anchor)` end the calibration hold
+        (timeout crossing or click acceptance)?  A pure pre-check with no
+        side effects, mirroring `_post`'s calibration decisions exactly:
+        the speculative calibration dispatch (solo `_fused_drain_entry`,
+        api/pool.py) uses it to decide whether the one in-flight
+        optimistic slot must be rolled back and rebuilt.  Any drift from
+        `_post` makes speculative state diverge from the synchronous
+        order, which the rollback tests catch.  Port of the JAX package's
+        `_calibration_transition` (api/engine.py:569)."""
+        if self.calibration_done:
+            return False
+        if len(out.fired) == 0:
+            # _fused_post calls _post only for bursts with onset frames, so
+            # an empty burst never transitions, not even past the timeout.
+            return False
+        elapsed = anchor["output_frames"] - self.calibration_start_frame
+        if elapsed > self.calibration_timeout:
+            return True
+        target = anchor.get("calibration_target",
+                            self.engine.calibration_target)
+        if target == 0:
+            return False
+        t = self.engine.transport
+        for i in range(len(out.fired)):
+            if not out.fired[i]:
+                continue
+            center = (self.base_input_frame + (base + i) * ONSET_HOP
+                      + ONSET_WINDOW // 2 + self.dropped_samples)
+            event = t.stamp_onset_anchored(
+                anchor, int(center - anchor["input_frames"]),
+                float(out.velocity[i]))
+            residual = event.output_samples - target
+            if 0 <= residual <= int(self.engine.sample_rate * 0.5):
+                return True
+        return False
+
 
 # ── The main engine (ref lib.rs:434-849) ─────────────────────────────────
 
@@ -607,16 +683,29 @@ class AudioEngine:
         # Results are identical (tested); set False to force the
         # sequential per-consumer path.
         self.fused_streaming = True
-        # Deferred readback (results surfacing pipeline_depth slots later)
-        # and slot aggregation (aggregate_slots slots in one program) are
-        # the JAX package's answers to a host link whose round trip exceeds
-        # the slot budget.  Neither is ported: 0 and 1 are the only values
-        # taken, and another raises NotImplementedError at the next slot.
+        # Deferred-readback depth of the fused path: slot k's results are
+        # read back and posted only after slot k+depth has been dispatched,
+        # so the host enqueues the next slot while the card runs this one.
+        # 0 = synchronous (results visible the same slot); N >= 1 = results
+        # surface N slots (~N*21 ms) later, a latency constant like the
+        # reference's free-running analysis threads (ref src/lib.rs:80-82:
+        # every consumer surface is poll-based).  While latency calibration
+        # holds, depth 0 stays synchronous and N >= 1 runs the calibration
+        # slots speculatively at a depth of 1, rolled back at the
+        # transition (_fused_consume, _fused_drain_entry).
         self.pipeline_depth = 0
+        # Slot aggregation: every A-th slot dispatches ONE chained program
+        # over the last A slots (models/analyzer.fused_slot_agg_step).
+        # Results surface up to A slots later (plus pipeline_depth
+        # dispatches), bitwise equal otherwise.  1 = per-slot dispatch.
+        # Forced to 1 while latency calibration runs (acceptance rewrites
+        # scan state between slots, ref onset.rs:404-440).
         self.aggregate_slots = 1
         self._fused_slots = 0      # observability: slots run via fused path
+        self._agg_dispatches = 0   # observability: aggregate dispatches
+        self._spec_rollbacks = 0   # observability: speculative rollbacks
         self._resident = None      # device-resident fused-stream carries
-        self._pool = None          # EnginePool membership (not ported yet)
+        self._pool = None          # EnginePool membership (api/pool.py)
         self.calibration_target = 0
         self.debug_recorder = None   # devtools recorder (attach_debug_recorder)
         self.input_error = False
@@ -738,19 +827,7 @@ class AudioEngine:
             frames, self.device.samples_elapsed / self.sample_rate)
         self.mixer.process(buf, 1)
 
-    def _check_knobs(self) -> None:
-        """Raise on the fused-path knobs this port does not run yet."""
-        if self.pipeline_depth != 0:
-            raise NotImplementedError(
-                f"pipeline_depth={self.pipeline_depth}: deferred readback "
-                f"of the fused slot program is not ported (only 0)")
-        if self.aggregate_slots != 1:
-            raise NotImplementedError(
-                f"aggregate_slots={self.aggregate_slots}: slot aggregation "
-                f"(fused_slot_agg_step) is not ported (only 1)")
-
     def _input_callback(self, mono: np.ndarray) -> None:
-        self._check_knobs()
         self.transport.tick_input(len(mono))
         if self.native_reducer is not None:
             slot, d = self.native_reducer.process_slot(mono)
@@ -778,9 +855,9 @@ class AudioEngine:
                     and pc.analyzer.debug_recorder is None):
                 pc = oc = None
         if pc is None and self._resident is not None:
-            # Conditions for fusion just lapsed: hand the device-resident
-            # carries back to the analyzers before any sequential consume
-            # touches them.
+            # Conditions for fusion just lapsed: surface the deferred
+            # results and hand the device-resident carries back to the
+            # analyzers before any sequential consume touches them.
             self._flush_fused()
         # Onset before pitch so onset_pending reaches the tracker in-burst
         # (the reference's onset thread runs at 4x the pitch hop rate).
@@ -794,12 +871,29 @@ class AudioEngine:
             self._fused_consume(slot, pc, oc)
 
     def _stamp_anchor(self) -> dict:
-        """Consume-time stamping snapshot: the transport anchor plus the
-        engine-level field a post reads (the calibration click target).
-        Every fused post stamps against it."""
+        """Consume-time stamping snapshot: the transport anchor plus every
+        engine-level field a deferred post reads (the calibration click
+        target).  All posts, synchronous or deferred, stamp against it,
+        which makes readback deferral a pure latency constant."""
         anchor = self.transport.anchor()
         anchor["calibration_target"] = self.calibration_target
         return anchor
+
+    def _enter_fused(self, pc: "_PitchConsumer",
+                     oc: "_OnsetConsumer") -> dict:
+        """Enter fused mode (solo or pooled): move the ring tails and the
+        pending flag to the device.  Returns the residency."""
+        dev = self.torch_device
+        res = self._resident = {
+            "p_tail": torch.from_numpy(
+                np.array(pc.analyzer._tail, np.float32)).to(dev),
+            "o_tail": torch.from_numpy(
+                np.array(oc.analyzer._tail, np.float32)).to(dev),
+            "pending": torch.tensor([bool(self.onset_pending)], device=dev),
+            "queue": [], "pc": pc, "oc": oc,
+        }
+        self.onset_pending = False
+        return res
 
     def _fused_consume(self, slot: np.ndarray, pc: "_PitchConsumer",
                        oc: "_OnsetConsumer") -> None:
@@ -807,91 +901,238 @@ class AudioEngine:
         ring tails, analyzer states, and the pending flag device-resident.
 
         Per slot the host uploads one small vector (raw audio + floor
-        scalars + hold flag + tick suppression), runs `fused_slot_step` on
-        it (`_dispatch_slot`) and reads back one packed result, which it
-        posts in the same slot (`_fused_drain_entry`: pipeline depth 0).
+        scalars + hold flag + tick suppression) and reads back one packed
+        result, and with `pipeline_depth` N >= 1 that readback is deferred
+        N slots, so the host enqueues the next slot's kernels while the
+        card runs this one's.  All event and beat stamping is in absolute
+        sample time against the consume-time anchor, so deferred posts are
+        identical; results merely reach the poll surfaces N slots later.
         Calibration is a data input of the program, so the session runs
         fused from its first slot; an accepted calibration click rewrites
-        the onset state between slots (ref onset.rs:404-440), which the
-        same-slot readback orders exactly as the sequential path does."""
+        the onset state between slots (ref onset.rs:404-440), which depth
+        0 orders synchronously and depth >= 1 speculatively (see
+        _fused_drain_entry).  Under an EnginePool the slot joins the pool's
+        wave instead."""
+        pool = self._pool
+        if pool is not None and pool._collect is not None:
+            # Pooled mode: the slot joins the EnginePool's wave, K engines'
+            # slots as the lanes of one program (api/pool.py).
+            pool._collect.append((self, slot, pc, oc))
+            return
         pa, oa = pc.analyzer, oc.analyzer
         slot = np.asarray(slot, np.float32)
-        if self._resident is None:
-            # Entering fused mode: move tails + pending flag to the device.
-            dev = self.torch_device
-            self._resident = {
-                "p_tail": torch.from_numpy(
-                    np.array(pa._tail, np.float32)).to(dev),
-                "o_tail": torch.from_numpy(
-                    np.array(oa._tail, np.float32)).to(dev),
-                "pending": torch.tensor([bool(self.onset_pending)],
-                                        device=dev),
-                "pc": pc, "oc": oc,
-            }
-            self.onset_pending = False
-        host_vec, n_p, n_o, tick_sup = self._fused_inputs(slot, pc, oc)
+        res = self._resident
+        if res is None:
+            res = self._enter_fused(pc, oc)
+        host_vec, n_p, n_o, tick_sup, hold, p_len, o_len = \
+            self._fused_inputs(slot, pc, oc)
+        agg = 1 if hold else max(int(self.aggregate_slots), 1)
         meta = (n_p, n_o, pa.frames_consumed, oa.frames_consumed, tick_sup,
                 self._stamp_anchor())
-        entry = self._dispatch_slot(pc, oc, host_vec, meta, len(slot))
-        self._fused_slots += 1
-        self._fused_advance_host(slot, pc, oc, n_p, n_o)
-        self._fused_drain_entry(entry, pc, oc)
+        if agg > 1:
+            # Slot aggregation: accumulate host inputs; every agg-th slot
+            # dispatches ONE chained program covering them all.
+            acc = res.get("agg")
+            if acc is None:
+                acc = res["agg"] = {"entries": [], "slot_len": len(slot)}
+            acc["entries"].append((host_vec, meta))
+            self._fused_slots += 1
+            self._fused_advance_host(slot, pc, oc, n_p, n_o)
+            if len(acc["entries"]) >= agg:
+                self._dispatch_aggregate(pc, oc)
+        else:
+            if res.get("agg"):
+                # Aggregation just turned off (knob change, calibration
+                # restart): dispatch the partial aggregate first so the
+                # slot order holds.
+                self._dispatch_aggregate(pc, oc)
+            # Calibration slots dispatch SPECULATIVELY when the session
+            # already runs deferred (pipeline_depth >= 1): the next slot
+            # goes out before this one's result is read, and the at most
+            # one invalidated in-flight dispatch is rolled back and rebuilt
+            # at the transition (_fused_drain_entry).  Depth-0 sessions
+            # keep the synchronous order.
+            spec = None
+            if hold and self.pipeline_depth >= 1:
+                spec = {"slot": slot,
+                        "mirrors": (pa._tail, oa._tail, pa.frames_consumed,
+                                    oa.frames_consumed)}
+            self._dispatch_slot(pc, oc, host_vec, meta, len(slot), spec=spec)
+            self._fused_slots += 1
+            self._fused_advance_host(slot, pc, oc, n_p, n_o)
+        if hold:
+            depth = 1 if self.pipeline_depth >= 1 else 0
+        else:
+            depth = max(int(self.pipeline_depth), 0)
+        while len(res["queue"]) > depth:
+            self._fused_drain_entry(res["queue"].pop(0), pc, oc)
 
     def _dispatch_slot(self, pc: "_PitchConsumer", oc: "_OnsetConsumer",
-                       host_vec: np.ndarray, meta: tuple,
-                       slot_len: int) -> tuple:
-        """Upload the slot's host vector and run one `fused_slot_step` on
-        the resident carries.  Returns the entry `_fused_drain_entry`
-        posts: the packed result (still on the device) and the slot's
-        host metadata."""
+                       host_vec: np.ndarray, meta: tuple, slot_len: int,
+                       spec=None) -> None:
+        """Upload the slot's host vector, run one `fused_slot_step` on the
+        resident carries and queue its deferred readback.  `spec` (a
+        speculative calibration dispatch) carries the raw slot and the
+        pre-slot host mirrors and receives the pre-dispatch carries
+        ("snap": the very tensors about to be replaced; no op writes into
+        a carry, so keeping them is free), so a calibration transition can
+        roll this dispatch back and rebuild it."""
         res = self._resident
         pa, oa = pc.analyzer, oc.analyzer
+        if spec is not None:
+            spec["snap"] = (pa.nf_state, pa.tr_state, oa.state,
+                            res["pending"], res["p_tail"], res["o_tail"])
         # The slot's 11 output arrays come back as ONE float32 vector, one
         # device->host copy (models/analyzer.pack_fused_out).
         (pa.nf_state, pa.tr_state, oa.state, res["pending"],
          res["p_tail"], res["o_tail"], out) = fused_slot_step(
             pa.nf_state, pa.tr_state, oa.state, res["pending"],
-            res["p_tail"], res["o_tail"],
-            torch.from_numpy(host_vec).to(self.torch_device),
+            res["p_tail"], res["o_tail"], upload(host_vec, self.torch_device),
             self.sample_rate, slot_len, pa.window, pa.hop, oa.window,
             oa.hop, pa.backend, oa.backend)
-        return out, meta
+        res["queue"].append(("one", Readback(out), meta, spec))
 
-    def _fused_drain_entry(self, entry: tuple, pc: "_PitchConsumer",
+    def _dispatch_aggregate(self, pc: "_PitchConsumer",
+                            oc: "_OnsetConsumer") -> None:
+        """Dispatch the accumulated aggregate as one chained program
+        (models/analyzer.fused_slot_agg_step) and queue its deferred
+        readback.  A PARTIAL aggregate (flush mid-chain, knob change)
+        decomposes into per-slot dispatches, as the JAX package does (its
+        chain lengths are separate compiled programs); per-slot dispatch is
+        the reference semantics, so the decomposition is exact."""
+        res = self._resident
+        acc = res.pop("agg", None)
+        if not acc or not acc["entries"]:
+            return
+        pa, oa = pc.analyzer, oc.analyzer
+        entries = acc["entries"]
+        if len(entries) < max(int(self.aggregate_slots), 1):
+            for host_vec, meta in entries:
+                self._dispatch_slot(pc, oc, host_vec, meta, acc["slot_len"])
+            return
+        host_vec = np.concatenate([e[0] for e in entries])
+        (pa.nf_state, pa.tr_state, oa.state, res["pending"], res["p_tail"],
+         res["o_tail"], outs) = fused_slot_agg_step(
+            pa.nf_state, pa.tr_state, oa.state, res["pending"],
+            res["p_tail"], res["o_tail"], upload(host_vec, self.torch_device),
+            self.sample_rate, acc["slot_len"], len(entries),
+            pa.window, pa.hop, oa.window, oa.hop, pa.backend, oa.backend)
+        self._agg_dispatches += 1
+        res["queue"].append(("agg", Readback(outs), [e[1] for e in entries]))
+
+    def _fused_drain_entry(self, entry, pc: "_PitchConsumer",
                            oc: "_OnsetConsumer") -> None:
-        """Read back one dispatched slot's packed result (one blocking
-        device->host copy), unpack it on the host
-        (models/analyzer.unpack_fused_out) and post it."""
-        vec, meta = entry
-        out = unpack_fused_out(vec.cpu().numpy(), meta[0], meta[1])
-        self._fused_post((out,) + meta, pc, oc)
+        """Post one deferred-readback queue entry (a single slot or a whole
+        aggregate): wait for its packed vector (one event), unpack it on
+        the host (models/analyzer.unpack_fused_out) and post.
+
+        Speculative calibration entries (spec != None, see _fused_consume)
+        get the transition check: the at-most-once calibration transition
+        (acceptance or timeout) invalidates the one newer in-flight
+        dispatch, which is rolled back BEFORE this entry posts (the
+        acceptance's scan-state rewrite must land on post-this-slot state,
+        the synchronous order) and rebuilt with post-transition inputs
+        afterwards."""
+        kind, readback, metas = entry[0], entry[1], entry[2]
+        spec = entry[3] if len(entry) > 3 else None
+        if spec is not None and spec.get("invalid"):
+            # A calibration transition invalidated this speculative
+            # dispatch; the slot was rebuilt and redispatched: drop it.
+            return
+        vec = readback.wait()
+        if kind == "one":
+            out = unpack_fused_out(vec, metas[0], metas[1])
+            if spec is not None and oc._calibration_transition(
+                    out.onset, metas[3], metas[5]):
+                inflight = next(
+                    (e2[3] for e2 in self._resident["queue"]
+                     if e2[0] == "one" and len(e2) > 3 and e2[3] is not None
+                     and not e2[3].get("invalid")), None)
+                if inflight is not None:
+                    # Roll the newer dispatch back to its pre-dispatch
+                    # carries (the snapshot holds the very tensors).
+                    self._rollback_spec(pc, oc, inflight["snap"])
+                    inflight["invalid"] = True
+                    self._spec_rollbacks += 1
+                self._fused_post((out,) + metas, pc, oc)
+                if inflight is not None:
+                    self._respeculate(pc, oc, inflight)
+                return
+            self._fused_post((out,) + metas, pc, oc)
+            return
+        off = 0
+        for meta in metas:
+            n_p, n_o = meta[0], meta[1]
+            ln = fused_out_len(n_p, n_o)
+            self._fused_post(
+                (unpack_fused_out(vec[off:off + ln], n_p, n_o),) + meta, pc,
+                oc)
+            off += ln
+
+    def _rollback_spec(self, pc: "_PitchConsumer", oc: "_OnsetConsumer",
+                       snap: tuple) -> None:
+        """Undo a speculative dispatch's carry write-back: `snap` holds the
+        pre-dispatch tensors, which no op has written since.  Shared by the
+        solo drain and the pool's per-lane rollback."""
+        pc.analyzer.nf_state, pc.analyzer.tr_state = snap[0], snap[1]
+        oc.analyzer.state = snap[2]
+        res = self._resident
+        res["pending"], res["p_tail"], res["o_tail"] = (snap[3], snap[4],
+                                                        snap[5])
+
+    def _rebuild_inputs(self, pc: "_PitchConsumer", oc: "_OnsetConsumer",
+                        info: dict):
+        """Rebuild an invalidated speculative slot's inputs with the
+        POST-transition state: the host mirrors are rewound to their
+        pre-slot values for the call, so `_fused_inputs` sees what a
+        synchronous consume would have (the same virtual instant, with the
+        new calibration offset and hold flag).  Returns (host_vec, meta,
+        p_len, o_len).  Shared by the solo redispatch and the pool's
+        (api/pool.py _redispatch_lane)."""
+        pa, oa = pc.analyzer, oc.analyzer
+        save = (pa._tail, oa._tail, pa.frames_consumed, oa.frames_consumed)
+        (pa._tail, oa._tail, pa.frames_consumed,
+         oa.frames_consumed) = info["mirrors"]
+        host_vec, n_p, n_o, tick_sup, hold, p_len, o_len = \
+            self._fused_inputs(info["slot"], pc, oc)
+        meta = (n_p, n_o, pa.frames_consumed, oa.frames_consumed, tick_sup,
+                self._stamp_anchor())
+        (pa._tail, oa._tail, pa.frames_consumed, oa.frames_consumed) = save
+        return host_vec, meta, p_len, o_len
+
+    def _respeculate(self, pc: "_PitchConsumer", oc: "_OnsetConsumer",
+                     info: dict) -> None:
+        """Rebuild and redispatch an invalidated speculative slot (solo)."""
+        host_vec, meta, _, _ = self._rebuild_inputs(pc, oc, info)
+        self._dispatch_slot(pc, oc, host_vec, meta, len(info["slot"]))
 
     def _fused_inputs(self, slot: np.ndarray, pc: "_PitchConsumer",
                       oc: "_OnsetConsumer"):
-        """Build the slot's host-produced inputs for `fused_slot_step`:
-        (host_vec, n_p, n_o, tick_sup)."""
+        """Build the slot's host-produced inputs for `fused_slot_step`
+        (shared by the single-engine path and the EnginePool wave):
+        (host_vec, n_p, n_o, tick_sup, hold, p_tail_len, o_tail_len)."""
         from ..ops import noisefloor
         pa, oa = pc.analyzer, oc.analyzer
         p_len, o_len = len(pa._tail), len(oa._tail)
         n_p = num_frames(p_len + len(slot), pa.window, pa.hop)
         n_o = num_frames(o_len + len(slot), oa.window, oa.hop)
+        hold = not oc.calibration_done
         tick_sup = oc._tick_suppression(n_o)
         gf_db = self.dynamics_out["noise_floor_db"]
         gfp = float(noisefloor.global_floor_linear(gf_db, pa.window // 2 + 1))
         gfo = float(noisefloor.global_floor_linear(gf_db, oa.window // 2 + 1))
         host_vec = np.concatenate([
-            slot, np.asarray([gfp, gfo, 0.0 if oc.calibration_done else 1.0],
-                             np.float32),
+            slot, np.asarray([gfp, gfo, 1.0 if hold else 0.0], np.float32),
             tick_sup.astype(np.float32)])
-        return host_vec, n_p, n_o, tick_sup
+        return host_vec, n_p, n_o, tick_sup, hold, p_len, o_len
 
     def _fused_advance_host(self, slot: np.ndarray, pc: "_PitchConsumer",
                             oc: "_OnsetConsumer", n_p: int, n_o: int) -> None:
         """Advance the host-side frame counters and ring-tail mirrors after
         a fused dispatch.  The mirrors are numpy: tail contents are literal
         slices of the slot stream (no arithmetic touches them), so the
-        mirror is bit-identical to the device carry and keeps the
-        sequential fallback exact with no readback."""
+        mirror is bit-identical to the device carry and keeps checkpoints
+        and the sequential fallback exact with no readback."""
         pa, oa = pc.analyzer, oc.analyzer
         p_len, o_len = len(pa._tail), len(oa._tail)
         p_buf = np.concatenate([pa._tail, slot]) if p_len else slot
@@ -904,7 +1145,7 @@ class AudioEngine:
     def _fused_post(self, entry, pc: "_PitchConsumer",
                     oc: "_OnsetConsumer") -> None:
         """Run the host posts of one read-back fused slot (event stamping,
-        calibration handling, tuner feed) — identical to the sequential
+        calibration handling, tuner feed), identical to the synchronous
         path because stamping uses the consume-time transport anchor
         (transport.anchor)."""
         out, n_p, n_o, p_base, o_base, tick_sup, anchor = entry
@@ -919,38 +1160,62 @@ class AudioEngine:
             pc._post(out, p_base, anchor=anchor)
 
     def _flush_fused(self) -> None:
-        """Leave fused mode: restore the host pending flag (one readback)
-        so the sequential path sees exact current state.  The analyzers'
-        `_tail`s are already exact (host-mirrored every fused slot), and at
-        pipeline depth 0 no slot's result is outstanding."""
+        """Leave fused mode: drain the deferred-readback queue (a pool's
+        too) and restore the host pending flag (one readback) so the
+        sequential path and checkpoints see the exact current state.  The
+        analyzers' `_tail`s are already exact (host-mirrored every fused
+        slot)."""
+        if self._pool is not None:
+            # Pool-deferred results include this engine's: surface them all.
+            self._pool.flush()
+        if self._resident is not None and self._resident.get("agg"):
+            # Dispatch the partial aggregate so its slots surface too.
+            r = self._resident
+            self._dispatch_aggregate(r["pc"], r["oc"])
         res = self._resident
         if res is None:
             return
+        pc, oc = res["pc"], res["oc"]
+        # Drain by popping with the residency still installed: a
+        # calibration transition during the drain rolls back and
+        # redispatches the one in-flight speculative slot, which appends
+        # to this very queue (see _fused_drain_entry).
+        while res["queue"]:
+            self._fused_drain_entry(res["queue"].pop(0), pc, oc)
         self._resident = None
         if bool(res["pending"].any()):
             self.onset_pending = True
 
     def flush_analysis(self) -> None:
-        """Surface any outstanding fused-streaming results and hand the
-        device-resident carries back to the analyzers.  At pipeline depth 0
-        every consumed slot is already on the poll surfaces."""
+        """Surface any deferred fused-streaming results now (a no-op when
+        the fused path is idle).  Poll surfaces reflect every slot consumed
+        so far after this returns."""
         self._flush_fused()
 
-    def prepare(self) -> dict:
-        """Warm the live session's slot program on this engine's device
+    def prepare(self, include_sequential: bool = False) -> dict:
+        """Warm the live session's slot programs on this engine's device
         before the first real slot: the kernels' build (nvcc, at first
-        use), the cuFFT plan, and one launch of every kernel at each
+        use), the cuFFT plans, and one launch of every kernel at each
         ring-tail geometry this buffer size gives.
 
-        One fused program variant exists per distinct (pitch_tail_len,
+        One fused slot variant exists per distinct (pitch_tail_len,
         onset_tail_len) ring-buffer state, and for a fixed buffer size the
         ramp-up sequence reaches its fixed point within a few slots.  A
-        scratch engine with this engine's sample rate, buffer size and
-        device streams silence through the real fused path, calibration
-        holding as in a live session's first slots, until the variant
-        repeats.  Returns {"variants": [(p_tail, o_tail), ...], "seconds":
-        {"fused_<p>_<o>": s, ...}, "total_s": s}: each variant's first
-        slot's wall time, build and plan included."""
+        scratch engine with this engine's configuration (sample rate,
+        buffer size, device, fused_streaming, aggregate_slots,
+        pipeline_depth) streams silence through the REAL per-slot path in
+        two phases: first uncalibrated (calibration holds, so every slot
+        dispatches per slot and walks the ramp until a variant repeats),
+        then with calibration marked done (so the steady aggregate,
+        `fused_slot_agg_step`, runs twice when aggregate_slots > 1).
+        `include_sequential=True` also warms the per-consumer fallback by
+        streaming the same ramp through throwaway analyzers.
+
+        Returns {"variants": [(p_tail, o_tail), ...], "seconds": {...},
+        "total_s": s} with the JAX package's keys: "fused_<p>_<o>" for
+        each variant's first slot, "agg<A>_<p>_<o>" for the first
+        aggregate dispatch, "sequential_slot<i>"; each a wall time, build
+        and plans included (on CUDA the slot's stream is waited on)."""
         import time as _time
 
         from .device import ArraySource
@@ -958,15 +1223,21 @@ class AudioEngine:
         seen: list = []
         seconds: dict = {}
         t_all = _time.perf_counter()
+        agg = max(int(self.aggregate_slots), 1)
         # The ramp is walked until its (pitch_tail, onset_tail) variant
-        # repeats; a small buffer takes many slots just to fill the
-        # 2048-sample pitch window.
+        # repeats (a small buffer takes many slots just to fill the
+        # 2048-sample pitch window), then two full aggregates.
         ramp_cap = max(16, 2 * (PITCH_WINDOW // self.buffer_size) + 8)
+        n_agg = 2 * agg if agg > 1 else 0
         scratch = AudioEngine(
             input_source=ArraySource(
-                np.zeros((ramp_cap + 1) * self.buffer_size, np.float32)),
+                np.zeros((ramp_cap + n_agg + 1) * self.buffer_size,
+                         np.float32)),
             sample_rate=self.sample_rate, buffer_size=self.buffer_size,
             device=self.torch_device)
+        scratch.fused_streaming = self.fused_streaming
+        scratch.aggregate_slots = self.aggregate_slots
+        scratch.pipeline_depth = self.pipeline_depth
         scratch.start_tuner()
         scratch.start_onset_detection()
         pc = next(c for c in scratch._consumers.values()
@@ -974,17 +1245,50 @@ class AudioEngine:
         oc = next(c for c in scratch._consumers.values()
                   if isinstance(c, _OnsetConsumer))
         slot_s = self.buffer_size / self.sample_rate
+
+        def timed_slot() -> float:
+            t0 = _time.perf_counter()
+            scratch.advance(slot_s)
+            if self.torch_device.type == "cuda":
+                torch.cuda.current_stream(self.torch_device).synchronize()
+            return _time.perf_counter() - t0
+
+        # Phase 1: calibration holds (the consumer attaches uncalibrated,
+        # like a live session's first ~2 s).
         for _ in range(ramp_cap):
             variant = (len(pc.analyzer._tail), len(oc.analyzer._tail))
             if variant in seen:
                 break   # the ramp cycled: every variant has run
-            t0 = _time.perf_counter()
-            scratch.advance(slot_s)
-            if self.torch_device.type == "cuda":
-                torch.cuda.synchronize(self.torch_device)
-            seconds[f"fused_{variant[0]}_{variant[1]}"] = \
-                _time.perf_counter() - t0
+            seconds[f"fused_{variant[0]}_{variant[1]}"] = timed_slot()
             seen.append(variant)
+        # Phase 2: calibration done (a live session reaches this by
+        # loopback acceptance or the 2 s timeout): aggregation engages.
+        oc.calibration_done = True
+        scratch.transport.set_calibration_offset(0)
+        for _ in range(n_agg):
+            variant = (len(pc.analyzer._tail), len(oc.analyzer._tail))
+            before = scratch._agg_dispatches
+            dt = timed_slot()
+            if scratch._agg_dispatches > before:
+                seconds.setdefault(f"agg{agg}_{variant[0]}_{variant[1]}", dt)
+        if agg > 1 and scratch._agg_dispatches < 2:
+            raise RuntimeError(
+                f"prepare(): expected >= 2 aggregate dispatches in phase 2, "
+                f"saw {scratch._agg_dispatches}")
+        scratch.flush_analysis()
+        if include_sequential:
+            slot = np.zeros(self.buffer_size, np.float32)
+            pa2 = PitchAnalyzer(self.sample_rate, device=self.torch_device)
+            oa2 = OnsetAnalyzer(self.sample_rate, device=self.torch_device)
+            for i in range(len(seen) + 1):
+                t0 = _time.perf_counter()
+                pa2.process(slot, global_floor_db=-96.0)
+                oa2.process(slot, global_floor_db=-96.0,
+                            tick_suppressed=np.zeros(
+                                num_frames(len(oa2._tail) + len(slot),
+                                           oa2.window, oa2.hop), bool),
+                            calibration_hold=False)
+                seconds[f"sequential_slot{i}"] = _time.perf_counter() - t0
         return {"variants": seen, "seconds": seconds,
                 "total_s": _time.perf_counter() - t_all}
 

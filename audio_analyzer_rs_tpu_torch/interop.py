@@ -6,7 +6,9 @@ stream axis S) they become this port's states on a device, and back.  Field
 names and order are the same in both packages, so a state converts leaf by
 leaf.  The live engine's fused path carries three more values from slot to
 slot (the pitch and onset ring tails and the onset->pitch pending flag);
-`fused_carries` converts them.  The system has no weights: its constant
+`fused_carries` converts them, and `pool_carries` a JAX `EnginePool`
+member's whole set (its unbatched states and its `_resident` carries) as
+the port's pool wave takes them.  The system has no weights: its constant
 tables (Hann, rDFT trig) are rebuilt from the same numpy formulas on both
 sides.
 """
@@ -18,11 +20,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .models.analyzer import PoolCarries
 from .ops.noisefloor import NoiseFloorState
 from .ops.onset import OnsetState
 from .ops.tracker import TrackerState
 
-_DTYPES = {
+# Each state's leaf dtypes in field order (checkpoint.py uses them too).
+STATE_DTYPES = {
     NoiseFloorState: (torch.float32, torch.float32, torch.float32, torch.bool),
     TrackerState: (torch.float32, torch.float32, torch.int32, torch.bool,
                    torch.int32, torch.int32),
@@ -38,7 +42,7 @@ def _to_torch(state, cls, device) -> NamedTuple:
                          f"{fields}")
     return cls(*(torch.from_numpy(np.array(leaf)).to(device=device,
                                                     dtype=dtype)
-                 for leaf, dtype in zip(state, _DTYPES[cls])))
+                 for leaf, dtype in zip(state, STATE_DTYPES[cls])))
 
 
 def noise_floor_state(state, device="cuda") -> NoiseFloorState:
@@ -86,3 +90,21 @@ def fused_carries(pending, p_tail, o_tail, device="cuda") -> FusedCarries:
     return FusedCarries(torch.from_numpy(pending.copy()).to(device),
                         *(torch.from_numpy(t.copy()).to(device)
                           for t in tails))
+
+
+def pool_carries(nf_state, tr_state, onset_state, pending, p_tail, o_tail,
+                 device="cuda") -> PoolCarries:
+    """A JAX engine's fused carries, as one of its `EnginePool`'s members
+    holds them between waves (the analyzers' unbatched states and the
+    `_resident` "pending", "p_tail" and "o_tail"; leaves as numpy) → this
+    port's `PoolCarries` on `device`: each state gets its stream axis of
+    1.  Set them on a port member (its analyzers' states and `_resident`)
+    and the port's pool continues from the JAX pool's mid-session
+    state."""
+    def batched(state, cls):
+        return _to_torch(cls(*(np.asarray(leaf)[None] for leaf in state)),
+                         cls, device)
+    carries = fused_carries(pending, p_tail, o_tail, device)
+    return PoolCarries(batched(nf_state, NoiseFloorState),
+                       batched(tr_state, TrackerState),
+                       batched(onset_state, OnsetState), *carries)

@@ -7,7 +7,9 @@ Pitch: frame → Hann × rDFT magnitude (K1) → per-bin noise-floor scan (K5)
 frame → Hann × FFT magnitude (cuFFT) → onset scan (K4).  The functions take
 a leading stream axis S: state leaves [S, ...], frames [S, N, W], per-frame
 inputs [S, N].  `fused_slot_step` runs both flows for one live audio slot
-(S = 1) with its carries on the device.
+with its carries on the device, for one engine or for the K lanes of an
+engine pool (S = K); `fused_slot_agg_step` chains A slots and
+`fused_slot_pool_step` is the pool's wave.
 """
 
 from __future__ import annotations
@@ -188,8 +190,9 @@ class FusedSlotOut(NamedTuple):
 def pack_fused_out(out: FusedSlotOut) -> torch.Tensor:
     """A FusedSlotOut flattened into one float32 vector, so that a slot reads
     back one buffer: the leaves in field order (the JAX package's
-    `pack_fused_out` order).  Bool and int32 leaves cast exactly (0/1 flags;
-    counters far below 2^24)."""
+    `pack_fused_out` order), each leaf raveled, so a leaf with a lane axis
+    K is lane-minor within it.  Bool and int32 leaves cast exactly (0/1
+    flags; counters far below 2^24)."""
     leaves = (out.stable_freqs, out.stable_scores, out.stable_valid,
               *out.onset)
     return torch.cat([leaf.reshape(-1).float() for leaf in leaves])
@@ -200,12 +203,14 @@ def fused_out_len(n_p: int, n_o: int) -> int:
     return 3 * n_p * 8 + 8 * n_o
 
 
-def unpack_fused_out(vec: np.ndarray, n_p: int, n_o: int) -> FusedSlotOut:
-    """Host-side inverse of `pack_fused_out`: numpy leaves."""
+def _take_leaves(vec: np.ndarray, lanes: int, frame_counts) -> list:
+    """Unpack `vec`, the packed FusedSlotOuts of len(frame_counts) chained
+    sub-slots with `lanes` lanes each (leaf-major, lane-minor), into
+    outs[sub-slot][lane] → FusedSlotOut of numpy leaves."""
     vec = np.asarray(vec, np.float32)
-    if len(vec) != fused_out_len(n_p, n_o):
-        raise ValueError(f"unpack_fused_out: {len(vec)} values, expected "
-                         f"{fused_out_len(n_p, n_o)}")
+    want = lanes * sum(fused_out_len(n_p, n_o) for n_p, n_o in frame_counts)
+    if len(vec) != want:
+        raise ValueError(f"unpack: {len(vec)} values, expected {want}")
     off = 0
 
     def take(n, shape, dtype):
@@ -216,13 +221,44 @@ def unpack_fused_out(vec: np.ndarray, n_p: int, n_o: int) -> FusedSlotOut:
             return part > 0.5
         return part.astype(dtype) if dtype is not np.float32 else part
 
-    sf = take(n_p * 8, (n_p, 8), np.float32)
-    ss = take(n_p * 8, (n_p, 8), np.float32)
-    sv = take(n_p * 8, (n_p, 8), bool)
-    onset = OnsetChunkOut(*(take(n_o, (n_o,), d) for d in (
-        bool, bool, np.float32, np.float32, np.float32, np.int32, bool,
-        np.int32)))
-    return FusedSlotOut(sf, ss, sv, onset)
+    result = []
+    for n_p, n_o in frame_counts:
+        sf = take(lanes * n_p * 8, (lanes, n_p, 8), np.float32)
+        ss = take(lanes * n_p * 8, (lanes, n_p, 8), np.float32)
+        sv = take(lanes * n_p * 8, (lanes, n_p, 8), bool)
+        o = [take(lanes * n_o, (lanes, n_o), d) for d in
+             (bool, bool, np.float32, np.float32, np.float32, np.int32, bool,
+              np.int32)]
+        result.append([FusedSlotOut(sf[k], ss[k], sv[k],
+                                    OnsetChunkOut(*(x[k] for x in o)))
+                       for k in range(lanes)])
+    return result
+
+
+def unpack_fused_out(vec: np.ndarray, n_p: int, n_o: int) -> FusedSlotOut:
+    """Host-side inverse of `pack_fused_out` for one lane: numpy leaves."""
+    return _take_leaves(vec, 1, [(n_p, n_o)])[0][0]
+
+
+def unpack_fused_pool_out(vec: np.ndarray, n_engines: int,
+                          frame_counts) -> list:
+    """Host-side inverse of a packed `fused_slot_pool_step` readback:
+    `frame_counts` is the [(n_p, n_o)] list of the chained sub-slots
+    (shared by every lane of the wave).  Returns outs[sub-slot][engine] →
+    FusedSlotOut of numpy leaves.  Port of the JAX package's
+    `unpack_fused_pool_out` (models/analyzer.py:578), which reads the same
+    layout."""
+    return _take_leaves(vec, int(n_engines), frame_counts)
+
+
+def _k1_frames(frames: torch.Tensor) -> torch.Tensor:
+    """Pitch frames [K, N, W] as kernel K1 reads them in place: a copy when
+    the lanes' base or row stride is not 16-byte aligned (a view into a
+    chained host vector), the view itself otherwise.  Values unchanged."""
+    if frames.data_ptr() % 16 or (frames.shape[0] > 1
+                                  and frames.stride(0) % 4):
+        return frames.contiguous()
+    return frames
 
 
 def fused_slot_step(nf_state, tr_state, onset_state, pending, p_tail, o_tail,
@@ -231,81 +267,235 @@ def fused_slot_step(nf_state, tr_state, onset_state, pending, p_tail, o_tail,
                     o_window: int = ONSET_WINDOW, o_hop: int = ONSET_HOP,
                     pitch_backend: str = PITCH_BACKEND,
                     onset_backend: str = DEFAULT_BACKEND):
-    """One live audio slot through both flows, with every carry on the
-    device: the ring tails, the three states and the onset->pitch `pending`
-    flag go in and come out as tensors and are never read back.
+    """One live audio slot through both flows for K lanes (K engines, or
+    one), with every carry on the device: the ring tails, the three states
+    and the onset->pitch `pending` flag go in and come out as tensors and
+    are never read back.  No input is written: every carry out is a new
+    tensor or a view of one.
 
-    State leaves carry a stream axis of 1; `pending` is bool [1]; the tails
-    are float32 [p_tail_len] / [o_tail_len]; `host_vec` is the slot's one
-    upload, float32 on the device:
+    State leaves carry the lane axis K; `pending` is bool [K]; the tails
+    are float32 [K, p_tail_len] / [K, o_tail_len]; `host_vec` is the
+    lanes' one upload, float32 [K, L] on the device, a row a lane:
         [slot | gf_pitch_lin | gf_onset_lin | calibration_hold |
          tick_suppressed (n_o entries, 0/1)]
-    with n_p / n_o = num_frames(tail + slot) implied by the lengths.
+    with n_p / n_o = num_frames(tail + slot) implied by the lengths (the
+    lanes share the tails' geometry).  One lane may also come without the
+    axis: tails [L] and host_vec [L] (the solo engine's call), with states
+    and `pending` still of one lane; its tails come back 1-D.
     Returns (nf_state, tr_state, onset_state, pending, p_tail, o_tail, out),
-    `out` the slot's FusedSlotOut packed into one float32 vector
-    (`pack_fused_out`; the host reads it back once and unpacks it with
-    `unpack_fused_out`).
+    `out` the slot's FusedSlotOut packed into one float32 vector, each leaf
+    [K, ...] raveled (`pack_fused_out`; the host reads it back once and
+    unpacks it with `unpack_fused_out` or `unpack_fused_pool_out`).  The K
+    lanes reach each kernel as one launch at S = K.
 
-    Semantics are those of the engine's sequential consumers: the onset
-    flow first, then the pitch flow with onsets[0] = pending | any(fired).
-    While `calibration_hold` is set, fires do not reach the tracker (the
-    sequential path never sets the engine's pending flag before
-    calibration).  A ramp-up slot with no pitch frame (n_p == 0) leaves the
-    flag set for the next one; a slot with no onset frame (n_o == 0) runs
-    no onset kernel.  Port of the JAX package's `fused_slot_step`
-    (models/analyzer.py:308)."""
+    Semantics are those of the engine's sequential consumers, lane by lane:
+    the onset flow first, then the pitch flow with onsets[0] = pending |
+    any(fired).  While a lane's `calibration_hold` is set, its fires do not
+    reach its tracker (the sequential path never sets the engine's pending
+    flag before calibration).  A ramp-up slot with no pitch frame (n_p ==
+    0) leaves the flag set for the next one; a slot with no onset frame
+    (n_o == 0) runs no onset kernel.  Port of the JAX package's
+    `fused_slot_step` (models/analyzer.py:308), with its `jax.vmap` over
+    engines (`fused_slot_pool_step`) as the lane axis."""
+    if host_vec.dim() == 1:
+        (nf_state, tr_state, onset_state, pending, p_tail, o_tail,
+         out) = fused_slot_step(
+            nf_state, tr_state, onset_state, pending, p_tail[None],
+            o_tail[None], host_vec[None], sample_rate, slot_len, p_window,
+            p_hop, o_window, o_hop, pitch_backend, onset_backend)
+        return (nf_state, tr_state, onset_state, pending, p_tail[0],
+                o_tail[0], out)
     dev = host_vec.device
-    p_tail_len, o_tail_len = p_tail.shape[0], o_tail.shape[0]
+    k = host_vec.shape[0]
+    p_tail_len, o_tail_len = p_tail.shape[-1], o_tail.shape[-1]
     n_p = num_frames(p_tail_len + slot_len, p_window, p_hop)
     n_o = num_frames(o_tail_len + slot_len, o_window, o_hop)
-    if host_vec.shape != (slot_len + 3 + n_o,):
+    if host_vec.shape != (k, slot_len + 3 + n_o):
         raise ValueError(f"fused_slot_step: host_vec must be "
-                         f"[{slot_len + 3 + n_o}], got "
+                         f"[{slot_len + 3 + n_o}] a lane, got "
                          f"{tuple(host_vec.shape)}")
-    slot = host_vec[:slot_len]
-    gf_p = host_vec[slot_len:slot_len + 1]
-    gf_o = host_vec[slot_len + 1:slot_len + 2]
-    hold = host_vec[slot_len + 2:slot_len + 3] > 0.5
-    tick_sup = (host_vec[slot_len + 3:] > 0.5)[None]
+    if (pending.shape != (k,) or p_tail.shape != (k, p_tail_len)
+            or o_tail.shape != (k, o_tail_len)):
+        raise ValueError(f"fused_slot_step: pending {tuple(pending.shape)} "
+                         f"and tails {tuple(p_tail.shape)}, "
+                         f"{tuple(o_tail.shape)} do not have {k} lanes")
+    slot = host_vec[:, :slot_len]
+    gf_p = host_vec[:, slot_len:slot_len + 1]
+    gf_o = host_vec[:, slot_len + 1:slot_len + 2]
+    hold = host_vec[:, slot_len + 2] > 0.5
+    tick_sup = host_vec[:, slot_len + 3:] > 0.5
 
-    o_buf = torch.cat([o_tail, slot]) if o_tail_len else slot
-    fired_any = torch.zeros(1, dtype=torch.bool, device=dev)
+    o_buf = torch.cat([o_tail, slot], 1) if o_tail_len else slot
+    fired_any = torch.zeros(k, dtype=torch.bool, device=dev)
     if n_o:
-        o_frames = frame_signal(o_buf[:(n_o - 1) * o_hop + o_window],
-                                o_window, o_hop)[None]
+        o_frames = frame_signal(o_buf[:, :(n_o - 1) * o_hop + o_window],
+                                o_window, o_hop)
         onset_state, o_out = onset_analyze_frames(
-            onset_state, o_frames, gf_o.expand(1, n_o).contiguous(),
-            tick_sup, hold.expand(1, n_o).contiguous(), o_window,
+            onset_state, o_frames, gf_o.expand(k, n_o).contiguous(),
+            tick_sup, hold[:, None].expand(k, n_o).contiguous(), o_window,
             onset_backend)
         fired_any = o_out.fired.any(-1) & ~hold
-        o_out = OnsetChunkOut(*(leaf[0] for leaf in o_out))
     else:                                               # ramp-up variants
-        zf = torch.zeros(0, dtype=torch.float32, device=dev)
-        zb = torch.zeros(0, dtype=torch.bool, device=dev)
-        zi = torch.zeros(0, dtype=torch.int32, device=dev)
+        zf = torch.zeros((k, 0), dtype=torch.float32, device=dev)
+        zb = torch.zeros((k, 0), dtype=torch.bool, device=dev)
+        zi = torch.zeros((k, 0), dtype=torch.int32, device=dev)
         o_out = OnsetChunkOut(zb, zb, zf, zf, zf, zi, zb, zi)
-    o_new_tail = o_buf[n_o * o_hop:]
+    o_new_tail = o_buf[:, n_o * o_hop:]
 
-    p_buf = torch.cat([p_tail, slot]) if p_tail_len else slot
+    p_buf = torch.cat([p_tail, slot], 1) if p_tail_len else slot
     if n_p:
-        p_frames = frame_signal(p_buf[:(n_p - 1) * p_hop + p_window],
-                                p_window, p_hop)[None]
-        onsets = torch.zeros((1, n_p), dtype=torch.bool, device=dev)
+        p_frames = _k1_frames(frame_signal(
+            p_buf[:, :(n_p - 1) * p_hop + p_window], p_window, p_hop))
+        onsets = torch.zeros((k, n_p), dtype=torch.bool, device=dev)
         onsets[:, 0] = pending | fired_any
         nf_state, tr_state, pout = pitch_analyze_frames(
-            nf_state, tr_state, p_frames, gf_p.expand(1, n_p).contiguous(),
+            nf_state, tr_state, p_frames, gf_p.expand(k, n_p).contiguous(),
             onsets, sample_rate, p_window, p_hop, pitch_backend)
-        sf, ss, sv = (pout.stable_freqs[0], pout.stable_scores[0],
-                      pout.stable_valid[0])
+        sf, ss, sv = pout.stable_freqs, pout.stable_scores, pout.stable_valid
         pending = torch.zeros_like(pending)
     else:
-        sf = torch.zeros((0, 8), dtype=torch.float32, device=dev)
-        ss = torch.zeros((0, 8), dtype=torch.float32, device=dev)
-        sv = torch.zeros((0, 8), dtype=torch.bool, device=dev)
+        sf = torch.zeros((k, 0, 8), dtype=torch.float32, device=dev)
+        ss = torch.zeros((k, 0, 8), dtype=torch.float32, device=dev)
+        sv = torch.zeros((k, 0, 8), dtype=torch.bool, device=dev)
         pending = pending | fired_any
-    p_new_tail = p_buf[n_p * p_hop:]
+    p_new_tail = p_buf[:, n_p * p_hop:]
     return (nf_state, tr_state, onset_state, pending, p_new_tail, o_new_tail,
             pack_fused_out(FusedSlotOut(sf, ss, sv, o_out)))
+
+
+def slot_frame_counts(slot_len: int, n_slots: int, p_tail_len: int,
+                      o_tail_len: int, p_window: int = PITCH_WINDOW,
+                      p_hop: int = PITCH_HOP, o_window: int = ONSET_WINDOW,
+                      o_hop: int = ONSET_HOP) -> list:
+    """[(n_p, n_o)] of `n_slots` chained slots from the given tail lengths
+    (the ring tails advance by the slot less what the frames consumed)."""
+    counts = []
+    for _ in range(n_slots):
+        n_p = num_frames(p_tail_len + slot_len, p_window, p_hop)
+        n_o = num_frames(o_tail_len + slot_len, o_window, o_hop)
+        counts.append((n_p, n_o))
+        p_tail_len += slot_len - n_p * p_hop
+        o_tail_len += slot_len - n_o * o_hop
+    return counts
+
+
+def fused_slot_agg_step(nf_state, tr_state, onset_state, pending, p_tail,
+                        o_tail, host_vec, sample_rate: float, slot_len: int,
+                        n_slots: int, p_window: int = PITCH_WINDOW,
+                        p_hop: int = PITCH_HOP, o_window: int = ONSET_WINDOW,
+                        o_hop: int = ONSET_HOP,
+                        pitch_backend: str = PITCH_BACKEND,
+                        onset_backend: str = DEFAULT_BACKEND):
+    """`n_slots` consecutive live slots chained in one call, the carries
+    passed from slot to slot on the device: `fused_slot_step` A times.
+
+    `host_vec` is the concatenation (along its last axis) of the A
+    per-slot host vectors, each sampled by the host at its own slot, so
+    the per-slot floor, hold and tick values are those of A separate
+    calls.  Arguments and lane forms as `fused_slot_step`.  Returns the
+    carries and one packed float32 vector: the A slots' packed
+    FusedSlotOuts in slot order (the JAX package's `pack_fused_out` over
+    the tuple of A outs), so one readback covers the aggregate.
+
+    Every output and every carry is bitwise equal to A separate
+    `fused_slot_step` calls, the noise-floor leaves included: the loop runs
+    the same ops on the same tensors.  (The JAX package's XLA program may
+    contract the floor EMAs differently in its chained module and allows
+    those leaves ulp drift; this port needs no such allowance.)  Port of
+    `fused_slot_agg_step` (models/analyzer.py:403)."""
+    counts = slot_frame_counts(slot_len, n_slots, p_tail.shape[-1],
+                               o_tail.shape[-1], p_window, p_hop, o_window,
+                               o_hop)
+    want = sum(slot_len + 3 + n_o for _, n_o in counts)
+    if host_vec.shape[-1] != want:
+        raise ValueError(f"fused_slot_agg_step: host_vec must be [{want}] a "
+                         f"lane for {n_slots} slots, got "
+                         f"{tuple(host_vec.shape)}")
+    outs = []
+    off = 0
+    for _, n_o in counts:
+        sub = host_vec[..., off:off + slot_len + 3 + n_o]
+        (nf_state, tr_state, onset_state, pending, p_tail, o_tail,
+         out) = fused_slot_step(nf_state, tr_state, onset_state, pending,
+                                p_tail, o_tail, sub, sample_rate, slot_len,
+                                p_window, p_hop, o_window, o_hop,
+                                pitch_backend, onset_backend)
+        outs.append(out)
+        off += slot_len + 3 + n_o
+    return (nf_state, tr_state, onset_state, pending, p_tail, o_tail,
+            outs[0] if len(outs) == 1 else torch.cat(outs))
+
+
+class PoolCarries(NamedTuple):
+    """One engine's fused carries as `fused_slot_pool_step` takes them: its
+    three states (leaves with a stream axis of 1), `pending` bool [1] and
+    the tails float32 [L]."""
+    nf_state: noisefloor.NoiseFloorState
+    tr_state: tracker.TrackerState
+    onset_state: onset_ops.OnsetState
+    pending: torch.Tensor
+    p_tail: torch.Tensor
+    o_tail: torch.Tensor
+
+
+def stack_carries(states) -> PoolCarries:
+    """K engines' carries → one PoolCarries of [K, ...] tensors: one
+    concatenation a leaf, whatever K."""
+    nf, tr, os_, pend, pt, ot = zip(*states)
+
+    def cat(cls, members):
+        return cls(*(torch.cat(leaves) for leaves in zip(*members)))
+    return PoolCarries(cat(type(nf[0]), nf), cat(type(tr[0]), tr),
+                       cat(type(os_[0]), os_), torch.cat(pend),
+                       torch.stack(pt), torch.stack(ot))
+
+
+def unstack_carries(stacked: PoolCarries, n: int) -> list:
+    """The first `n` lanes of stacked carries as per-engine PoolCarries:
+    views, no copy."""
+    nf, tr, os_, pend, pt, ot = stacked
+
+    def lane(state, k):
+        return type(state)(*(leaf[k:k + 1] for leaf in state))
+    return [PoolCarries(lane(nf, k), lane(tr, k), lane(os_, k),
+                        pend[k:k + 1], pt[k], ot[k]) for k in range(n)]
+
+
+def fused_slot_pool_step(states, host_vecs: torch.Tensor, sample_rate: float,
+                         slot_len: int, n_slots: int,
+                         p_window: int = PITCH_WINDOW, p_hop: int = PITCH_HOP,
+                         o_window: int = ONSET_WINDOW, o_hop: int = ONSET_HOP,
+                         pitch_backend: str = PITCH_BACKEND,
+                         onset_backend: str = DEFAULT_BACKEND):
+    """One call per slot wave: C engines' fused slot steps as the C lanes of
+    one program (api/pool.EnginePool, the classroom), each kernel launched
+    once a wave at S = C (x the pitch or onset frames a slot).
+
+    `states` is a sequence over engines of PoolCarries (or tuples in its
+    order); `host_vecs` [C, L] stacks their host vectors, each row the
+    `n_slots` chained per-slot vectors of `fused_slot_agg_step`.  The
+    carries stack to [C, ...] (one concatenation a leaf), the lanes run,
+    and the new carries come back as per-engine views, so between waves
+    every engine owns its carries: it can leave the pool, checkpoint, or
+    be driven solo at any wave boundary.  Returns (per-engine PoolCarries,
+    packed outputs): the A sub-slots' FusedSlotOuts with [C, ...] leaves,
+    leaf-major and lane-minor (`unpack_fused_pool_out`).
+
+    Each lane's results are bitwise those of its engine's own
+    `fused_slot_agg_step`, since every op is per lane; that holds on the
+    card (K1's frames, K2-K5's streams and the plain ops are independent of
+    the batch) and on the CPU while the plain matmul's rounding does not
+    depend on its row count (2C frames <= 128 with one thread).  Port of
+    `fused_slot_pool_step` (models/analyzer.py:478) with its body
+    `_pool_wave_stacked` (:528): the lanes are `fused_slot_agg_step`'s lane
+    axis, where the JAX package vmaps one engine's program."""
+    if host_vecs.shape[0] != len(states):
+        raise ValueError(f"fused_slot_pool_step: {len(states)} engines, "
+                         f"{host_vecs.shape[0]} host vectors")
+    *new, out = fused_slot_agg_step(
+        *stack_carries(states), host_vecs, sample_rate, slot_len, n_slots,
+        p_window, p_hop, o_window, o_hop, pitch_backend, onset_backend)
+    return unstack_carries(PoolCarries(*new), len(states)), out
 
 
 @dataclass

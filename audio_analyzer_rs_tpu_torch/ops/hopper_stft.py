@@ -56,10 +56,21 @@ K_ORDER = np.array([8 * (c % 4) + 2 * (c // 8) + (c % 8) // 4
 def dft_mag_plain(frames: torch.Tensor, trig: torch.Tensor,
                   window: torch.Tensor | None = None) -> torch.Tensor:
     """frames [..., W] (× window [W]) @ trig [W, 2B] (interleaved cos/-sin
-    columns) → magnitudes [..., B]."""
+    columns) → magnitudes [..., B].
+
+    A frame's bits must not depend on how many frames share the call (the
+    engine pool's lanes against solo engines, K1's own contract): a
+    one-row product would be a matrix-vector product, which the CPU's BLAS
+    sums in another order than its GEMM, so one frame runs as a two-row
+    GEMM.  (The CPU's GEMM keeps a row's bits for 2 to ~130 rows with one
+    thread, not beyond.)"""
     x = frames if window is None else frames * window
-    re_im = torch.matmul(x, trig)
-    re_im = re_im.reshape(re_im.shape[:-1] + (trig.shape[1] // 2, 2))
+    rows = x.reshape(-1, x.shape[-1])
+    if rows.shape[0] == 1:
+        re_im = torch.matmul(torch.cat([rows, rows]), trig)[:1]
+    else:
+        re_im = torch.matmul(rows, trig)
+    re_im = re_im.reshape(x.shape[:-1] + (trig.shape[1] // 2, 2))
     return torch.sqrt(re_im[..., 0] ** 2 + re_im[..., 1] ** 2)
 
 

@@ -69,7 +69,23 @@ Phases, one line each on standard output:
      same 10 s on the CPU (the plain versions), onset events identical,
      tuner notes equal on >= 99.9% of slots and floats within the CPU
      test's tolerances; and a NaN sample at 5 s, card against CPU the same
-     way.
+     way;
+ 11. the classroom: `EnginePool` on the card.  Three gates, bitwise on
+     every consumer-visible output and every carry (5 s of
+     `mixed_scene(seed=100+k)` a student, 48 kHz, tuner and onset
+     detection, loopback calibration): 4 pooled students at depth 1
+     against 4 solo engines at depth 0 (at capacity 4, and at capacity 33
+     with 29 inert pad lanes), one student at depth 1 against 0, and at
+     aggregation 4 against 1.  Then the classroom run: 32 students
+     at depth 1, capacity 33, `prepare()`, 20 s (937 waves), a 33rd
+     student joining at 5 s: host ms a wave (p50/p99/max), ms an
+     engine-slot, waves over 21.33 ms, K1-K5's launches a wave over waves
+     600-699 (1 each, asserted) and over the run, a profiled window of 50
+     waves (CUDA kernels and card-busy ms a wave), rollbacks.  Then the
+     sweep: K = 1, 8, 16, 32, 64, 128 students for 5 s each, host ms a
+     wave p50/p99 and the largest K whose p99 fits 21.33 ms; and each
+     kernel at the pool's shape (C = 33) held against its plain version
+     at phase 3's tolerances, then timed beside its bound.
 Then the kernel table as one JSON line, the card's name and power limit, and
 last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; with no CUDA device the script exits 1 and prints no
@@ -78,6 +94,7 @@ result.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -460,6 +477,468 @@ def live_phase(rows, card: str) -> None:
         f"field, {sum(len(json.loads(o)) for _, o, _ in after)} onset "
         f"events, {sum(bool(json.loads(t)['notes']) for t, _, _ in after)}"
         f" slots with tuner notes (last {json.loads(after[-1][0])['notes']})")
+
+
+CLASS_K = 32                      # the classroom: 32 students ...
+CLASS_CAPACITY = 33               # ... and one seat for a late joiner
+CLASS_SECONDS = 20.0
+CLASS_JOIN_S = 5.0
+CLASS_LAUNCH_WAVES = (600, 700)   # launches a wave counted over these
+CLASS_PROFILE_WAVES = (800, 850)  # profiled (left out of the host times)
+SWEEP_K = (1, 8, 16, 32, 64, 128)
+SWEEP_SECONDS = 5.0
+GATE_K = 4
+GATE_SECONDS = 5.0
+
+
+def class_member(seed: int, seconds: float, depth: int = 0, agg: int = 1):
+    """A student: tuner and onset detection over mixed_scene(seed) at 48 kHz
+    with loopback calibration (2,048 samples, gain 1) on the card →
+    (engine, tuner, onset detection)."""
+    from audio_analyzer_rs_tpu_torch import AudioEngine
+    from audio_analyzer_rs_tpu_torch.api.device import ArraySource
+    from audio_analyzer_rs_tpu_torch.models import generators as gen
+    e = AudioEngine(input_source=ArraySource(
+        gen.mixed_scene(seconds + 0.5, LIVE_SR, seed=seed)),
+        sample_rate=LIVE_SR, buffer_size=LIVE_SLOT,
+        loopback_latency_samples=2048, loopback_gain=1.0, device="cuda")
+    e.pipeline_depth, e.aggregate_slots = depth, agg
+    return e, e.start_tuner(), e.start_onset_detection()
+
+
+def carries_of(e) -> list:
+    """Every carry of an engine (fused residency left) as tensors."""
+    import numpy as np
+    import torch
+    pc, oc = (next(c for c in e._consumers.values()
+                   if type(c).__name__ == name)
+              for name in ("_PitchConsumer", "_OnsetConsumer"))
+    return [*pc.analyzer.nf_state, *pc.analyzer.tr_state, *oc.analyzer.state,
+            torch.from_numpy(np.array(pc.analyzer._tail)),
+            torch.from_numpy(np.array(oc.analyzer._tail)),
+            torch.tensor([pc.analyzer.frames_consumed,
+                          oc.analyzer.frames_consumed, int(e.onset_pending),
+                          int(oc.calibration_done)])]
+
+
+def drive_polled(members, step, slots: int, flush):
+    """Step `slots` times, polling every member after each step, then flush
+    and poll once more → per member [(tuner, onsets, dynamics)]."""
+    polls = [[] for _ in members]
+
+    def poll_all():
+        for k, (e, tuner, det) in enumerate(members):
+            polls[k].append((tuner.poll_output(), det.poll_onsets(),
+                             e.poll_dynamics()))
+    for _ in range(slots):
+        step()
+        poll_all()
+    flush()
+    poll_all()
+    return polls
+
+
+def same_session(got, want, label: str) -> int:
+    """Two runs of one student, bitwise on every consumer-visible output:
+    the onset event stream, every slot's dynamics, the last tuner reading,
+    and every carry.  Deferred readback moves when a result is polled, not
+    what it is.  Returns the number of events."""
+    (eg, pg), (ew, pw) = got, want
+    for e in (eg, ew):
+        e.flush_analysis()      # hand the carries back (a pool's too)
+    ev_g = [ev for _, o, _ in pg for ev in json.loads(o)]
+    ev_w = [ev for _, o, _ in pw for ev in json.loads(o)]
+    assert ev_g == ev_w, f"{label}: onset events differ"
+    assert [d for _, _, d in pg] == [d for _, _, d in pw], \
+        f"{label}: dynamics differ"
+    assert pg[-1][0] == pw[-1][0], f"{label}: last tuner reading differs"
+    for i, (a, b) in enumerate(zip(carries_of(eg), carries_of(ew))):
+        assert same_bits(a.cpu(), b.cpu()), f"{label}: carry {i} differs"
+    return len(ev_w)
+
+
+def pool_shape_kernels(rows, lanes: int) -> str:
+    """Each kernel at the pool wave's shape, C lanes of one slot (2 pitch
+    frames and 16 onset frames a lane, from the classroom's scenes): held
+    against its plain version on the same inputs at phase 3's tolerances
+    (K1 within K1_REL_TOL of its scale, K2-K5 bitwise; K3-K5 from fresh
+    states and from states carried through the slot before), then timed
+    beside its bound; the rows get pool_max_abs_err / pool_ms /
+    pool_bound_ms / pool_bound_by."""
+    import numpy as np
+    import torch
+    from audio_analyzer_rs_tpu_torch.models import generators as gen
+    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
+                                                 hopper_noisefloor,
+                                                 hopper_onset, hopper_stft,
+                                                 hopper_tracker, noisefloor,
+                                                 onset, pitch, tracker)
+    from audio_analyzer_rs_tpu_torch.ops.fft import hann, rdft_trig
+    from audio_analyzer_rs_tpu_torch.ops.stft import windowed_mags
+    from audio_analyzer_rs_tpu_torch.utils.framing import frame_signal
+    dev = torch.device("cuda")
+    half = 1025
+    bin_w = float(np.float32(LIVE_SR) / np.float32(2048))
+    kc = pitch.candidate_band(bin_w, half)
+    min_bin, max_bin = pitch._bins(bin_w, half, pitch.MIN_FREQ,
+                                   pitch.MAX_FREQ)
+    scenes = [gen.mixed_scene(5.5, LIVE_SR, seed=100 + k)
+              for k in range(lanes)]
+    trig = rdft_trig(2048, dev)[:, :2 * (kc + 1)]
+    win = hann(2048, dev)
+    gf = torch.full((lanes, 2), 0.002, device=dev)
+    no = torch.zeros((lanes, 16), dtype=torch.bool, device=dev)
+    o_gf = torch.full((lanes, 16), 0.0016, device=dev)
+
+    def slot_inputs(slot, st_nf):
+        """Slot `slot` of every lane → (x, frames, K1 mags, the floor scan
+        from st_nf (plain), tracker raws, onset magnitudes)."""
+        at = slot * LIVE_SLOT
+        x = torch.from_numpy(np.stack([
+            sc[at:at + 512 + 2048] for sc in scenes])).to(dev)
+        frames = frame_signal(x, 2048, 512)                   # [C, 2, 2048]
+        mags = hopper_stft.dft_mag_plain(frames, trig, win)
+        nf = noisefloor.noise_floor_scan_plain(st_nf, mags, gf, kc)
+        flat = mags.reshape(2 * lanes, -1)
+        pf = pitch.extract_pitches(flat, nf[1].reshape(2 * lanes, -1), bin_w,
+                                   true_half=half)
+        raws = (pf.freqs.reshape(lanes, 2, 8), pf.scores.reshape(lanes, 2, 8),
+                pf.valid.reshape(lanes, 2, 8),
+                torch.zeros((lanes, 2), dtype=torch.bool, device=dev))
+        o_mags = windowed_mags(frame_signal(x[:, :15 * 64 + 256], 256, 64),
+                               256, "fft")                    # [C, 16, 129]
+        return x, frames, mags, nf, raws, o_mags
+
+    def k3_plain(st, raws):
+        st, emits = tracker.tracker_scan_plain(st, *raws)
+        return st, tracker.select_stable(*emits)
+
+    # States carried through slot 199 by the plain scans, contiguous as
+    # the kernels leave them for the next wave.
+    st_nf0 = noisefloor.init_state(half, dev, (lanes,))
+    st_tr0 = tracker.init_state(dev, (lanes,))
+    st_on0 = onset.init_state(onset.HALF, dev, (lanes,))
+    _, _, _, nf_prev, raws_prev, o_prev = slot_inputs(199, st_nf0)
+    carried = tuple(type(st)(*(leaf.contiguous() for leaf in st)) for st in (
+        nf_prev[0], k3_plain(st_tr0, raws_prev)[0],
+        onset.onset_scan_plain(st_on0, o_prev, o_gf, no, no)[0]))
+    x, frames, mags, nf, raws, o_mags = slot_inputs(200, carried[0])
+    eff = nf[1]
+    flat, eff_flat = mags.reshape(2 * lanes, -1), eff.reshape(2 * lanes, -1)
+    pm, frac, m_c, _, _ = pitch._pre_comb(flat, eff_flat, min_bin, max_bin,
+                                          kc)
+    m_c = m_c.contiguous()
+    o_in = (o_mags, o_gf, no, no)
+
+    # The checks.
+    err = {}
+    got = hopper_stft.dft_mag(frames, trig, win)
+    torch.cuda.synchronize()
+    err["K1"] = float((got - mags).abs().max())
+    scale = float(mags.abs().max())
+    assert err["K1"] <= K1_REL_TOL * scale, (
+        f"K1 at C={lanes}", err["K1"], scale)
+    got = hopper_comb.comb(pm, frac, m_c, half, max_bin)
+    ref = pitch._comb(pm, frac, m_c, half, max_bin)
+    torch.cuda.synchronize()
+    for g, r, name in zip(got, ref, ("score", "longest_run", "total_harms")):
+        assert torch.equal(g, r), f"K2 {name} at C={lanes} differs"
+    err["K2"] = float((got[0] - ref[0]).abs().max())
+    for key in ("K3", "K4", "K5"):
+        err[key] = 0.0
+    for label, (st_nf, st_tr, st_on) in (
+            ("fresh", (st_nf0, st_tr0, st_on0)), ("carried", carried)):
+        cases = (
+            ("K3", tracker.TrackerState._fields + ("freq", "score", "valid"),
+             hopper_tracker.tracker_scan(st_tr, *raws), k3_plain(st_tr, raws)),
+            ("K4", onset.OnsetState._fields + onset.OnsetFrameOut._fields,
+             hopper_onset.onset_scan(st_on, *o_in),
+             onset.onset_scan_plain(st_on, *o_in)),
+            ("K5", noisefloor.NoiseFloorState._fields + ("effective",),
+             noisefloor.noise_floor_scan(st_nf, mags, gf, kc),
+             noisefloor.noise_floor_scan_plain(st_nf, mags, gf, kc)))
+        torch.cuda.synchronize()
+        for key, names, (st_k, out_k), (st_p, out_p) in cases:
+            out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+            out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+            assert len(names) == len((*st_k, *out_k)) == len((*st_p,
+                                                              *out_p)), key
+            for name, g, r in zip(names, (*st_k, *out_k), (*st_p, *out_p)):
+                assert same_bits(g, r), \
+                    f"{key} at C={lanes} ({label} state): {name} differs"
+                if g.dtype == torch.float32:
+                    err[key] = max(err[key], float((g - r).abs().max()))
+
+    # The times, at a band-wide K5 state (the kernel alone, as phase 3).
+    st_nf = noisefloor.init_state(kc, dev, (lanes,))
+    st_tr, st_on = carried[1], carried[2]
+    k3_out = hopper_tracker.tracker_scan(st_tr, *raws)
+    k4_out = hopper_onset.onset_scan(st_on, *o_in)
+    shapes = {
+        "K1": (lambda: hopper_stft.dft_mag(frames, trig, win),
+               nbytes(x, trig, win, mags),
+               3 * 2 * 2 * lanes * 2048 * trig.shape[1], TF32_FLOPS),
+        "K2": (lambda: hopper_comb.comb(pm, frac, m_c, half, max_bin),
+               nbytes(pm, frac, m_c) + 3 * pm.numel() * 4, 0, FP32_FLOPS),
+        "K3": (lambda: hopper_tracker.tracker_scan(st_tr, *raws),
+               nbytes(*raws, *k3_out[1]) + 2 * nbytes(*st_tr), 0,
+               FP32_FLOPS),
+        "K4": (lambda: hopper_onset.onset_scan(st_on, *o_in),
+               nbytes(*o_in, *k4_out[1]) + 2 * nbytes(*st_on),
+               30 * o_mags.numel(), FP32_FLOPS),
+        "K5": (lambda: hopper_noisefloor.noise_floor_scan(st_nf, mags, gf,
+                                                          kc),
+               2 * lanes * 2 * kc * 4 + nbytes(gf)
+               + 2 * (3 * lanes * kc * 4 + lanes),
+               30 * lanes * 2 * kc, FP32_FLOPS),
+    }
+    parts = []
+    for row, (name, (fn, nb, ops, rate)) in zip(
+            sorted(rows, key=lambda r: r["name"]), shapes.items()):
+        t_ms = cuda_ms(fn, KERNEL_REPS)
+        b_ms, b_by = bound(nb, ops, rate)
+        row.update(pool_lanes=lanes, pool_max_abs_err=err[name],
+                   pool_ms=t_ms, pool_bound_ms=b_ms, pool_bound_by=b_by)
+        parts.append(f"{name} {t_ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} "
+                     f"us, {b_by})")
+    return (f"C={lanes}: K1 [{lanes}, 2, 2048] within {K1_REL_TOL:g}x of "
+            f"its scale (max|d| {err['K1']:.3e}), K2 [{2 * lanes}, {kc}], "
+            f"K3 S={lanes} N=2, K4 [{lanes}, 16, 129] and K5 [{lanes}, 2, "
+            f"{kc}] bitwise to their plain versions (K3-K5 from fresh and "
+            f"carried states); " + "; ".join(parts))
+
+
+def wave_split(students: int, waves: int = 100, settle: int = 150) -> str:
+    """Where a wave's host time goes: a pool of `students` at depth 1 runs
+    `settle` waves (calibration done), then `waves` more with its stages
+    timed on the host clock."""
+    from audio_analyzer_rs_tpu_torch import EnginePool, runtime
+    from audio_analyzer_rs_tpu_torch.api import pool as pool_mod
+    from audio_analyzer_rs_tpu_torch.api.engine import AudioEngine
+    ms_ = [class_member(100 + k, (settle + waves + 2) * LIVE_SLOT / LIVE_SR)
+           for k in range(students)]
+    spool = EnginePool([m[0] for m in ms_], pipeline_depth=1,
+                       capacity=students)
+    spool.prepare()
+    for _ in range(settle):
+        spool.step_wave()
+    stages = ((runtime.NativeReducer, "process_slot", "reducer"),
+              (AudioEngine, "_fused_inputs", "inputs"),
+              (pool_mod, "upload", "upload"),
+              (pool_mod, "fused_slot_pool_step", "dispatch"),
+              (EnginePool, "_drain_entry", "readback+posts"),
+              (AudioEngine, "_fused_post", "posts"))
+    spent = {key: 0.0 for _, _, key in stages}
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
+    for (obj, attr, key), (_, _, fn) in zip(stages, saved):
+        setattr(obj, attr, timed(fn, key))
+    t0 = time.perf_counter()
+    try:
+        for _ in range(waves):
+            spool.step_wave()
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    total = (time.perf_counter() - t0) * 1e3 / waves
+    spool.flush()
+    per = {key: v * 1e3 / waves for key, v in spent.items()}
+    per["readback"] = per.pop("readback+posts") - per["posts"]
+    return (f"host ms a wave by stage, {students} students, waves "
+            f"{settle}-{settle + waves - 1} (of {total:.3f} in step_wave()): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
+            + f", the rest {total - sum(per.values()):.3f}")
+
+
+def classroom_phase(rows, card: str) -> None:
+    """Phase 11, the classroom: an EnginePool on the card (see the module
+    docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from audio_analyzer_rs_tpu_torch import EnginePool
+    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
+                                                 hopper_noisefloor,
+                                                 hopper_onset, hopper_stft,
+                                                 hopper_tracker)
+    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_onset,
+                hopper_noisefloor)
+    slot_s = LIVE_SLOT / LIVE_SR
+
+    # The gates first: bitwise on the card.  Four solo students at depth 0,
+    # the same four pooled at depth 1, student 0 at depth 1, and at depth 1
+    # with aggregation 4.
+    n = int(GATE_SECONDS / slot_s)
+    solos = []
+    for k in range(GATE_K):
+        m = class_member(100 + k, GATE_SECONDS)
+        solos.append((m[0], drive_polled([m], lambda m=m: m[0].advance(
+            slot_s), n, m[0].flush_analysis)[0]))
+    # Pooled at capacity GATE_K (no pad lane), then at the classroom's
+    # capacity (its padded shape, CLASS_CAPACITY - GATE_K inert lanes).
+    gate_rollbacks = []
+    for capacity in (GATE_K, CLASS_CAPACITY):
+        pm = [class_member(100 + k, GATE_SECONDS) for k in range(GATE_K)]
+        gpool = EnginePool([m[0] for m in pm], pipeline_depth=1,
+                           capacity=capacity)
+        pooled = drive_polled(pm, gpool.step_wave, n, gpool.flush)
+        n_ev = [same_session((pm[k][0], pooled[k]), solos[k],
+                             f"pooled {k} at capacity {capacity}")
+                for k in range(GATE_K)]
+        gate_rollbacks.append(gpool._rollbacks)
+    assert sum(n_ev) > 0, "the gate's sessions fired no onset"
+    knobs = {}
+    for label, depth, agg in (("depth 1", 1, 1), ("aggregate 4", 1, 4)):
+        m = class_member(100, GATE_SECONDS, depth, agg)
+        polls = drive_polled([m], lambda m=m: m[0].advance(slot_s), n,
+                             m[0].flush_analysis)[0]
+        same_session((m[0], polls), solos[0], label)
+        knobs[label] = (m[0]._spec_rollbacks, m[0]._agg_dispatches)
+    say(f"classroom: gates on the card, {n} slots of {GATE_SECONDS:.0f} s: "
+        f"{GATE_K} pooled students (depth 1) at capacity {GATE_K} and at "
+        f"capacity {CLASS_CAPACITY} ({CLASS_CAPACITY - GATE_K} pad lanes) "
+        f"against {GATE_K} solo engines (depth 0) bitwise (events {n_ev}, "
+        f"every slot's dynamics, the last reading, every carry; "
+        f"{gate_rollbacks} rollbacks); depth 1 "
+        f"against 0 bitwise ({knobs['depth 1'][0]} rollback); aggregate 4 "
+        f"against 1 bitwise ({knobs['aggregate 4'][1]} aggregate "
+        f"dispatches)")
+    del solos, pm, gpool, pooled
+
+    # The classroom: 32 students from the first wave, one joining at 5 s.
+    n_waves = int(CLASS_SECONDS / slot_s)
+    join_at = int(CLASS_JOIN_S / slot_s)
+    members = [class_member(100 + k, CLASS_SECONDS) for k in range(CLASS_K)]
+    pool = EnginePool([m[0] for m in members], pipeline_depth=1,
+                      aggregate_slots=1, capacity=CLASS_CAPACITY)
+    prep = pool.prepare()
+    host_ms, marks = [], {}
+    events, readings = [0] * CLASS_CAPACITY, [0] * CLASS_CAPACITY
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    # Python's collector pauses, to tell them from the host's own stalls
+    # in the slowest waves.
+    gc_pauses, gc_start = [], [0.0]
+
+    def gc_watch(phase, info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            gc_pauses.append((info["generation"],
+                              (time.perf_counter() - gc_start[0]) * 1e3))
+    gc.callbacks.append(gc_watch)
+    for mod in counters:
+        mod.LAUNCHES = 0
+    for i in range(n_waves):
+        if i == join_at:
+            members.append(class_member(100 + CLASS_K,
+                                        CLASS_SECONDS - CLASS_JOIN_S))
+            pool.add(members[-1][0])
+        if i in CLASS_LAUNCH_WAVES:
+            marks[i] = [mod.LAUNCHES for mod in counters]
+        if i == CLASS_PROFILE_WAVES[0]:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        pool.step_wave()
+        dt = (time.perf_counter() - t0) * 1e3
+        if i == CLASS_PROFILE_WAVES[1] - 1:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+        if not CLASS_PROFILE_WAVES[0] <= i < CLASS_PROFILE_WAVES[1]:
+            host_ms.append(dt)
+        for k, (_, tuner, det) in enumerate(members):
+            events[k] += len(json.loads(det.poll_onsets()))
+            readings[k] += bool(json.loads(tuner.poll_output())["notes"])
+    pool.flush()
+    gc.callbacks.remove(gc_watch)
+    launches = [mod.LAUNCHES for mod in counters]
+    for k, (_, _, det) in enumerate(members):
+        events[k] += len(json.loads(det.poll_onsets()))
+    span = CLASS_LAUNCH_WAVES[1] - CLASS_LAUNCH_WAVES[0]
+    per_wave = [(b - a) / span for a, b in zip(
+        marks[CLASS_LAUNCH_WAVES[0]], marks[CLASS_LAUNCH_WAVES[1]])]
+    assert per_wave == [1.0] * 5, f"launches a wave {per_wave}"
+    for k, (e, tuner, det) in enumerate(members):
+        want = n_waves - (join_at if k == CLASS_K else 0)
+        assert e._fused_slots == want, (k, e._fused_slots, want)
+        assert carries_of(e)[-1][3] == 1, f"student {k} never calibrated"
+    assert sum(events) > 0, "no onset in the classroom"
+    assert sum(r > 0 for r in readings) >= 0.75 * len(readings), \
+        f"students without a tuner note: {readings}"
+    kern = [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0))
+                  for ev in kern)
+    n_prof = CLASS_PROFILE_WAVES[1] - CLASS_PROFILE_WAVES[0]
+    n_kern = sum(ev.count for ev in kern)
+    gc_note = (f"{len(gc_pauses)} garbage collections "
+               f"({sum(g == 2 for g, _ in gc_pauses)} full), the longest "
+               f"{max((t for _, t in gc_pauses), default=0.0):.1f} ms")
+    ms = sorted(host_ms)
+    p50, p99 = ms[len(ms) // 2], ms[int(0.99 * (len(ms) - 1))]
+    timed_waves = [i for i in range(n_waves)
+                   if not CLASS_PROFILE_WAVES[0] <= i < CLASS_PROFILE_WAVES[1]]
+    slowest = sorted(zip(host_ms, timed_waves), reverse=True)[:5]
+    after = sorted(host_ms[join_at:])
+    over = sum(t > LIVE_BUDGET_MS for t in host_ms)
+    profiled = (f"{n_kern / n_prof:.1f} CUDA kernels a wave, card busy "
+                f"{busy_us / n_prof / 1e3:.4f} ms a wave" if busy_us > 0 else
+                "the profiler saw no device time (card-busy ms not measured)")
+    say(f"classroom: EnginePool of {CLASS_K} students (+1 joining at "
+        f"{CLASS_JOIN_S:.0f} s), capacity {CLASS_CAPACITY}, depth 1, on "
+        f"{card}: prepare() {prep['total_s']:.2f} s; {n_waves} waves; host "
+        f"ms a wave p50 {p50:.3f}, p99 {p99:.3f}, max {ms[-1]:.3f} ({len(ms)}"
+        f" waves; waves {CLASS_PROFILE_WAVES[0]}-{CLASS_PROFILE_WAVES[1] - 1}"
+        f" profiled apart; the slowest (wave: ms) "
+        + ", ".join(f"{i}: {t:.1f}" for t, i in slowest)
+        + f"); ms an engine-slot after the join ({CLASS_CAPACITY} students) "
+        f"p50 {after[len(after) // 2] / CLASS_CAPACITY:.4f}; {over} waves "
+        f"over {LIVE_BUDGET_MS:.2f} ms; launches K1/K2/K3/K4/K5 a wave over "
+        f"waves {CLASS_LAUNCH_WAVES[0]}-{CLASS_LAUNCH_WAVES[1] - 1} "
+        f"{per_wave}, over the run {launches}; profiled {n_prof} waves: "
+        f"{profiled}; {pool._rollbacks} rollbacks; {gc_note}; onset events "
+        f"a student min {min(events)} max {max(events)}; waves with a tuner "
+        f"note a student min {min(readings)} max {max(readings)}")
+    for row, n_run, n_wave in zip(sorted(rows, key=lambda r: r["name"]),
+                                  launches, per_wave):
+        row.update(launches_pool=n_run, launches_pool_per_wave=n_wave)
+    del members, pool
+    say("classroom: " + wave_split(CLASS_K))
+
+    # The sweep: K students for 5 s each, prepared, wave host time.
+    sweep = []
+    for k_students in SWEEP_K:
+        ms_ = [class_member(100 + k, SWEEP_SECONDS)
+               for k in range(k_students)]
+        spool = EnginePool([m[0] for m in ms_], pipeline_depth=1,
+                           capacity=k_students)
+        spool.prepare()
+        waves = []
+        for _ in range(int(SWEEP_SECONDS / slot_s)):
+            t0 = time.perf_counter()
+            spool.step_wave()
+            waves.append((time.perf_counter() - t0) * 1e3)
+        spool.flush()
+        waves.sort()
+        sweep.append((k_students, waves[len(waves) // 2],
+                      waves[int(0.99 * (len(waves) - 1))]))
+        del ms_, spool
+    fits = [k for k, _, w99 in sweep if w99 <= LIVE_BUDGET_MS]
+    say("classroom: sweep, host ms a wave (p50 / p99) at K students, 5 s "
+        "each, depth 1: " + "; ".join(
+            f"K={k} {w50:.3f} / {w99:.3f} ({w50 / k:.4f} ms an engine-slot)"
+            for k, w50, w99 in sweep)
+        + f"; largest K whose p99 fits {LIVE_BUDGET_MS:.2f} ms: "
+        + (str(max(fits)) if fits else "none"))
+    say("classroom: kernels at the pool shape, " + pool_shape_kernels(
+        rows, CLASS_CAPACITY))
 
 
 def main() -> int:
@@ -1016,6 +1495,9 @@ def main() -> int:
 
     # 10. The live engine.
     live_phase(rows, card)
+
+    # 11. The classroom: an engine pool.
+    classroom_phase(rows, card)
 
     say(json.dumps({"kernels": rows}))
     say(f"card: {card}")

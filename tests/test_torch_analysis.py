@@ -221,9 +221,11 @@ def test_package_exports():
                  "decode_file", "encode_file", "decode_available"):
         assert getattr(aat, name) is not None
     from audio_analyzer_rs_tpu_torch.api.engine import AudioEngine
+    from audio_analyzer_rs_tpu_torch.api.pool import EnginePool
     assert aat.AudioEngine is AudioEngine
+    assert aat.EnginePool is EnginePool
     with pytest.raises(AttributeError):
-        aat.EnginePool           # the engine pool is not ported yet
+        aat.NoSuchExport
 
 
 def test_features_on_the_fft_backend_spectrum():

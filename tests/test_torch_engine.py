@@ -17,7 +17,8 @@ Per slot, the port against JAX (the JSON the app reads):
   states it).
 Within the port, the fused per-slot program and the sequential consumers
 give the same polled JSON slot for slot and the same final states, bit for
-bit.  No decision flipped on these sessions, so no straddle is pinned.
+bit.  Deferred readback and slot aggregation are held to depth 0 by
+tests/test_torch_pool.py.  No decision flipped on these sessions, so no straddle is pinned.
 """
 
 import json
@@ -335,13 +336,30 @@ def test_tick_suppression_matches_per_frame_stamping():
 @pytest.mark.parametrize("knob,value", [("pipeline_depth", 1),
                                         ("aggregate_slots", 4)])
 def test_unported_knobs_raise_at_the_next_slot(knob, value):
-    e = E.AudioEngine(input_source=ArraySource(_scene()), device="cpu")
-    e.start_tuner()
-    e.start_onset_detection()
-    e.advance(0.1)
-    setattr(e, knob, value)
-    with pytest.raises(NotImplementedError, match=knob):
-        e.advance(0.03)
+    """The deferral knobs, once unported, now run: set mid-session, the
+    engine goes on and after a flush has consumed the same slots with the
+    same states as a depth-0 engine.  What is still not ported, the debug
+    recorder, raises."""
+    engines = []
+    for turn_knob in (False, True):
+        e = E.AudioEngine(input_source=ArraySource(_scene()), device="cpu")
+        e.start_tuner()
+        e.start_onset_detection()
+        e.advance(0.1)
+        if turn_knob:
+            setattr(e, knob, value)
+        e.advance(0.3)
+        e.flush_analysis()
+        engines.append(e)
+    (p0, o0), (p1, o1) = (_consumers(x) for x in engines)
+    assert p0.analyzer.frames_consumed == p1.analyzer.frames_consumed
+    assert o0.analyzer.frames_consumed == o1.analyzer.frames_consumed
+    for x, y in zip((*p0.analyzer.nf_state, *p0.analyzer.tr_state,
+                     *o0.analyzer.state),
+                    (*p1.analyzer.nf_state, *p1.analyzer.tr_state,
+                     *o1.analyzer.state)):
+        assert torch.equal(x, y)
+    e = engines[1]
     with pytest.raises(NotImplementedError, match="devtools"):
         e.attach_debug_recorder(object())
     pc, _ = _consumers(e)

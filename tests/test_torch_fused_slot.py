@@ -6,6 +6,11 @@ slots (fires do not reach the tracker), tick-suppressed frames and a
 global floor that moves every slot.  Each side carries its own states,
 tails and pending flag from slot to slot, as the engines do.
 
+The K-lane form (the engine pool's lanes), the chained aggregate and the
+pool wave's packed layout are held bitwise to one-lane calls, and the
+pool's layout to the JAX package's `unpack_fused_pool_out`, at the end of
+the file.
+
 Tolerances, stated once:
 - decisions exact: fired, detected, energy_rising, burst_count,
   frames_since, stable valid, and the pending flag;
@@ -39,6 +44,7 @@ from audio_analyzer_rs_tpu.ops import tracker as jtracker
 from audio_analyzer_rs_tpu_torch import interop
 from audio_analyzer_rs_tpu_torch.models import analyzer as tanalyzer
 from audio_analyzer_rs_tpu_torch.models import generators as gen
+from audio_analyzer_rs_tpu_torch.ops import noisefloor, onset, tracker
 from audio_analyzer_rs_tpu_torch.utils.framing import num_frames
 
 torch.set_num_threads(1)
@@ -227,3 +233,158 @@ def test_pending_survives_a_slot_without_pitch_frames():
     np.testing.assert_array_equal(t[5].numpy(), np.asarray(j[5]))
     with pytest.raises(ValueError, match="host_vec"):
         tanalyzer.fused_slot_step(*t, torch.from_numpy(host_vec), SR, 64)
+
+
+def _fresh(device="cpu"):
+    """One lane's fresh carries, as a port engine holds them."""
+    return tanalyzer.PoolCarries(
+        noisefloor.init_state(P_WIN // 2 + 1, device, (1,)),
+        tracker.init_state(device, (1,)),
+        onset.init_state(O_WIN // 2 + 1, device, (1,)),
+        torch.zeros(1, dtype=torch.bool), torch.zeros(0), torch.zeros(0))
+
+
+
+def _same(a, b):
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _lane_scenes():
+    """Three lanes' host vectors for 12 slots: clicks, a moving floor, tick
+    suppression, lane 1 holding calibration for the first 8 slots."""
+    rng = np.random.default_rng(5)
+    click = gen.calibration_click(SR, volume=0.7)
+    xs = []
+    for seed in (11, 23, 42):
+        x = gen.mixed_scene(0.4, SR, seed=seed)
+        for t in rng.uniform(0.02, 0.25, 2):
+            x[int(t * SR):int(t * SR) + len(click)] += click
+        xs.append(x)
+    vecs, p_len, o_len = [], 0, 0
+    for k in range(12):
+        n_p = num_frames(p_len + SLOT, P_WIN, P_HOP)
+        n_o = num_frames(o_len + SLOT, O_WIN, O_HOP)
+        vecs.append([_host_vec(x[k * SLOT:(k + 1) * SLOT],
+                               rng.uniform(-90.0, -50.0),
+                               lane == 1 and k < 8, rng.random(n_o) < 0.15)
+                     for lane, x in enumerate(xs)])
+        p_len += SLOT - n_p * P_HOP
+        o_len += SLOT - n_o * O_HOP
+    return vecs
+
+
+def test_lanes_match_one_lane_calls_bitwise():
+    """`fused_slot_step` over 3 lanes (plus an inert zero lane) against
+    each lane's one-lane call, for 12 slots from fresh carries: the packed
+    outputs (lane by lane through `unpack_fused_pool_out`, which reads
+    them as the JAX package's does) and every carry bit for bit."""
+    vecs = _lane_scenes()
+    solo = [tuple(_fresh()) for _ in range(3)]
+    pool = [_fresh() for _ in range(4)]
+    for k, slot_vecs in enumerate(vecs):
+        rows = np.stack(slot_vecs + [np.zeros_like(slot_vecs[0])])
+        stacked = tanalyzer.stack_carries(pool)
+        *new, out = tanalyzer.fused_slot_step(
+            *stacked, torch.from_numpy(rows), SR, SLOT)
+        pool = tanalyzer.unstack_carries(tanalyzer.PoolCarries(*new), 4)
+        n_p = num_frames(stacked.p_tail.shape[1] + SLOT, P_WIN, P_HOP)
+        n_o = num_frames(stacked.o_tail.shape[1] + SLOT, O_WIN, O_HOP)
+        lanes = tanalyzer.unpack_fused_pool_out(out.numpy(), 4,
+                                                [(n_p, n_o)])[0]
+        theirs = janalyzer.unpack_fused_pool_out(out.numpy(), 4,
+                                                 [(n_p, n_o)])[0]
+        for lane in range(3):
+            *solo_c, vec = tanalyzer.fused_slot_step(
+                *solo[lane], torch.from_numpy(slot_vecs[lane]), SR, SLOT)
+            solo[lane] = tuple(solo_c)
+            one = tanalyzer.unpack_fused_out(vec.numpy(), n_p, n_o)
+            for a, b, c in zip((*one[:3], *one.onset),
+                               (*lanes[lane][:3], *lanes[lane].onset),
+                               (*theirs[lane][:3], *theirs[lane].onset)):
+                assert a.dtype == b.dtype == c.dtype
+                np.testing.assert_array_equal(a, b, err_msg=f"slot {k}")
+                np.testing.assert_array_equal(a, c, err_msg=f"slot {k}")
+            for a, b in zip(_leaves(solo[lane]), _leaves(pool[lane])):
+                assert _same(a, b), f"slot {k} lane {lane}"
+    assert bool(pool[1].pending[0]) is False
+
+
+def _leaves(carries):
+    return [leaf for part in carries
+            for leaf in (part if isinstance(part, tuple) else (part,))]
+
+
+def test_aggregate_matches_per_slot_calls_bitwise():
+    """`fused_slot_agg_step` over 4 chained slots against 4
+    `fused_slot_step` calls, 12 slots of 3 lanes and of one lane: the
+    packed outputs and every carry bit for bit, the noise-floor leaves
+    included (the JAX package allows those ulp drift)."""
+    vecs = _lane_scenes()
+    for lanes in (3, 1):
+        per = agg = tanalyzer.stack_carries([_fresh() for _ in range(lanes)])
+        if lanes == 1:
+            per = agg = tuple(_fresh())
+        for a0 in range(0, 12, 4):
+            outs = []
+            for slot_vecs in vecs[a0:a0 + 4]:
+                hv = (torch.from_numpy(np.stack(slot_vecs[:lanes]))
+                      if lanes > 1 else torch.from_numpy(slot_vecs[0]))
+                *per, out = tanalyzer.fused_slot_step(*per, hv, SR, SLOT)
+                outs.append(out)
+            hv = (np.concatenate([np.stack(v[:lanes]) for v in
+                                  vecs[a0:a0 + 4]], axis=1) if lanes > 1
+                  else np.concatenate([v[0] for v in vecs[a0:a0 + 4]]))
+            *agg, out = tanalyzer.fused_slot_agg_step(
+                *agg, torch.from_numpy(hv), SR, SLOT, 4)
+            assert _same(out, torch.cat(outs))
+            for a, b in zip(_leaves(per), _leaves(agg)):
+                assert _same(a, b), f"lanes {lanes} slots {a0}"
+    with pytest.raises(ValueError, match="host_vec"):
+        tanalyzer.fused_slot_agg_step(*agg, torch.from_numpy(hv[:-1]), SR,
+                                      SLOT, 4)
+
+
+def test_pool_step_layout_round_trip():
+    """`fused_slot_pool_step` for 2 engines padded to 3 lanes, 2 chained
+    slots a wave: the packed wave unpacks (port and JAX package alike) to
+    each engine's own `fused_slot_agg_step` result, lane by lane; the
+    carries come back as per-engine views of one stacked tensor a leaf."""
+    vecs = _lane_scenes()
+    engines = [tuple(_fresh()) for _ in range(2)]
+    p_len = o_len = 0
+    for a0 in range(0, 8, 2):
+        pad = _fresh()._replace(p_tail=torch.zeros(p_len),
+                                o_tail=torch.zeros(o_len))
+        counts = tanalyzer.slot_frame_counts(SLOT, 2, p_len, o_len)
+        rows = [np.concatenate([vecs[a0][k], vecs[a0 + 1][k]])
+                for k in range(2)]
+        rows.append(np.zeros_like(rows[0]))
+        states, packed = tanalyzer.fused_slot_pool_step(
+            list(engines) + [pad], torch.from_numpy(np.stack(rows)), SR,
+            SLOT, 2)
+        got = tanalyzer.unpack_fused_pool_out(packed.numpy(), 3, counts)
+        theirs = janalyzer.unpack_fused_pool_out(packed.numpy(), 3, counts)
+        for k in range(2):
+            *new, vec = tanalyzer.fused_slot_agg_step(
+                *engines[k], torch.from_numpy(rows[k]), SR, SLOT, 2)
+            off = 0
+            for a, (n_p, n_o) in enumerate(counts):
+                ln = tanalyzer.fused_out_len(n_p, n_o)
+                one = tanalyzer.unpack_fused_out(vec.numpy()[off:off + ln],
+                                                 n_p, n_o)
+                off += ln
+                for x, y, z in zip((*one[:3], *one.onset),
+                                   (*got[a][k][:3], *got[a][k].onset),
+                                   (*theirs[a][k][:3], *theirs[a][k].onset)):
+                    np.testing.assert_array_equal(x, y)
+                    np.testing.assert_array_equal(x, z)
+            for x, y in zip(_leaves(new), _leaves(states[k])):
+                assert _same(x, y)
+            engines[k] = tuple(states[k])
+        assert states[0].p_tail._base is states[1].p_tail._base
+        p_len += sum(SLOT - n_p * P_HOP for n_p, _ in counts)
+        o_len += sum(SLOT - n_o * O_HOP for _, n_o in counts)
+    with pytest.raises(ValueError, match="unpack"):
+        tanalyzer.unpack_fused_pool_out(packed.numpy()[:-1], 3, counts)

@@ -621,13 +621,15 @@ def test_live_onset_kernel(dev, n, nan):
 
 def test_fft_mags_are_batch_independent(dev):
     """One onset frame's "fft" magnitudes (cuFFT) in batches of 1, 16, 63,
-    64, 65 and 129 frames, the frame at the batch's first, middle and last
-    row: the same bits in every batch."""
-    x = _live_scene(dev, 2.0)
-    frames = frame_signal(x, onset.WINDOW, 64)
-    k = 300
+    64, 65 and 129 frames and in an engine pool's batches of 16·C frames
+    (C lanes of 16 onset frames, C up to 129), the frame at the batch's
+    first, middle and last row: the same bits in every batch, and in the
+    pool's [C, 16, 256] layout at each lane."""
+    x = _live_scene(dev, 6.0)
+    frames = frame_signal(x, onset.WINDOW, 64)               # 4,497 frames
+    k = 2100
     want = windowed_mags(frames[k:k + 1], onset.WINDOW, "fft")[0]
-    for b in (1, 16, 63, 64, 65, 129):
+    for b in (1, 16, 63, 64, 65, 129, 32, 528, 1024, 2064):
         for start in (k, k - b // 2, k - b + 1):
             got = windowed_mags(frames[start:start + b], onset.WINDOW, "fft")
             assert_same_bits(got[k - start], want, f"batch {b} at {start}")
@@ -635,3 +637,152 @@ def test_fft_mags_are_batch_independent(dev):
                                 onset.WINDOW, "fft")
             assert_same_bits(got[0, k - start], want,
                              f"[1, {b}] batch at {start}")
+    for c in (2, 33, 64, 129):
+        for lane in (0, c // 2, c - 1):
+            start = k - 16 * lane - 5
+            lanes = frames[start:start + 16 * c].reshape(c, 16, onset.WINDOW)
+            got = windowed_mags(lanes, onset.WINDOW, "fft")
+            assert_same_bits(got[lane, 5], want, f"[{c}, 16] lane {lane}")
+
+
+def _pool_lanes(dev, c):
+    """C lanes' inputs at the pool's shapes, from C slots of the live scene:
+    pitch frames [C, 2, 2048] and onset frames [C, 16, 256]."""
+    x = _live_scene(dev, 4.0)
+    starts = [(7 * k) % 150 * 1024 for k in range(c)]
+    p = torch.stack([x[s:s + 512 + W] for s in starts])
+    o = torch.stack([x[s:s + 15 * 64 + onset.WINDOW] for s in starts])
+    return frame_signal(p, W, HOP), frame_signal(o, onset.WINDOW, 64)
+
+
+@pytest.mark.parametrize("c", [33, 129])
+def test_kernels_are_batch_independent_at_pool_shapes(dev, c):
+    """Each kernel, and the plain extraction around K2, on C lanes at the
+    pool's shapes (48 kHz, 1,024-sample slots): every lane bit for bit
+    what the same lane gives alone (S = 1).  An inert lane cannot reach a
+    live one, and a pooled engine equals a solo one."""
+    p_frames, o_frames = _pool_lanes(dev, c)
+    trig = rdft_trig(W, dev)[:, :2 * (KC48 + 1)]
+    win = hann(W, dev)
+    mags = hopper_stft.dft_mag(p_frames, trig, win)               # K1
+    gf = torch.full((c, 2), 0.002, device=dev)
+    nf0 = noisefloor.init_state(HALF, dev, (c,))
+    nf, eff = noisefloor.noise_floor_scan(nf0, mags, gf, KC48)    # K5
+    pf = pitch.extract_pitches(mags.reshape(2 * c, -1),
+                               eff.reshape(2 * c, -1), BIN_W48,
+                               true_half=HALF)                    # K2
+    raws = (pf.freqs.reshape(c, 2, 8), pf.scores.reshape(c, 2, 8),
+            pf.valid.reshape(c, 2, 8),
+            torch.rand((c, 2), device=dev) < 0.3)
+    tr0 = tracker.init_state(dev, (c,))
+    tr, stable = tracker.tracker_scan_batched(tr0, *raws)         # K3
+    o_mags = windowed_mags(o_frames, onset.WINDOW, "fft")
+    o_in = (o_mags, torch.full((c, 16), 0.0016, device=dev),
+            torch.rand((c, 16), device=dev) < 0.1,
+            torch.rand((c, 16), device=dev) < 0.2)
+    on0 = onset.init_state(onset.HALF, dev, (c,))
+    on, o_out = onset.onset_scan(on0, *o_in)                      # K4
+    for lane in (0, 1, c // 2, c - 1):
+        one = slice(lane, lane + 1)
+        m1 = hopper_stft.dft_mag(p_frames[one], trig, win)
+        assert_same_bits(mags[one], m1, f"K1 lane {lane}")
+        nf1, eff1 = noisefloor.noise_floor_scan(
+            type(nf0)(*(leaf[one] for leaf in nf0)), m1, gf[one], KC48)
+        assert_same_bits(eff[one], eff1, f"K5 lane {lane}")
+        for a, b in zip(nf, nf1):
+            assert_same_bits(a[one], b, f"K5 state lane {lane}")
+        pf1 = pitch.extract_pitches(m1[0], eff1[0], BIN_W48, true_half=HALF)
+        for a, b in zip(pf, pf1):
+            assert_same_bits(a[2 * lane:2 * lane + 2], b,
+                             f"extraction lane {lane}")
+        tr1, stable1 = tracker.tracker_scan_batched(
+            type(tr0)(*(leaf[one] for leaf in tr0)),
+            *(r[one] for r in raws))
+        for a, b in zip((*tr, *stable), (*tr1, *stable1)):
+            assert_same_bits(a[one], b, f"K3 lane {lane}")
+        on1, o_out1 = onset.onset_scan(
+            type(on0)(*(leaf[one] for leaf in on0)),
+            *(t[one].contiguous() for t in o_in))
+        for a, b in zip((*on, *o_out), (*on1, *o_out1)):
+            assert_same_bits(a[one], b, f"K4 lane {lane}")
+
+
+@pytest.mark.parametrize("c", [33, 129])
+def test_fused_slot_lanes_match_one_lane_on_the_card(dev, c):
+    """`fused_slot_step` over C lanes on the card (some lanes holding
+    calibration, tick-suppressed frames) against each lane's one-lane call,
+    4 slots from fresh carries: packed outputs and carries bit for bit."""
+    from audio_analyzer_rs_tpu_torch.models import analyzer as A
+    from audio_analyzer_rs_tpu_torch.utils.framing import num_frames
+
+    x = _live_scene(dev, 4.0).cpu().numpy()
+    rng = np.random.default_rng(c)
+
+    def fresh():
+        return A.PoolCarries(
+            noisefloor.init_state(HALF, dev, (1,)),
+            tracker.init_state(dev, (1,)),
+            onset.init_state(onset.HALF, dev, (1,)),
+            torch.zeros(1, dtype=torch.bool, device=dev),
+            torch.zeros(0, device=dev), torch.zeros(0, device=dev))
+
+    lanes = [fresh() for _ in range(c)]
+    solo = [tuple(fresh()) for _ in range(c)]
+    p_len = o_len = 0
+    for slot in range(4):
+        n_p = num_frames(p_len + 1024, W, HOP)
+        n_o = num_frames(o_len + 1024, onset.WINDOW, 64)
+        rows = []
+        for k in range(c):
+            at = ((7 * k) % 150 + slot) * 1024
+            rows.append(np.concatenate([
+                x[at:at + 1024], np.float32([0.004, 0.0016, k % 3 == 0]),
+                (rng.random(n_o) < 0.1).astype(np.float32)]))
+        hv = torch.from_numpy(np.stack(rows)).to(dev)
+        *new, out = A.fused_slot_step(*A.stack_carries(lanes), hv, SR48, 1024)
+        lanes = A.unstack_carries(A.PoolCarries(*new), c)
+        got = out.reshape(-1)
+        per = A.fused_out_len(n_p, n_o)
+        for k in (0, 1, c // 2, c - 1):
+            *new1, out1 = A.fused_slot_step(*solo[k], hv[k], SR48, 1024)
+            solo[k] = tuple(new1)
+            lane_vec = torch.cat([
+                got[off * c + k * size:off * c + (k + 1) * size]
+                for off, size in _leaf_spans(n_p, n_o)])
+            assert lane_vec.numel() == per
+            assert_same_bits(lane_vec, out1, f"slot {slot} lane {k}")
+            for a, b in zip(_flat(lanes[k]), _flat(solo[k])):
+                assert_same_bits(a, b, f"slot {slot} lane {k} carry")
+        p_len += 1024 - n_p * HOP
+        o_len += 1024 - n_o * 64
+
+
+def _leaf_spans(n_p, n_o):
+    """(offset a lane, size a lane) of each packed leaf of one slot."""
+    spans, off = [], 0
+    for size in (n_p * 8,) * 3 + (n_o,) * 8:
+        spans.append((off, size))
+        off += size
+    return spans
+
+
+def _flat(carries):
+    return [leaf for part in carries
+            for leaf in (part if isinstance(part, tuple) else (part,))]
+
+
+def test_readback_waits_for_its_copy(dev):
+    """A deferred readback of a vector the card writes after a ~20 ms spin:
+    `wait()` returns the written values (the page-locked buffer is read
+    only after its event), and only that entry's event is waited on."""
+    from audio_analyzer_rs_tpu_torch.api.engine import Readback
+
+    src = torch.zeros(4096, device=dev)
+    torch.cuda._sleep(40_000_000)
+    src.add_(3.0)
+    rb = Readback(src * 2.0)
+    assert not rb._event.query()
+    got = rb.wait()
+    assert rb._event.query()
+    np.testing.assert_array_equal(got, np.full(4096, 6.0, np.float32))
+    assert rb._host.is_pinned()

@@ -216,6 +216,15 @@ def test_port_runs_without_jax_in_a_fresh_process():
         "t, o = e.start_tuner(), e.start_onset_detection()\n"
         "e.advance(0.5)\n"
         "assert e._fused_slots > 0 and t.poll_output() and o.poll_onsets()\n"
+        "from audio_analyzer_rs_tpu_torch import EnginePool, checkpoint\n"
+        "from audio_analyzer_rs_tpu_torch.api.rpc import RpcServer\n"
+        "p = EnginePool([e], pipeline_depth=1)\n"
+        "p.advance(0.1)\n"
+        "import tempfile, os\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    checkpoint.save_engine(os.path.join(d, 'e.npz'), e)\n"
+        "assert RpcServer(device='cpu').handle({'method': 'ping'})"
+        "['result'] == 'pong'\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -243,6 +252,8 @@ def test_source_scan():
                    if "_build" not in p.relative_to(PORT).parts)
     files.append(REPO / "chip_smoke.py")
     assert len(files) >= 15
+    for new in ("api/pool.py", "api/rpc.py", "checkpoint.py"):
+        assert PORT / new in files, new
     for path in files:
         assert "torch.compile" not in path.read_text(), path
         for name in _imported_names(path):

@@ -15,6 +15,13 @@ Layer map (mirrors the JAX package):
                      (ops/hopper_stft.py, csrc/stft.cu); rfft_complex/irfft
   ops/noisefloor     per-bin noise-floor recurrence (kernel K5:
                      ops/hopper_noisefloor.py, csrc/noisefloor.cu)
+  ops/reducer        input conditioning, HPF -> LPF -> noise gate: the
+                     device scan `reduce_signal` (kernel K6:
+                     ops/hopper_reducer.py, csrc/reducer.cu) and the host
+                     (numpy) reducer the engine runs per slot
+  ops/dynamics       AGC and dynamics: the device scan `dynamics_scan`
+                     (kernel K7: ops/hopper_dynamics.py, csrc/dynamics.cu)
+                     and the host (numpy) tracker the engine runs per slot
   ops/rounding       fma32: a*b + c rounded once, as the kernels' fmaf
   ops/pitch          peaks, interpolation, the harmonic comb (kernel K2:
                      ops/hopper_comb.py, csrc/comb.cu), gates, top-K, dedup
@@ -43,13 +50,14 @@ Layer map (mirrors the JAX package):
   checkpoint         save/load of analyzer, transport and engine state
                      (the JAX package's file format)
   api/device         the virtual audio device and its input sources
-  ops/reducer,       the host (numpy) conditioning and dynamics the engine
-  ops/dynamics       runs per slot; runtime: the C++ reducer when built
+  runtime            the C++ host reducer, built when possible
+  parallel/sharding  make_batched_full_step: reducer -> AGC -> pitch ->
+                     onset over a batch of B streams on one card
   models/{sources,calibration,metronome,synth,player,tuner}, practice/,
   theory, transport, tracing, utils/{midi,wav}
                      host modules, copies of the JAX package's
-  interop            JAX-package states and fused carries (as numpy) <->
-                     this package's
+  interop            JAX-package states (the full step's too) and fused
+                     carries (as numpy) <-> this package's
 
 Every entry point takes `device` (default "cuda"); nothing picks the CPU on
 its own.
@@ -73,6 +81,9 @@ _EXPORTS = {
                          "segmented_pitch_analysis_batch",
                          "segmented_onset_analysis_batch"),
     "models.analyzer": ("PitchAnalyzer", "OnsetAnalyzer"),
+    "ops.reducer": ("reduce_signal",),
+    "ops.dynamics": ("dynamics_scan",),
+    "parallel.sharding": ("make_batched_full_step", "init_stream_states"),
     "api.engine": ("AudioEngine",),
     "api.pool": ("EnginePool",),
     "transport": ("MusicalTransport",),

@@ -5,9 +5,10 @@ together, and the objects are linked into one shared library with a plain
 C interface, loaded with ctypes.  The library goes to
 `_build/` beside this file, named by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads the cached build.  No
-`--use_fast_math`: the comb, onset and noise-floor kernels rely on IEEE
-division, and the comb, tracker, onset and noise-floor kernels keep
-denormals (all four match their plain versions bitwise).
+`--use_fast_math`: the comb, onset, noise-floor and dynamics kernels rely
+on IEEE division (and the dynamics kernel on the CUDA math library's
+logf, powf and sqrtf, as PyTorch calls them), and every kernel but K1
+keeps denormals (each matches its plain version bitwise).
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` turns a non-zero code into an exception.
@@ -55,6 +56,16 @@ _SIGNATURES = {
     # stream
     "aat_noise_floor_scan": (_P, ctypes.c_longlong, ctypes.c_longlong)
     + (_P,) * 10 + (_I, _I, _I, _I, _P),
+    # x, y, state in [B, 9], hold in, state out, hold out, streams,
+    # samples, gate only, the two biquads' b0 b1 b2 a1 a2, release,
+    # 1 - release, hold samples, stream
+    "aat_reducer_scan": (_P,) * 6 + (_I, _I, _I) + (ctypes.c_float,) * 12
+    + (_I, _P),
+    # slots, state in (9), the 6 outputs, gained, state out (9), streams,
+    # slots a stream, slot length, exact, 1/length, smoothing alpha,
+    # silence alpha, stream
+    "aat_dynamics_scan": (_P,) * 26 + (_I, _I, _I, _I)
+    + (ctypes.c_float,) * 3 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
 """States carried across between the JAX package and this port.
 
-The JAX package's `NoiseFloorState`, `TrackerState` and `OnsetState` are
-NamedTuples of arrays; given as numpy arrays (with or without a leading
+The JAX package's `NoiseFloorState`, `TrackerState`, `OnsetState`,
+`ReducerState` (of `BiquadState`s and a `GateState`), `DynamicsState` and
+the full step's `StreamStates` are (nested) NamedTuples of arrays; given as numpy arrays (with or without a leading
 stream axis S) they become this port's states on a device, and back.  Field
 names and order are the same in both packages, so a state converts leaf by
 leaf.  The live engine's fused path carries three more values from slot to
@@ -21,9 +22,12 @@ import numpy as np
 import torch
 
 from .models.analyzer import PoolCarries
+from .ops.dynamics import DynamicsState
 from .ops.noisefloor import NoiseFloorState
 from .ops.onset import OnsetState
+from .ops.reducer import BiquadState, GateState, ReducerState
 from .ops.tracker import TrackerState
+from .parallel.sharding import StreamStates
 
 # Each state's leaf dtypes in field order (checkpoint.py uses them too).
 STATE_DTYPES = {
@@ -32,6 +36,11 @@ STATE_DTYPES = {
                    torch.int32, torch.int32),
     OnsetState: (torch.float32, torch.float32, torch.bool, torch.float32,
                  torch.float32, torch.int32),
+    BiquadState: (torch.float32,) * 4,
+    GateState: (torch.float32, torch.int32),
+    DynamicsState: (torch.float32, torch.int32, torch.bool, torch.float32,
+                    torch.int32, torch.bool, torch.float32, torch.int32,
+                    torch.int32),
 }
 
 
@@ -58,6 +67,34 @@ def tracker_state(state, device="cuda") -> TrackerState:
 def onset_state(state, device="cuda") -> OnsetState:
     """A JAX-package OnsetState (leaves as numpy arrays) → this port's."""
     return _to_torch(state, OnsetState, device)
+
+
+def reducer_state(state, device="cuda") -> ReducerState:
+    """A JAX-package ReducerState (leaves as numpy arrays) → this port's."""
+    if getattr(state, "_fields", None) != ReducerState._fields:
+        raise ValueError(f"expected a state with fields "
+                         f"{ReducerState._fields}")
+    return ReducerState(_to_torch(state.hp, BiquadState, device),
+                        _to_torch(state.lp, BiquadState, device),
+                        _to_torch(state.gate, GateState, device))
+
+
+def dynamics_state(state, device="cuda") -> DynamicsState:
+    """A JAX-package DynamicsState (leaves as numpy arrays) → this port's."""
+    return _to_torch(state, DynamicsState, device)
+
+
+def stream_states(states, device="cuda") -> StreamStates:
+    """The JAX full step's StreamStates ([B, ...] leaves as numpy arrays) →
+    this port's, which `make_batched_full_step` carries on."""
+    if getattr(states, "_fields", None) != StreamStates._fields:
+        raise ValueError(f"expected states with fields "
+                         f"{StreamStates._fields}")
+    return StreamStates(reducer_state(states.red, device),
+                        dynamics_state(states.dyn, device),
+                        noise_floor_state(states.nf, device),
+                        tracker_state(states.tr, device),
+                        onset_state(states.on, device))
 
 
 def to_numpy(state: NamedTuple) -> NamedTuple:

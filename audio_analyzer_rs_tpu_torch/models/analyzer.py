@@ -64,6 +64,28 @@ def pitch_extract_frames(nf_state, frames, global_floor, sample_rate: float,
     return nf_state, pf, mags, eff_floor
 
 
+def floor_warmup_frames(nf_state, frames, global_floor, sample_rate: float,
+                        window: int = PITCH_WINDOW,
+                        backend: str = PITCH_BACKEND):
+    """STFT + noise-floor scan only: frames [S, N, window] → nf_state, the
+    comb and tracker skipped.  The segment-parallel warmup
+    (models/segmented.py `warmup_mode="floor"`) discards every output of
+    its look-back frames, so only the floor state is needed there; the
+    banding and magnitudes are `pitch_extract_frames`'s, so the floor
+    recurrence sees the inputs the full step would."""
+    half = window // 2 + 1
+    bin_width = float(np.float32(sample_rate) / np.float32(window))
+    band = pitch_ops.candidate_band(bin_width, half)
+    if backend.endswith("_band"):
+        mags = windowed_mags(frames, window, backend[:-len("_band")],
+                             band + 1)
+    else:
+        mags = windowed_mags(frames, window, backend)
+    nf_state, _ = noisefloor.noise_floor_scan(nf_state, mags, global_floor,
+                                              band)
+    return nf_state
+
+
 def pitch_analyze_frames(nf_state, tr_state, frames, global_floor, onsets,
                          sample_rate: float, window: int = PITCH_WINDOW,
                          hop: int = PITCH_HOP, backend: str = PITCH_BACKEND):

@@ -28,7 +28,8 @@ from ..ops import noisefloor, onset as onset_ops, tracker
 from ..ops.stft import (DEFAULT_BACKEND, ONSET_HOP, ONSET_WINDOW,
                         PITCH_BACKEND, PITCH_HOP, PITCH_WINDOW)
 from ..utils.framing import frame_signal, num_frames
-from .analyzer import onset_analyze_frames, pitch_extract_frames
+from .analyzer import (floor_warmup_frames, onset_analyze_frames,
+                       pitch_extract_frames)
 
 DEFAULT_WARMUP_FRAMES = 128
 # Onset state converges much faster than the pitch floor (EMA memories
@@ -237,14 +238,18 @@ def segmented_pitch_analysis(audio: np.ndarray, sample_rate: float,
 
     `segments=None` picks the count with `auto_segments`.  `device_audio`:
     the recording already on the device (float32, len(audio) samples), in
-    place of an upload.  `mesh` is not ported yet; `warmup_mode="floor"` (a
-    measured negative in the JAX package) is not ported."""
+    place of an upload.  `mesh` is not ported yet.
+
+    `warmup_mode`: "full" (default) runs the complete pipeline on every
+    discarded look-back frame; "floor" seeds the noise floor with an
+    STFT + floor pass over the look-back and re-warms only the tracker on
+    its last TRACKER_REWARM_FRAMES frames (`_segmented_pitch_floor_warmup`;
+    gated on frame agreement with "full", not bitwise)."""
     if mesh is not None:
         raise NotImplementedError("mesh is not ported yet")
-    if warmup_mode == "floor":
-        raise NotImplementedError('warmup_mode="floor" is not ported')
-    if warmup_mode != "full":
-        raise ValueError(f"warmup_mode={warmup_mode!r}: expected 'full'")
+    if warmup_mode not in ("full", "floor"):
+        raise ValueError(f"warmup_mode={warmup_mode!r}: expected 'full' or "
+                         "'floor'")
     if transfer not in _TRANSFER_MODES:      # every mode runs resident
         raise ValueError(
             f"transfer={transfer!r}: expected one of {_TRANSFER_MODES}")
@@ -254,6 +259,11 @@ def segmented_pitch_analysis(audio: np.ndarray, sample_rate: float,
         return _empty()
     if segments is None:
         segments = auto_segments(n_total, warmup_frames)
+    if warmup_mode == "floor":
+        return _segmented_pitch_floor_warmup(
+            audio, sample_rate, segments, warmup_frames, chunk_frames,
+            window, hop, backend, global_floor_db, device_audio, n_total,
+            device)
     segments = max(1, min(segments, max(n_total // max(chunk_frames, 1), 1)))
     plan = _plan_streams(n_total, segments, warmup_frames, chunk_frames,
                          window, hop)
@@ -265,6 +275,102 @@ def segmented_pitch_analysis(audio: np.ndarray, sample_rate: float,
     outs = _run_streams(seg_streams, plan, chunk_frames, sample_rate, window,
                         hop, backend, gf_lin)
     return _unpack(outs, plan, n_total)
+
+
+# Tracker re-warmup length for warmup_mode="floor": a fresh tracker state
+# converges to the sequential tracker's within ~30 frames (the freq/score
+# EMAs forget at 0.6/frame -> 0.6^32 ~ 8e-8 relative; hysteresis absorbs
+# the residual).  The floor recurrence, the slow one, is seeded by running
+# it over the whole look-back in phase 1, so only the tracker needs these
+# full-pipeline frames.
+TRACKER_REWARM_FRAMES = 32
+
+
+def _segmented_pitch_floor_warmup(audio, sample_rate, segments,
+                                  warmup_frames, chunk_frames, window, hop,
+                                  backend, global_floor_db, device_audio,
+                                  n_total, device):
+    """`segmented_pitch_analysis(warmup_mode="floor")`: a two-phase warmup
+    that skips the comb on most look-back frames.
+
+      phase 1: the first `warmup_frames - TRACKER_REWARM_FRAMES` look-back
+               frames run STFT + floor scan only (the floor state seeded by
+               the real recurrence, as "full" converges it);
+      phase 2: the remaining TRACKER_REWARM_FRAMES look-back frames plus
+               the payload run the full pipeline with a fresh tracker.
+
+    Every segment owns `payload2` frames, with payload2 +
+    TRACKER_REWARM_FRAMES a whole number of chunks; segment 0 (no
+    look-back) starts its stream at frame 0.  Segments too short for a
+    whole look-back, or a single segment, fall back to "full".  Not bitwise
+    to "full" (phase 1's floor scan sees the frames in other calls);
+    gated on frame agreement."""
+    tw = TRACKER_REWARM_FRAMES
+    base = -(-n_total // segments)
+    payload2 = -(-(base + tw) // chunk_frames) * chunk_frames - tw
+    if payload2 < warmup_frames or segments == 1:
+        return segmented_pitch_analysis(
+            audio, sample_rate, segments, warmup_frames, chunk_frames,
+            window, hop, backend, global_floor_db, None, device_audio,
+            transfer="resident", warmup_mode="full", device=device)
+    steps2 = (tw + payload2) // chunk_frames
+    wf = warmup_frames - tw
+    starts = np.array([0] + [s * payload2 - tw for s in range(1, segments)])
+    warm_starts = np.array([0] + [s * payload2 - warmup_frames
+                                  for s in range(1, segments)])
+    chunk_samples = (chunk_frames - 1) * hop + window
+    stream_samples = (steps2 * chunk_frames - 1) * hop + window
+    warm_samples = (wf - 1) * hop + window
+    max_sample = int(starts.max()) * hop + stream_samples
+
+    half = window // 2 + 1
+    gf_lin = float(noisefloor.global_floor_linear(global_floor_db, half))
+    audio_dev = _padded_audio(audio, max_sample, device, device_audio)
+    dev = audio_dev.device
+    nf_states = noisefloor.init_state(half, dev, (segments,))
+    tr_states = tracker.init_state(dev, (segments,))
+    gf_warm = torch.full((segments, wf), gf_lin, dtype=torch.float32,
+                         device=dev)
+    gf = torch.full((segments, chunk_frames), gf_lin, dtype=torch.float32,
+                    device=dev)
+    onsets = torch.zeros((segments, chunk_frames), dtype=torch.bool,
+                         device=dev)
+    warm_streams = _slice_streams(audio_dev, warm_starts * hop, warm_samples)
+    seg_streams = _slice_streams(audio_dev, starts * hop, stream_samples)
+
+    # Phase 1: floor seeding without the comb; segment 0's row ran on the
+    # stream head (it has no look-back) and goes back to the fresh state.
+    nf_states = floor_warmup_frames(
+        nf_states, frame_signal(_chunks_to_f32(warm_streams), window, hop),
+        gf_warm, sample_rate, window, backend)
+    fresh = noisefloor.init_state(half, dev)
+    nf_states = noisefloor.NoiseFloorState(*(
+        torch.cat([f[None], a[1:]]) for f, a in zip(fresh, nf_states)))
+
+    # Phase 2: the full pipeline over tw + payload2 frames a segment.
+    step_outs = []
+    for step in range(steps2):
+        nf_states, tr_states, out = _vmapped_step_resident(
+            nf_states, tr_states, seg_streams, step * chunk_frames * hop, gf,
+            onsets, chunk_samples, sample_rate, window, hop, backend)
+        step_outs.append(out)
+    sf, ss, sv = (torch.stack([getattr(o, f) for o in step_outs], 1)
+                  .reshape(segments, steps2 * chunk_frames, 8).cpu().numpy()
+                  for f in LeanPitchOut._fields)
+
+    out_freqs = np.zeros((n_total, 8), np.float32)
+    out_scores = np.zeros((n_total, 8), np.float32)
+    out_valid = np.zeros((n_total, 8), bool)
+    for s in range(segments):
+        lo = s * payload2
+        hi = min(lo + payload2, n_total)
+        if lo >= hi:
+            continue
+        src = 0 if s == 0 else tw
+        out_freqs[lo:hi] = sf[s, src:src + (hi - lo)]
+        out_scores[lo:hi] = ss[s, src:src + (hi - lo)]
+        out_valid[lo:hi] = sv[s, src:src + (hi - lo)]
+    return out_freqs, out_scores, out_valid
 
 
 # ── Segment-parallel onsets ───────────────────────────────────────────────

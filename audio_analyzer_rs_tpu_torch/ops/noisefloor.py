@@ -148,8 +148,14 @@ def noise_floor_scan(state: NoiseFloorState, mags: torch.Tensor,
                                               _scan_width(state, mags, band))
 
 
-def global_floor_linear(noise_floor_db: float, half_size: int) -> np.float32:
-    """ref stft.rs:322-324, in numpy float32 (the JAX module's host form)."""
+def global_floor_linear(noise_floor_db, half_size: int):
+    """ref stft.rs:322-324.  A float computes in numpy float32 (the JAX
+    module's host form); a tensor (the full step's per-frame causal floors,
+    parallel/sharding.py) as XLA computes the JAX module's traced form:
+    10 ** (db * float32(0.05)) * (half_size / 2)."""
+    if isinstance(noise_floor_db, torch.Tensor):
+        return (torch.pow(10.0, noise_floor_db.to(torch.float32)
+                          * float(np.float32(0.05))) * (half_size / 2.0))
     return np.float32(
         np.float32(10.0) ** (np.float32(noise_floor_db) / np.float32(20.0))
         * np.float32(half_size / 2.0))

@@ -85,7 +85,24 @@ Phases, one line each on standard output:
      sweep: K = 1, 8, 16, 32, 64, 128 students for 5 s each, host ms a
      wave p50/p99 and the largest K whose p99 fits 21.33 ms; and each
      kernel at the pool's shape (C = 33) held against its plain version
-     at phase 3's tolerances, then timed beside its bound.
+     at phase 3's tolerances, then timed beside its bound;
+ 12. the batched full chain ("fullstep:" lines): K6 (the reducer scan,
+     exact and gate-only) and K7 (the dynamics scan, hist and exact)
+     bitwise to their plain versions on the card at the full step's
+     shapes (128 streams x 479,232 samples, then 24,000 more with the
+     state carried; 128 x 468 slots fresh, carried and from session
+     states), on the fleet's audio with digital silence, a NaN sample and
+     quiet sections, each timed there beside its plain version and bound; `make_batched_full_step(None, 48000.0)` over 128 streams x 3
+     chained chunks of 9.98 s: host ms a step, seconds of audio a wall
+     second, K2-K7 launched once a step each (asserted) and no plain scan
+     step, a profiled step (CUDA kernels, card-busy ms, idle share); the
+     gates: one stream's bits equal at B = 1, 33 and 128, hist against
+     exact AGC on the 25 s scene (>= 99.9% of pitch frames, fired
+     identical), card against CPU (2 streams x 2 s), each of 8 streams
+     detecting its own tone; and `warmup_mode="floor"` on the 30-minute
+     pitch path against "full" (differing on exactly the frames where the
+     JAX package's two modes differ on this scene, segment 0's prefix
+     bitwise), warm wall of each.
 Then the kernel table as one JSON line, the card's name and power limit, and
 last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; with no CUDA device the script exits 1 and prints no
@@ -941,6 +958,469 @@ def classroom_phase(rows, card: str) -> None:
         rows, CLASS_CAPACITY))
 
 
+FULL_SR = 48000.0
+FULL_B = 128                      # the fleet: 128 practice streams ...
+FULL_SLOTS = 468                  # ... in chunks of 468 slots (9.98 s)
+FULL_STEPS = 3                    # chained, states carried
+K6_CARRIED = 24_000               # K6's carried check: samples after a chunk
+# The frames of the 30-minute scene (mixed_scene(1800 s, 44.1 kHz, seed=0),
+# 128 x 64 geometry) whose stable pitch sets differ between the JAX
+# package's warmup_mode="floor" and "full": the floor warmup's re-warmed
+# tracker is not the full one.  tests/test_torch_floor_warmup.py
+# (test_floor_warmup_differs_where_jax_differs) measures it with the JAX
+# package on a prefix of the scene that keeps those frames' segment plan.
+FLOOR_WARMUP_DIFFERS = (13781,)
+
+
+def reducer_check_streams(fleet, t: int):
+    """K6's check input: the fleet's first t samples with four streams
+    replaced: 1 digital silence, 2 a NaN sample at t/3, 3 and 4 a tone over
+    the scene that drops 80 dB (from t/4, and 100 samples before the first
+    chunk's end, so that the hold is carried into the next call), driving
+    the gate through hold, release and attenuation."""
+    import numpy as np
+    from audio_analyzer_rs_tpu_torch.models import generators as gen
+    x = fleet[:, :t].copy()
+    x[1] = 0.0
+    x[2, t // 3] = np.nan
+    for i, quiet in ((3, t // 4), (4, FULL_SLOTS * 1024 - 100)):
+        x[i] += gen.tone_with_harmonics(196.0 * i, t / FULL_SR + 0.05,
+                                        FULL_SR, amplitude=0.2)[:t]
+        x[i, quiet:] *= np.float32(1e-4)
+    return x
+
+
+def session_state(b: int, seed: int, dev):
+    """A DynamicsState as a long session leaves it (rings part filled or
+    wrapped, +inf where unwritten, histograms matching the rings)."""
+    import numpy as np
+    import torch
+    from audio_analyzer_rs_tpu_torch.ops import dynamics
+    rng = np.random.default_rng(seed)
+    leaves = [t.clone() for t in dynamics.init_state("cpu", (b,))]
+    for i in range(b):
+        for hist, pos, filled, counts, n in (
+                (0, 1, 2, 7, dynamics.LONG_LEN),
+                (3, 4, 5, 8, dynamics.PLAY_LEN)):
+            full = bool(rng.random() < 0.5)
+            k = n if full else int(rng.integers(1, n))
+            ring = np.full(n, np.inf, np.float32)
+            ring[:k] = np.exp(rng.uniform(-14, -1, k)).astype(np.float32)
+            leaves[hist][i] = torch.from_numpy(ring)
+            leaves[pos][i] = int(rng.integers(0, n)) if full else k % n
+            leaves[filled][i] = full
+            leaves[counts][i] = torch.bincount(
+                dynamics._bucket_of(torch.from_numpy(ring[:k])),
+                minlength=1024).to(torch.int32)
+        leaves[6][i] = float(np.float32(rng.uniform(0.5, 20.0)))
+    return dynamics.DynamicsState(*(t.to(dev) for t in leaves))
+
+
+def same_bits_nan(a, b) -> bool:
+    """Bit for bit, NaNs compared by position (any NaN bits)."""
+    import torch
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    an, bn = torch.isnan(a), torch.isnan(b)
+    return (torch.equal(an, bn)
+            and torch.equal(torch.where(an, 0, a.view(torch.int32)),
+                            torch.where(bn, 0, b.view(torch.int32))))
+
+
+def fullstep_phase(rows, card: str, audio44, full_outs, sm_mhz) -> None:
+    """Phase 12: K6 and K7 against their plain versions and timed at the
+    full step's shape; the batched full step over 128 streams x 3 chunks;
+    its gates; the floor warmup on the 30-minute pitch path."""
+    import numpy as np
+    import torch
+    from audio_analyzer_rs_tpu_torch.models import generators as gen
+    from audio_analyzer_rs_tpu_torch.models import segmented
+    from audio_analyzer_rs_tpu_torch.ops import (dynamics, hopper_comb,
+                                                 hopper_dynamics,
+                                                 hopper_noisefloor,
+                                                 hopper_onset,
+                                                 hopper_reducer,
+                                                 hopper_tracker, noisefloor,
+                                                 onset, reducer, tracker)
+    from audio_analyzer_rs_tpu_torch.parallel import sharding
+    dev = torch.device("cuda")
+    sr = FULL_SR
+    t_chunk = FULL_SLOTS * 1024
+    # The fleet: 128 streams, 3 chained chunks of 9.98 s (the 30-min scene's
+    # samples as 48 kHz audio, a stream every 600,000 samples).
+    span = FULL_STEPS * t_chunk
+    fleet = np.stack([audio44[k * 600_000:k * 600_000 + span]
+                      for k in range(FULL_B)])
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def plain_ms(fn):
+        """One call of a plain version, timed by CUDA events → (out, ms)."""
+        begin.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, begin.elapsed_time(end)
+
+    # 1. K6 and K7 against their plain versions at the full step's shapes,
+    # bit for bit (NaNs by position), and timed there.  K6 fresh over a
+    # whole chunk [128, 479,232], then with the state carried over the next
+    # K6_CARRIED samples (the cut: the plain per-sample loop costs ~0.3 ms
+    # a sample); K7 on K6's output [128, 468, 1024], fresh, carried from
+    # that call, and from session states with wrapped rings.
+    t0 = time.perf_counter()
+    x = torch.from_numpy(reducer_check_streams(
+        fleet, t_chunk + K6_CARRIED)).to(dev)
+    k6_err, k6_ms, k6_plain = 0.0, {}, {}
+    for gate_only in (False, True):
+        st = reducer.reducer_init(dev, (FULL_B,))
+        for lo, hi in ((0, t_chunk), (t_chunk, t_chunk + K6_CARRIED)):
+            xs = x[:, lo:hi].contiguous()
+            st_k, y_k = hopper_reducer.reduce_scan(st, xs, sr, gate_only)
+            if gate_only:
+                (gate, y_p), ms = plain_ms(
+                    lambda: reducer.gate_plain(st.gate, xs, sr))
+                st_p = reducer.ReducerState(st.hp, st.lp, gate)
+            else:
+                (st_p, y_p), ms = plain_ms(
+                    lambda: reducer.reduce_exact_plain(st, xs, sr))
+            assert same_bits_nan(y_k, y_p), f"K6 gate_only={gate_only} [{lo}"
+            for a, b in zip((*st_k.hp, *st_k.lp, *st_k.gate),
+                            (*st_p.hp, *st_p.lp, *st_p.gate)):
+                assert same_bits_nan(a, b), f"K6 state gate_only={gate_only}"
+            k6_err = max(k6_err, float(torch.nan_to_num(
+                (y_k - y_p).abs()).max()))
+            if lo == 0:
+                k6_plain[gate_only] = ms
+                k6_ms[gate_only] = cuda_ms(lambda: hopper_reducer.reduce_scan(
+                    st, xs, sr, gate_only))
+                if not gate_only:
+                    slots = y_k.reshape(FULL_B, FULL_SLOTS, 1024)
+            st = st_k
+    del x, xs, y_k, y_p
+    k6_s, t0 = time.perf_counter() - t0, time.perf_counter()
+    k7_err, k7_ms, k7_plain = 0.0, {}, {}
+    for mode in ("hist", "exact"):
+        states = {"fresh": dynamics.init_state(dev, (FULL_B,)),
+                  "session": session_state(FULL_B, 5, dev)}
+        for label in ("fresh", "carried", "session"):
+            st = states[label]
+            st_k, out_k, g_k = hopper_dynamics.dynamics_scan(
+                st, slots, sr, 1024, mode)
+            (st_p, out_p, g_p), ms = plain_ms(
+                lambda: dynamics.dynamics_scan_plain(st, slots, sr, 1024, mode))
+            for name, a, b in zip(dynamics.DynamicsOut._fields, out_k,
+                                  out_p):
+                assert same_bits_nan(a, b), f"K7 {mode} {label} {name}"
+            assert same_bits_nan(g_k, g_p), f"K7 {mode} {label} gained"
+            for name, a, b in zip(dynamics.DynamicsState._fields, st_k,
+                                  st_p):
+                assert same_bits_nan(a, b), f"K7 {mode} {label} {name}"
+            k7_err = max(k7_err, float(torch.nan_to_num(
+                (g_k - g_p).abs()).max()))
+            if label == "fresh":
+                states["carried"] = st_k
+                k7_plain[mode] = ms
+                k7_ms[mode] = cuda_ms(lambda: hopper_dynamics.dynamics_scan(
+                    st, slots, sr, 1024, mode))
+    k7_s = time.perf_counter() - t0
+    k6_bytes = 2 * FULL_B * t_chunk * 4 + 2 * FULL_B * 10 * 4
+    k6_bound, k6_by = bound(k6_bytes, 30 * FULL_B * t_chunk, FP32_FLOPS)
+    k6_cycles = k6_ms[False] / t_chunk * 1e-3 * sm_mhz * 1e6
+    k7_bytes = (2 * nbytes(slots) + 2 * nbytes(*states["fresh"])
+                + 6 * FULL_B * FULL_SLOTS * 4)
+    k7_bound, k7_by = bound(k7_bytes, 20 * slots.numel(), FP32_FLOPS)
+    k7_cycles = k7_ms["hist"] / FULL_SLOTS * 1e-3 * sm_mhz * 1e6
+    say(f"fullstep: K6 bitwise equal to its plain version (exact and "
+        f"gate-only; {FULL_B} streams x {t_chunk} samples fresh, then "
+        f"{K6_CARRIED} carried; the fleet's audio with digital silence, a NaN "
+        f"sample, quiet sections through hold, release and attenuation); K6 "
+        f"{k6_ms[False]:.3f} ms (gate-only {k6_ms[True]:.3f} ms) = "
+        f"{k6_cycles:.0f} cycles a sample at {sm_mhz:.0f} MHz; plain "
+        f"{k6_plain[False]:.0f} ms (gate-only {k6_plain[True]:.0f} ms); "
+        f"bound {k6_bound:.4f} ms ({k6_by}: {k6_bytes / 1e6:.1f} MB); the "
+        f"check took {k6_s:.0f} s")
+    say(f"fullstep: K7 bitwise equal to its plain version (hist and exact; "
+        f"{FULL_B} streams x {FULL_SLOTS} slots of K6's output, fresh, "
+        f"carried, and from session states with wrapped rings); hist "
+        f"{k7_ms['hist']:.3f} ms = {k7_cycles:.0f} cycles a slot, exact "
+        f"{k7_ms['exact']:.3f} ms; plain {k7_plain['hist']:.0f} ms (exact "
+        f"{k7_plain['exact']:.0f} ms); bound {k7_bound:.4f} ms ({k7_by}: "
+        f"{k7_bytes / 1e6:.1f} MB); the check took {k7_s:.0f} s")
+    del slots, states, st, st_k, st_p, out_k, out_p, g_k, g_p
+
+    # 2. The full step over the fleet.
+    step = sharding.make_batched_full_step(None, sr)
+    states = sharding.init_stream_states(FULL_B)
+    t0 = time.perf_counter()
+    step(states, fleet[:, :t_chunk])
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    plain_steps = []
+    patched = [(noisefloor, "_step"), (onset, "_step"), (dynamics, "_step"),
+               (tracker, "select_stable"), (reducer, "_feedback"),
+               (reducer, "_envelope")]
+    saved = [getattr(m, n) for m, n in patched]
+    for (m, n), f in zip(patched, saved):
+        setattr(m, n, lambda *a, _f=f, _n=n: plain_steps.append(_n) or _f(*a))
+    counters = (hopper_comb, hopper_tracker, hopper_onset, hopper_noisefloor,
+                hopper_reducer, hopper_dynamics)
+    for mod in counters:
+        mod.LAUNCHES = 0
+    chunks = [torch.from_numpy(fleet[:, k * t_chunk:(k + 1) * t_chunk]
+                               .copy()).to(dev) for k in range(FULL_STEPS)]
+    step_s, outs = [], []
+    st = states
+    for k in range(FULL_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, out = step(st, chunks[k])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        outs.append(out)
+    launches = [mod.LAUNCHES for mod in counters]
+    for (m, n), f in zip(patched, saved):
+        setattr(m, n, f)
+    assert not plain_steps, f"plain steps on the card: {set(plain_steps)}"
+    assert launches == [FULL_STEPS] * 6, launches
+    last = outs[-1]
+    n_p, n_o = last.stable_freqs.shape[1], last.onset_fired.shape[1]
+    assert torch.isfinite(last.stable_freqs).all()
+    assert bool(last.stable_valid.any()) and bool(last.onset_fired.any())
+    assert np.isfinite(float(last.global_noise_floor_db))
+    secs = t_chunk / sr
+    med = statistics.median(step_s)
+    say(f"fullstep: make_batched_full_step {FULL_B} streams x {t_chunk} "
+        f"samples ({secs:.2f} s; {n_p} pitch and {n_o} onset frames a "
+        f"stream) x {FULL_STEPS} chained steps: cold {cold:.2f} s, warm "
+        f"{'/'.join(f'{s * 1e3:.1f}' for s in step_s)} ms a step = "
+        f"{FULL_B * secs / med:,.0f} s of audio a wall second; launches "
+        f"K2/K3/K4/K5/K6/K7 {launches} ({FULL_STEPS} steps: once a step "
+        f"each), plain scan steps 0; global floor "
+        f"{float(last.global_noise_floor_db):.2f} dB, "
+        f"{int(last.global_onset_count)} onsets in the last step")
+    # A profiled step.  torch.profiler does not always see the kernels
+    # launched from the port's own library (it missed them after phases
+    # 10-11 in one process), so each launch call into the library is
+    # bracketed by a pair of CUDA events (the wrappers' torch ops stay
+    # outside them), and the profiler's busy time counts every other kernel.
+    from torch.profiler import ProfilerActivity, profile
+    from audio_analyzer_rs_tpu_torch import _build
+    lib = _build.lib()
+    ours = {"aat_comb": "comb", "aat_tracker_select": "tracker",
+            "aat_onset_scan": "onset", "aat_noise_floor_scan": "noise floor",
+            "aat_reducer_scan": "reducer", "aat_dynamics_scan": "dynamics"}
+    spans = []
+
+    def timed(name, fn):
+        def launch(*args):
+            begin = torch.cuda.Event(enable_timing=True)
+            done = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            code = fn(*args)
+            done.record()
+            spans.append((name, begin, done))
+            return code
+        return launch
+    originals = {fn: getattr(lib, fn) for fn in ours}
+    for fn, name in ours.items():
+        setattr(lib, fn, timed(name, originals[fn]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(st, chunks[0])
+            torch.cuda.synchronize()
+    finally:
+        for fn in ours:
+            setattr(lib, fn, originals[fn])
+    prof_s = time.perf_counter() - t0
+    assert sorted(name for name, _, _ in spans) == sorted(ours.values())
+    port_ms = {name: b.elapsed_time(e) for name, b, e in spans}
+    own = ("reducer_kernel", "dynamics_kernel", "noise_floor_kernel",
+           "onset_kernel", "tracker_select_kernel", "comb_kernel")
+    kern = [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not any(k in ev.key for k in own)]
+    torch_us = sum(getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0))
+                   for ev in kern)
+    busy_ms = torch_us / 1e3 + sum(port_ms.values())
+    assert busy_ms <= med * 1e3, (busy_ms, med)
+    top = sorted(kern, key=lambda ev: -getattr(
+        ev, "self_device_time_total", 0))[:6]
+    say(f"fullstep: profiled step: {sum(ev.count for ev in kern)} torch CUDA "
+        f"kernels, busy {torch_us / 1e3:.2f} ms; the port's kernels (CUDA "
+        f"events around each library launch) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in port_ms.items())
+        + f" ms; card busy {busy_ms:.2f} ms against the {med * 1e3:.1f} ms "
+        f"warm step ({1 - busy_ms / (med * 1e3):.1%} idle; "
+        f"{prof_s * 1e3:.0f} ms under the profiler); top torch kernels: "
+        + "; ".join(f"{ev.key[:40]} x{ev.count} "
+                    f"{getattr(ev, 'self_device_time_total', 0) / 1e3:.2f} ms"
+                    for ev in top))
+    del prof, kern
+
+    # 3a. One stream's bits do not depend on B: stream 0's first step at
+    # B = 1, 33 and 128.  cuFFT's 2,048-point magnitudes depend on the
+    # batch (ROADMAP Queue 3), so the STFT is equalized: each stream's
+    # magnitudes computed alone; the unequalized steps are compared too.
+    windowed = sharding.windowed_mags
+
+    def per_stream(frames, window, backend="fft", band=None):
+        return torch.cat([windowed(frames[i:i + 1], window, backend, band)
+                          for i in range(frames.shape[0])])
+
+    def stream0(b, mags_fn):
+        sharding.windowed_mags = mags_fn
+        try:
+            return step(sharding.init_stream_states(b), chunks[0][:b])[1]
+        finally:
+            sharding.windowed_mags = windowed
+
+    ref = stream0(FULL_B, per_stream)
+    names = ("stable_freqs", "stable_valid", "onset_fired", "onset_velocity",
+             "dyn_level")
+    b_flips = {}
+    for b in (1, 33):
+        eq = stream0(b, per_stream)
+        for name in names:
+            assert same_bits_nan(getattr(eq, name)[0],
+                                 getattr(ref, name)[0]), (b, name)
+        raw = stream0(b, windowed)
+        assert torch.equal(raw.dyn_level[0], outs[0].dyn_level[0])
+        b_flips[b] = (int((raw.stable_valid[0] != outs[0].stable_valid[0])
+                          .sum()),
+                      int((raw.onset_fired[0] != outs[0].onset_fired[0])
+                          .sum()))
+    del ref, eq, raw
+    # 3b. hist against exact AGC on the canonical 25 s scene.
+    scene = gen.mixed_scene(25.0, sr, seed=3)
+    scene = scene[None, :(len(scene) // 1024) * 1024]
+    sets, fired = {}, {}
+    for mode in ("hist", "exact"):
+        _, o = sharding.make_batched_full_step(None, sr, dyn_mode=mode)(
+            sharding.init_stream_states(1), scene)
+        f, v = o.stable_freqs[0].cpu().numpy(), o.stable_valid[0].cpu().numpy()
+        sets[mode] = [sorted(int(round(float(q) * 10)) for q in f[i][v[i]])
+                      for i in range(len(f))]
+        fired[mode] = o.onset_fired[0].cpu().numpy()
+    agree = np.mean([a == b for a, b in zip(sets["hist"], sets["exact"])])
+    assert agree >= MIN_AGREEMENT, agree
+    assert np.array_equal(fired["hist"], fired["exact"])
+    # 3c. Card against CPU, 2 streams x 2 s: with the STFT equalized (the
+    # CPU's magnitudes on the card) every decision equal; with cuFFT's, the
+    # flips counted and the floats held where both agree.
+    two = np.stack([gen.mixed_scene(2.0, sr, seed=s)
+                    + gen.tone_with_harmonics(262.0 * (s + 1), 2.0, sr,
+                                              amplitude=0.2)
+                    for s in range(2)]).astype(np.float32)
+
+    def cpu_mags(frames, window, backend="fft", band=None):
+        return windowed(frames.cpu(), window, backend, band).to(frames.device)
+
+    def two_streams(device, mags_fn=None):
+        sharding.windowed_mags = mags_fn or windowed
+        try:
+            _, o = sharding.make_batched_full_step(None, sr, device=device)(
+                sharding.init_stream_states(2, device=device), two)
+        finally:
+            sharding.windowed_mags = windowed
+        return sharding.FullStepOut(*(t.cpu() for t in o))
+
+    cpu = two_streams("cpu")
+    for label, card_out in (("equalized", two_streams("cuda", cpu_mags)),
+                            ("cuFFT", two_streams("cuda"))):
+        assert torch.equal(card_out.dyn_level, cpu.dyn_level)
+        differ = card_out.stable_valid != cpu.stable_valid
+        flips = int(differ.sum())
+        fired_flips = int((card_out.onset_fired != cpu.onset_fired).sum())
+        # Slots of frames whose valid rows agree (a flip reorders a row).
+        both = ~differ.any(-1, keepdim=True) & cpu.stable_valid
+        f_err = float(((card_out.stable_freqs - cpu.stable_freqs).abs()
+                       / cpu.stable_freqs.abs().clamp(min=1.0))[both].max())
+        v_err = float((card_out.onset_velocity - cpu.onset_velocity)
+                      .abs().max())
+        if label == "equalized":
+            assert flips == 0 and fired_flips == 0, (flips, fired_flips)
+            assert f_err <= 1e-4 and v_err <= 1e-5, (f_err, v_err)
+            eq_err = (f_err, v_err)
+        else:
+            assert flips <= 0.01 * differ.numel(), flips
+            assert fired_flips <= 0.01 * cpu.onset_fired.numel(), fired_flips
+            assert f_err <= 1e-4, f_err
+            raw_err = (flips, fired_flips, f_err, v_err)
+    # 3d. Each stream detects its own tone (JAX tests/test_parallel.py:62).
+    tones = [220.0, 261.63, 329.63, 392.0, 440.0, 523.25, 587.33, 659.26]
+    tone_audio = np.stack([gen.tone_with_harmonics(
+        f, 6 * 1024 / sr, sr, harmonics=6, amplitude=0.3)[:6 * 1024]
+        for f in tones])
+    st8 = sharding.init_stream_states(len(tones))
+    st8, o8 = step(st8, tone_audio)
+    st8, o8 = step(st8, tone_audio)
+    for b, f in enumerate(tones):
+        got = o8.stable_freqs[b, -1][o8.stable_valid[b, -1]].cpu().numpy()
+        assert any(abs(g - f) / f < 0.02 for g in got), (b, f, got)
+    say(f"fullstep: gates: with the STFT equalized, stream 0's bits equal "
+        f"at B = 1, 33 and {FULL_B} (with cuFFT's batched magnitudes, "
+        f"flips of stable slots / fired frames against B = {FULL_B}: "
+        f"B=1 {b_flips[1]}, B=33 {b_flips[33]}); hist against exact AGC on "
+        f"the 25 s scene {agree:.6f} of pitch frames (>= {MIN_AGREEMENT}), "
+        f"fired identical ({int(fired['hist'].sum())} onsets); card against "
+        f"CPU (2 streams x 2 s): with the CPU's FFT on the card every "
+        f"decision equal, frequencies within {eq_err[0]:.1e} relative, "
+        f"velocities {eq_err[1]:.1e}; with cuFFT {raw_err[0]} stable-slot "
+        f"and {raw_err[1]} fired flips, frequencies within "
+        f"{raw_err[2]:.1e}, velocities {raw_err[3]:.1e}; 8 streams each "
+        f"detect their own tone")
+    del fleet, chunks, outs, last, states, st
+
+    # 4. The floor warmup on the 30-minute pitch path against "full".
+    sf, ss, sv = full_outs
+    t0 = time.perf_counter()
+    fl = segmented.segmented_pitch_analysis(audio44, SR, warmup_mode="floor")
+    floor_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fl = segmented.segmented_pitch_analysis(audio44, SR, warmup_mode="floor")
+    floor_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    segmented.segmented_pitch_analysis(audio44, SR)
+    full_warm = time.perf_counter() - t0
+    agree_f = frame_agreement(fl[0], fl[2], sf, sv)
+    differ = [i for i in range(len(sf))
+              if sorted(np.round(fl[0][i][fl[2][i]], 1))
+              != sorted(np.round(sf[i][sv[i]], 1))]
+    first_n = 128 + 64
+    assert tuple(differ) == FLOOR_WARMUP_DIFFERS, differ
+    for a, b in zip(fl, (sf, ss, sv)):
+        assert np.array_equal(a[:first_n], b[:first_n])
+    say(f"fullstep: floor warmup: segmented_pitch_analysis 30 min "
+        f"warmup_mode='floor' cold {floor_cold:.2f} s, warm "
+        f"{floor_warm:.3f} s against 'full' {full_warm:.3f} s warm; the "
+        f"stable sets agree on {agree_f:.6f} of the frames, differing on "
+        f"frames {differ}, the frames on which the JAX package's 'floor' and "
+        f"'full' differ on this scene; segment 0's first {first_n} frames "
+        f"bitwise")
+
+    rows.append(dict(name="K6 reducer (HPF -> LPF -> noise gate scan)",
+                     route="cuda", source=f"{PKG}/csrc/reducer.cu",
+                     replaces="audio_analyzer_rs_tpu/ops/reducer.py:215",
+                     launches=launches[4], max_abs_err=k6_err,
+                     ms=k6_ms[False], plain_ms=k6_plain[False],
+                     bound_ms=k6_bound, bound_by=k6_by, library_ms=None,
+                     gate_only_ms=k6_ms[True], gate_only_plain_ms=k6_plain[True],
+                     per_sample_cycles=k6_cycles, sm_mhz=sm_mhz))
+    rows.append(dict(name="K7 dynamics (the AGC scan)", route="cuda",
+                     source=f"{PKG}/csrc/dynamics.cu",
+                     replaces="audio_analyzer_rs_tpu/ops/dynamics.py:253",
+                     launches=launches[5], max_abs_err=k7_err,
+                     ms=k7_ms["hist"], plain_ms=k7_plain["hist"],
+                     bound_ms=k7_bound, bound_by=k7_by, library_ms=None,
+                     exact_ms=k7_ms["exact"], exact_plain_ms=k7_plain["exact"],
+                     per_slot_cycles=k7_cycles, sm_mhz=sm_mhz))
+
+
 def main() -> int:
     if not (REPO / PKG).is_dir():
         print(f"chip_smoke: {PKG}/ is not beside this script", file=sys.stderr)
@@ -1498,6 +1978,10 @@ def main() -> int:
 
     # 11. The classroom: an engine pool.
     classroom_phase(rows, card)
+
+    # 12. The batched full chain: K6, K7, make_batched_full_step, and the
+    # floor warmup.
+    fullstep_phase(rows, card, audio, (sf, ss, sv), sm_mhz)
 
     say(json.dumps({"kernels": rows}))
     say(f"card: {card}")

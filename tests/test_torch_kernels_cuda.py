@@ -7,7 +7,10 @@ test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Small shapes of the main path's kinds; chip_smoke.py repeats the checks at
-the full main-path shapes and times them.  Tolerances: K1 max |Δ| <= 1e-5 ·
+the full main-path shapes and times them.  K6 (the reducer scan) and K7
+(the dynamics scan) are bitwise to their plain versions at B = 1, 33 and
+128, from fresh and carried states, with NaN samples and digital silence;
+the full step launches K2-K7 once each and agrees with the CPU.  Tolerances: K1 max |Δ| <= 1e-5 ·
 max (3xTF32 on the tensor cores against cuBLAS FP32), and bitwise across
 batch geometries; K2, K3, K4 and K5 bitwise (K3's, K4's and K5's floats as
 bit patterns, so -0.0 and +0.0 differ).
@@ -786,3 +789,231 @@ def test_readback_waits_for_its_copy(dev):
     assert rb._event.query()
     np.testing.assert_array_equal(got, np.full(4096, 6.0, np.float32))
     assert rb._host.is_pinned()
+
+
+# ── K6 (the reducer scan) and K7 (the dynamics scan) ─────────────────────
+
+def reducer_streams(b: int, t: int, seed: int = 0) -> np.ndarray:
+    """[b, t] float32: mixed scenes over a harmonic tone's start, every
+    fourth stream (from the second) with a quiet section from t/3 on (-80
+    dB: the gate holds, releases and attenuates), every fourth (from the
+    third) with a NaN sample at t/2 and every fourth digital silence."""
+    rows = []
+    for i in range(b):
+        x = gen.mixed_scene(t / SR48 + 0.05, SR48, seed=seed + i)[:t].copy()
+        x[:t // 10] += gen.tone_with_harmonics(
+            220.0 * (1 + i % 5), t // 10 / SR48, SR48, amplitude=0.3)[:t // 10]
+        kind = i % 4
+        if kind == 1:
+            x[t // 3:] *= np.float32(1e-4)
+        elif kind == 2:
+            x[t // 2] = np.nan
+        elif kind == 3:
+            x[:] = 0.0
+        rows.append(x.astype(np.float32))
+    return np.stack(rows)
+
+
+def dynamics_streams(b: int, s: int, seed: int = 0) -> np.ndarray:
+    """[b, s, 1024] float32 slots: mixed scenes over a swelling harmonic
+    tone, a silent stretch and a -60 dB one; every third stream (from the
+    third) a NaN sample in slot s/2."""
+    n = s * 1024
+    rows = []
+    for i in range(b):
+        x = gen.mixed_scene(n / SR48 + 0.05, SR48, seed=seed + i)[:n].copy()
+        swell = 0.05 + 0.4 * np.abs(np.sin(np.arange(n) / SR48 * (2 + i % 7)))
+        x += (swell * gen.tone_with_harmonics(
+            196.0 * (1 + i % 5), n / SR48 + 0.05, SR48,
+            amplitude=1.0)[:n]).astype(np.float32)
+        x[n // 5:n // 5 + 9000] = 0.0
+        x[n // 2 + 2000:n // 2 + 9000] *= np.float32(1e-3)
+        if i % 3 == 2:
+            x[(s // 2) * 1024 + 100] = np.nan
+        rows.append(x.reshape(s, 1024))
+    return np.stack(rows).astype(np.float32)
+
+
+def carried_dynamics_state(b: int, seed: int, device="cpu"):
+    """A DynamicsState as a long session leaves it: rings part filled or
+    wrapped, positions anywhere, +inf where unwritten, the histograms
+    matching the rings' finite entries, gains anywhere in [0.5, 20]."""
+    from audio_analyzer_rs_tpu_torch.ops import dynamics
+    rng = np.random.default_rng(seed)
+    leaves = [t.clone() for t in dynamics.init_state("cpu", (b,))]
+    for i in range(b):
+        for hist, pos, filled, counts, n in (
+                (0, 1, 2, 7, dynamics.LONG_LEN),
+                (3, 4, 5, 8, dynamics.PLAY_LEN)):
+            full = bool(rng.random() < 0.5)
+            k = n if full else int(rng.integers(1, n))
+            ring = np.full(n, np.inf, np.float32)
+            ring[:k] = np.exp(rng.uniform(-14, -1, k)).astype(np.float32)
+            leaves[hist][i] = torch.from_numpy(ring)
+            leaves[pos][i] = int(rng.integers(0, n)) if full else k % n
+            leaves[filled][i] = full
+            buckets = dynamics._bucket_of(torch.from_numpy(ring[:k]))
+            leaves[counts][i] = torch.bincount(buckets, minlength=1024).to(
+                torch.int32)
+        leaves[6][i] = float(np.float32(rng.uniform(0.5, 20.0)))
+    return dynamics.DynamicsState(*(t.to(device) for t in leaves))
+
+
+def _reducer_leaves(st):
+    return [*st.hp, *st.lp, *st.gate]
+
+
+@pytest.mark.parametrize("gate_only", [False, True])
+@pytest.mark.parametrize("b", [1, 33, 128])
+def test_k6_matches_plain_bitwise(dev, b, gate_only):
+    """K6 against its plain version (`reduce_exact_plain`, or `gate_plain`
+    for the gate-only entry), from a fresh state and then carried into a
+    second chunk: outputs and state, NaNs by position, bits elsewhere.
+    Each stream's bits are also its bits in a batch of one."""
+    from audio_analyzer_rs_tpu_torch.ops import hopper_reducer, reducer
+    t = 1500 if b == 128 else 3000
+    x = torch.from_numpy(reducer_streams(b, 2 * t + 17, seed=b)).to(dev)
+    st = reducer.reducer_init(dev, (b,))
+    launches = hopper_reducer.LAUNCHES
+    for lo, hi in ((0, t), (t, 2 * t + 17)):
+        xs = x[:, lo:hi].contiguous()
+        st_k, y_k = hopper_reducer.reduce_scan(st, xs, SR48, gate_only)
+        if gate_only:
+            gate, y_p = reducer.gate_plain(st.gate, xs, SR48)
+            st_p = reducer.ReducerState(st.hp, st.lp, gate)
+        else:
+            st_p, y_p = reducer.reduce_exact_plain(st, xs, SR48)
+        torch.cuda.synchronize()
+        assert_same_bits_nan(y_k, y_p, f"K6 B={b} [{lo}, {hi})")
+        for a, c in zip(_reducer_leaves(st_k), _reducer_leaves(st_p)):
+            assert_same_bits_nan(a, c, f"K6 B={b} state")
+        one_st = reducer.ReducerState(*(type(p)(*(a[:1] for a in p))
+                                        for p in st))
+        _, y_one = hopper_reducer.reduce_scan(one_st, xs[:1].contiguous(),
+                                              SR48, gate_only)
+        assert_same_bits_nan(y_one[0], y_k[0], f"K6 B=1 vs B={b}")
+        st = st_k
+    assert hopper_reducer.LAUNCHES == launches + 4
+
+
+@pytest.mark.parametrize("mode", ["hist", "exact"])
+@pytest.mark.parametrize("b", [1, 33, 128])
+def test_k7_matches_plain_bitwise(dev, b, mode):
+    """K7 against `dynamics_scan_plain` on the card: from fresh states, and
+    from carried session states (rings wrapped, histograms full); outputs,
+    gained slots and every state leaf, NaNs by position.  Each stream's
+    bits are also its bits in a batch of one."""
+    from audio_analyzer_rs_tpu_torch.ops import dynamics, hopper_dynamics
+    s = 12 if b == 128 else 20
+    slots = torch.from_numpy(dynamics_streams(b, s, seed=b)).to(dev)
+    for st in (dynamics.init_state(dev, (b,)),
+               carried_dynamics_state(b, seed=b, device=dev)):
+        st_k, out_k, g_k = hopper_dynamics.dynamics_scan(st, slots, SR48,
+                                                         1024, mode)
+        st_p, out_p, g_p = dynamics.dynamics_scan_plain(st, slots, SR48,
+                                                        1024, mode)
+        torch.cuda.synchronize()
+        for name, a, c in zip(dynamics.DynamicsOut._fields, out_k, out_p):
+            assert_same_bits_nan(a, c, f"K7 {mode} B={b} {name}")
+        assert_same_bits_nan(g_k, g_p, f"K7 {mode} B={b} gained")
+        for name, a, c in zip(dynamics.DynamicsState._fields, st_k, st_p):
+            assert_same_bits_nan(a, c, f"K7 {mode} B={b} state {name}")
+        one = dynamics.DynamicsState(*(t[:1].contiguous() for t in st))
+        _, out_one, g_one = hopper_dynamics.dynamics_scan(
+            one, slots[:1].contiguous(), SR48, 1024, mode)
+        for a, c in zip(out_one, out_k):
+            assert_same_bits_nan(a[0], c[0], f"K7 B=1 vs B={b}")
+        assert_same_bits_nan(g_one[0], g_k[0])
+    assert int((out_k.level >= 0).sum()) > 0
+
+
+def test_fft_2048_mags_across_batches(dev):
+    """One pitch frame's "fft" magnitudes (cuFFT, 2,048 points, the full
+    step's pitch STFT) in batches of 1, 7, 933 and 1,866 frames and in the
+    full step's [B, 933] layout at B = 4 and 128.  Unlike the 256-point
+    transform (`test_fft_mags_are_batch_independent`), cuFFT's 2,048-point
+    bits depend on the batch (ROADMAP Queue 3): held within 1e-5 of the
+    frame's peak magnitude."""
+    x = _live_scene(dev, 24.0)
+    frames = frame_signal(x, W, HOP)                          # 2,246 frames
+    k = 1000
+    want = windowed_mags(frames[k:k + 1], W, "fft")[0]
+    tol = 1e-5 * float(want.max())
+    worst = 0.0
+    for b in (1, 7, 933):
+        for start in (k, k - b // 2, k - b + 1):
+            got = windowed_mags(frames[start:start + b], W, "fft")
+            worst = max(worst, float((got[k - start] - want).abs().max()))
+    for rows in (4, 128):
+        lanes = frames[k - 400:k + 533].unsqueeze(0).repeat(rows, 1, 1)
+        got = windowed_mags(lanes, W, "fft")
+        for r in (0, rows - 1):
+            worst = max(worst, float((got[r, 400] - want).abs().max()))
+    assert worst <= tol, (worst, tol)
+
+
+def _full_step_two_streams(device, mags_fn=None):
+    from audio_analyzer_rs_tpu_torch.parallel import sharding
+    audio = np.stack([gen.mixed_scene(2.0, SR48, seed=s)
+                      + gen.tone_with_harmonics(262.0 * (s + 1), 2.0, SR48,
+                                                amplitude=0.2)
+                      for s in range(2)]).astype(np.float32)
+    windowed = sharding.windowed_mags
+    sharding.windowed_mags = mags_fn or windowed
+    try:
+        step = sharding.make_batched_full_step(None, SR48, device=device)
+        _, out = step(sharding.init_stream_states(2, device=device), audio)
+    finally:
+        sharding.windowed_mags = windowed
+    return sharding.FullStepOut(*(t.cpu() for t in out))
+
+
+def test_full_step_card_matches_cpu(dev):
+    """`make_batched_full_step` on the card against the same step on the
+    CPU (the plain versions), 2 streams x 2 s in one step.  With the STFT
+    equalized (the CPU's FFT magnitudes used on the card) every decision
+    is equal: stable valid flags, fired onsets, levels; frequencies within
+    1e-4 relative, velocities within 1e-5.  With cuFFT's own magnitudes
+    the levels are equal and at most 1% of the stable slots flip."""
+    cpu = _full_step_two_streams("cpu")
+
+    def cpu_mags(frames, window, backend="fft", band=None):
+        return windowed_mags(frames.cpu(), window, backend, band).to(
+            frames.device)
+    card = _full_step_two_streams(dev, cpu_mags)
+    for f in ("stable_valid", "onset_fired", "dyn_level",
+              "global_onset_count"):
+        assert torch.equal(getattr(card, f), getattr(cpu, f)), f
+    np.testing.assert_allclose(card.stable_freqs.numpy(),
+                               cpu.stable_freqs.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(card.onset_velocity.numpy(),
+                               cpu.onset_velocity.numpy(), rtol=0, atol=1e-5)
+    assert bool(card.stable_valid.any()) and bool(card.onset_fired.any())
+    raw = _full_step_two_streams(dev)
+    assert torch.equal(raw.dyn_level, cpu.dyn_level)
+    flips = int((raw.stable_valid != cpu.stable_valid).sum())
+    assert flips <= 0.01 * cpu.stable_valid.numel(), flips
+
+
+def test_full_step_launches_each_kernel_once(dev, monkeypatch):
+    """One full step at B = 4: K2-K7 once each, no plain scan step."""
+    from audio_analyzer_rs_tpu_torch.ops import (dynamics, hopper_dynamics,
+                                                 hopper_reducer)
+    from audio_analyzer_rs_tpu_torch.ops import reducer
+    from audio_analyzer_rs_tpu_torch.parallel import sharding
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain scan step ran on the card")
+    for mod, name in ((noisefloor, "_step"), (onset, "_step"),
+                      (dynamics, "_step"), (tracker, "select_stable"),
+                      (reducer, "_feedback"), (reducer, "_envelope")):
+        monkeypatch.setattr(mod, name, refuse)
+    mods = (hopper_comb, hopper_tracker, hopper_onset, hopper_noisefloor,
+            hopper_reducer, hopper_dynamics)
+    audio = torch.from_numpy(dynamics_streams(4, 6).reshape(4, -1)).to(dev)
+    step = sharding.make_batched_full_step(None, SR48, device=dev)
+    st = sharding.init_stream_states(4, device=dev)
+    before = [m.LAUNCHES for m in mods]
+    st, out = step(st, audio)
+    torch.cuda.synchronize()
+    assert [m.LAUNCHES - n for m, n in zip(mods, before)] == [1] * 6

@@ -180,8 +180,13 @@ def test_unported_options_raise():
         tseg.segmented_pitch_analysis(x, SR, device_audio=x, device="cpu")
     tseg.segmented_pitch_analysis(x, SR, device_audio=torch.from_numpy(x),
                                   device="cpu")
-    with pytest.raises(NotImplementedError):
-        tseg.segmented_pitch_analysis(x, SR, warmup_mode="floor",
+    # warmup_mode="floor" is ported: on a clip this short it runs "full".
+    for a, b in zip(tseg.segmented_pitch_analysis(x, SR, warmup_mode="floor",
+                                                  device="cpu"),
+                    tseg.segmented_pitch_analysis(x, SR, device="cpu")):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError):
+        tseg.segmented_pitch_analysis(x, SR, warmup_mode="half",
                                       device="cpu")
     with pytest.raises(ValueError):
         tseg.segmented_pitch_analysis(x, SR, transfer="tunnel", device="cpu")
@@ -225,6 +230,12 @@ def test_port_runs_without_jax_in_a_fresh_process():
         "    checkpoint.save_engine(os.path.join(d, 'e.npz'), e)\n"
         "assert RpcServer(device='cpu').handle({'method': 'ping'})"
         "['result'] == 'pong'\n"
+        "from audio_analyzer_rs_tpu_torch import (init_stream_states, "
+        "make_batched_full_step)\n"
+        "step = make_batched_full_step(None, 48000.0, device='cpu')\n"
+        "st, out = step(init_stream_states(1, device='cpu'), "
+        "x[None, :4096])\n"
+        "assert out.stable_freqs.shape == (1, 5, 8)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -252,7 +263,9 @@ def test_source_scan():
                    if "_build" not in p.relative_to(PORT).parts)
     files.append(REPO / "chip_smoke.py")
     assert len(files) >= 15
-    for new in ("api/pool.py", "api/rpc.py", "checkpoint.py"):
+    for new in ("api/pool.py", "api/rpc.py", "checkpoint.py",
+                "parallel/sharding.py", "ops/hopper_reducer.py",
+                "ops/hopper_dynamics.py"):
         assert PORT / new in files, new
     for path in files:
         assert "torch.compile" not in path.read_text(), path
@@ -260,4 +273,5 @@ def test_source_scan():
             assert name.split(".")[0] not in ("jax", "audio_analyzer_rs_tpu"), \
                 (path, name)
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == \
-        ["comb.cu", "noisefloor.cu", "onset.cu", "stft.cu", "tracker.cu"]
+        ["comb.cu", "dynamics.cu", "noisefloor.cu", "onset.cu", "reducer.cu",
+         "stft.cu", "tracker.cu"]

@@ -8,16 +8,20 @@ small launches on [B] and [B, L] tensors, so the scan is a kernel here.
 
 What bounds it on an H100: the per-slot chain.  The bytes (the slots in,
 the gained slots out, the rings and histograms in and out) take ~0.15 ms
-at the full step's B = 128 x 468 slots; each slot is a dependent chain
-(the sums, the percentiles, the gain, the gained slot) behind block
-barriers.
+at the full step's B = 128 x 468 slots; only the scalar chain (floor,
+classification, ring and histogram update, percentiles, gain) is carried
+from slot to slot.
 
-Design (the source note in csrc/dynamics.cu has the detail): a block of
-1,024 threads a stream, a sample a thread, the rings and (in "hist" mode)
-the histograms in shared memory, the per-slot scalars computed by every
-warp alike so that a slot needs two block barriers in "hist" mode.  The
-sums run in `dynamics.tree_sum`'s order, so K7 is bitwise equal to
-`dynamics_scan_plain`.
+Design (the source note in csrc/dynamics.cu has the detail): the work is
+split by what is carried: (A) the slot sums (in `dynamics.tree_sum`'s
+order), the peak and what follows from them alone, a warp a slot over all
+B x S slots; (B) the scalar chain, in "hist" mode one warp a stream with
+the histograms as prefix counts (a percentile is two ballots, a shuffle
+and a shared load) and the dB and gain target of each bucket as tables,
+in "exact" mode a 1,024-thread block a stream with a radix select; (C)
+the gained slots, elementwise: in "hist" mode by the other warps of (B)'s
+block while the chain runs, in "exact" mode by a third launch.  K7 is
+bitwise equal to `dynamics_scan_plain`.
 
 `dynamics_scan` is the wrapper: on CPU tensors the plain scan, on CUDA
 tensors the kernel (or it raises).
@@ -33,7 +37,7 @@ import torch
 from .. import _build
 
 LAUNCHES = 0
-_MAX_SLOT = 1024     # a sample a thread
+_MAX_SLOT = 1024     # (A): 32 lanes of 32 samples a slot
 
 
 def check_args(state, slots: torch.Tensor) -> None:

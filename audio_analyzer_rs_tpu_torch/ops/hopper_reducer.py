@@ -12,10 +12,16 @@ What bounds it on an H100: the chain.  Each stream is T dependent steps
 sample); the bytes (audio in, conditioned audio out: 2 x B x T x 4) are a
 small share of the time at any B the full step uses.
 
-Design (the source note in csrc/reducer.cu has the detail): a thread a
-stream, its nine state values in registers, the samples staged through
-shared memory 32 streams x 32 samples at a time so that loads and stores
-coalesce, the next tile's loads issued before this tile's chain runs.
+Design (the source note in csrc/reducer.cu has the detail): a block of 16
+streams, a lane a stream and a warp a stage, the stages a pipeline over
+128-sample tiles in a ring in shared memory.  A producer warp brings each
+tile in by TMA (16 x 32 boxes from a tensor map over x) and sends the
+gated tile back the same way; warps for the HPF, the LPF, the envelope,
+its gain below the threshold and the hold each keep their state in
+registers and hand the tile on through mbarriers, with no block barrier.
+The hold counter runs as a count of samples below the threshold against
+the count at which the hold ends.  Where T % 4 != 0 the rows are not
+16-byte aligned and the tiles move by plain loads and stores.
 
 `reduce_scan` is the wrapper: on CPU tensors the plain version
 (`reducer.reduce_exact_plain`, or `reducer.gate_plain` for the gate-only

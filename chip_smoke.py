@@ -25,7 +25,8 @@ Phases, one line each on standard output:
             S=128 x N=256 and on their first 64 frames, and at S=1 x
             N=4096; the per-frame cost as the slope between those N=64 and
             N=256 random raws (ns, and cycles at the SM clock nvidia-smi
-            reads);
+            samples while the timed launches run: `SmClock`, as for every
+            cycle figure here);
        K4 onset scan, bitwise (bit patterns, every output and the final
             state) to the plain scan on the scene's "fft" magnitudes at
             S=128 x N=1024 and at S=1 x N=4096 with tick-suppressed and held
@@ -116,6 +117,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -158,6 +160,57 @@ def cuda_times(fn, reps: int = 1) -> list[float]:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return times
+
+
+class SmClock:
+    """The SM clock (MHz) while a block of timed launches runs: nvidia-smi
+    samples it every 20 ms, and `mhz` is the median of the samples taken
+    inside the block ("sampled"), or the card's clocks.max.sm where none
+    fell inside it ("max").  A cycle figure is a time times this clock;
+    the clock read once at an idle moment (345 MHz where the card ran at
+    1,980 under the load) is not one to convert with."""
+
+    def __enter__(self):
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        t0 = time.monotonic()
+        while not self.samples and time.monotonic() - t0 < 5.0:
+            time.sleep(0.01)
+        self.start = time.monotonic()
+        return self
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                self.samples.append((time.monotonic(),
+                                     float(line.split()[0])))
+            except (ValueError, IndexError):
+                pass
+
+    def __exit__(self, *exc):
+        end = time.monotonic()
+        self.proc.terminate()
+        self.proc.wait()
+        self.reader.join(timeout=1.0)
+        inside = [v for t, v in self.samples if self.start <= t <= end]
+        if inside:
+            self.mhz, self.source = statistics.median(inside), "sampled"
+        else:
+            self.mhz, self.source = float(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.max.sm",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=True).stdout.split()[0]), "max"
+        return False
+
+    def cycles(self, ns: float) -> str:
+        """ns as "<ns> ns = <cycles> cycles at <MHz> MHz (<source>)"."""
+        return (f"{ns:,.1f} ns = {ns * self.mhz / 1e3:,.0f} cycles at "
+                f"{self.mhz:.0f} MHz ({self.source})")
 
 
 def cuda_ms(fn, reps: int = 1) -> float:
@@ -1027,7 +1080,7 @@ def same_bits_nan(a, b) -> bool:
                             torch.where(bn, 0, b.view(torch.int32))))
 
 
-def fullstep_phase(rows, card: str, audio44, full_outs, sm_mhz) -> None:
+def fullstep_phase(rows, card: str, audio44, full_outs) -> None:
     """Phase 12: K6 and K7 against their plain versions and timed at the
     full step's shape; the batched full step over 128 streams x 3 chunks;
     its gates; the floor warmup on the 30-minute pitch path."""
@@ -1071,7 +1124,7 @@ def fullstep_phase(rows, card: str, audio44, full_outs, sm_mhz) -> None:
     t0 = time.perf_counter()
     x = torch.from_numpy(reducer_check_streams(
         fleet, t_chunk + K6_CARRIED)).to(dev)
-    k6_err, k6_ms, k6_plain = 0.0, {}, {}
+    k6_err, k6_ms, k6_plain, k6_clock = 0.0, {}, {}, {}
     for gate_only in (False, True):
         st = reducer.reducer_init(dev, (FULL_B,))
         for lo, hi in ((0, t_chunk), (t_chunk, t_chunk + K6_CARRIED)):
@@ -1092,14 +1145,17 @@ def fullstep_phase(rows, card: str, audio44, full_outs, sm_mhz) -> None:
                 (y_k - y_p).abs()).max()))
             if lo == 0:
                 k6_plain[gate_only] = ms
-                k6_ms[gate_only] = cuda_ms(lambda: hopper_reducer.reduce_scan(
-                    st, xs, sr, gate_only))
+                with SmClock() as k6_clock[gate_only]:
+                    k6_ms[gate_only] = cuda_ms(
+                        lambda: hopper_reducer.reduce_scan(st, xs, sr,
+                                                           gate_only),
+                        KERNEL_REPS)
                 if not gate_only:
                     slots = y_k.reshape(FULL_B, FULL_SLOTS, 1024)
             st = st_k
     del x, xs, y_k, y_p
     k6_s, t0 = time.perf_counter() - t0, time.perf_counter()
-    k7_err, k7_ms, k7_plain = 0.0, {}, {}
+    k7_err, k7_ms, k7_plain, k7_clock = 0.0, {}, {}, {}
     for mode in ("hist", "exact"):
         states = {"fresh": dynamics.init_state(dev, (FULL_B,)),
                   "session": session_state(FULL_B, 5, dev)}
@@ -1121,29 +1177,35 @@ def fullstep_phase(rows, card: str, audio44, full_outs, sm_mhz) -> None:
             if label == "fresh":
                 states["carried"] = st_k
                 k7_plain[mode] = ms
-                k7_ms[mode] = cuda_ms(lambda: hopper_dynamics.dynamics_scan(
-                    st, slots, sr, 1024, mode))
+                with SmClock() as k7_clock[mode]:
+                    k7_ms[mode] = cuda_ms(
+                        lambda: hopper_dynamics.dynamics_scan(st, slots, sr,
+                                                              1024, mode),
+                        KERNEL_REPS)
     k7_s = time.perf_counter() - t0
     k6_bytes = 2 * FULL_B * t_chunk * 4 + 2 * FULL_B * 10 * 4
     k6_bound, k6_by = bound(k6_bytes, 30 * FULL_B * t_chunk, FP32_FLOPS)
-    k6_cycles = k6_ms[False] / t_chunk * 1e-3 * sm_mhz * 1e6
+    k6_ns = k6_ms[False] / t_chunk * 1e6          # a sample
+    k6_cycles = k6_ns * k6_clock[False].mhz / 1e3
     k7_bytes = (2 * nbytes(slots) + 2 * nbytes(*states["fresh"])
                 + 6 * FULL_B * FULL_SLOTS * 4)
     k7_bound, k7_by = bound(k7_bytes, 20 * slots.numel(), FP32_FLOPS)
-    k7_cycles = k7_ms["hist"] / FULL_SLOTS * 1e-3 * sm_mhz * 1e6
+    k7_ns = k7_ms["hist"] / FULL_SLOTS * 1e6       # a slot
+    k7_cycles = k7_ns * k7_clock["hist"].mhz / 1e3
     say(f"fullstep: K6 bitwise equal to its plain version (exact and "
         f"gate-only; {FULL_B} streams x {t_chunk} samples fresh, then "
         f"{K6_CARRIED} carried; the fleet's audio with digital silence, a NaN "
         f"sample, quiet sections through hold, release and attenuation); K6 "
-        f"{k6_ms[False]:.3f} ms (gate-only {k6_ms[True]:.3f} ms) = "
-        f"{k6_cycles:.0f} cycles a sample at {sm_mhz:.0f} MHz; plain "
+        f"{k6_ms[False]:.3f} ms (gate-only {k6_ms[True]:.3f} ms), a sample "
+        f"{k6_clock[False].cycles(k6_ns)}; plain "
         f"{k6_plain[False]:.0f} ms (gate-only {k6_plain[True]:.0f} ms); "
         f"bound {k6_bound:.4f} ms ({k6_by}: {k6_bytes / 1e6:.1f} MB); the "
         f"check took {k6_s:.0f} s")
     say(f"fullstep: K7 bitwise equal to its plain version (hist and exact; "
         f"{FULL_B} streams x {FULL_SLOTS} slots of K6's output, fresh, "
         f"carried, and from session states with wrapped rings); hist "
-        f"{k7_ms['hist']:.3f} ms = {k7_cycles:.0f} cycles a slot, exact "
+        f"{k7_ms['hist']:.3f} ms, a slot {k7_clock['hist'].cycles(k7_ns)}, "
+        f"exact "
         f"{k7_ms['exact']:.3f} ms; plain {k7_plain['hist']:.0f} ms (exact "
         f"{k7_plain['exact']:.0f} ms); bound {k7_bound:.4f} ms ({k7_by}: "
         f"{k7_bytes / 1e6:.1f} MB); the check took {k7_s:.0f} s")
@@ -1238,8 +1300,10 @@ def fullstep_phase(rows, card: str, audio44, full_outs, sm_mhz) -> None:
     prof_s = time.perf_counter() - t0
     assert sorted(name for name, _, _ in spans) == sorted(ours.values())
     port_ms = {name: b.elapsed_time(e) for name, b, e in spans}
-    own = ("reducer_kernel", "dynamics_kernel", "noise_floor_kernel",
-           "onset_kernel", "tracker_select_kernel", "comb_kernel")
+    own = ("reducer_kernel", "dynamics_sums_kernel", "dynamics_hist_kernel",
+           "dynamics_exact_kernel", "dynamics_gain_kernel",
+           "noise_floor_kernel", "onset_kernel", "tracker_select_kernel",
+           "comb_kernel")
     kern = [ev for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA
             and not any(k in ev.key for k in own)]
@@ -1410,7 +1474,9 @@ def fullstep_phase(rows, card: str, audio44, full_outs, sm_mhz) -> None:
                      ms=k6_ms[False], plain_ms=k6_plain[False],
                      bound_ms=k6_bound, bound_by=k6_by, library_ms=None,
                      gate_only_ms=k6_ms[True], gate_only_plain_ms=k6_plain[True],
-                     per_sample_cycles=k6_cycles, sm_mhz=sm_mhz))
+                     per_sample_ns=k6_ns, per_sample_cycles=k6_cycles,
+                     sm_mhz=k6_clock[False].mhz,
+                     sm_clock=k6_clock[False].source))
     rows.append(dict(name="K7 dynamics (the AGC scan)", route="cuda",
                      source=f"{PKG}/csrc/dynamics.cu",
                      replaces="audio_analyzer_rs_tpu/ops/dynamics.py:253",
@@ -1418,7 +1484,9 @@ def fullstep_phase(rows, card: str, audio44, full_outs, sm_mhz) -> None:
                      ms=k7_ms["hist"], plain_ms=k7_plain["hist"],
                      bound_ms=k7_bound, bound_by=k7_by, library_ms=None,
                      exact_ms=k7_ms["exact"], exact_plain_ms=k7_plain["exact"],
-                     per_slot_cycles=k7_cycles, sm_mhz=sm_mhz))
+                     per_slot_ns=k7_ns, per_slot_cycles=k7_cycles,
+                     sm_mhz=k7_clock["hist"].mhz,
+                     sm_clock=k7_clock["hist"].source))
 
 
 def main() -> int:
@@ -1603,19 +1671,16 @@ def main() -> int:
             k3_out = out_k
     k3_ms = cuda_ms(lambda: hopper_tracker.tracker_scan(st0, *main_raws),
                     KERNEL_REPS)
-    k3_ms64 = cuda_ms(lambda: hopper_tracker.tracker_scan(st0, *raws64),
-                      KERNEL_REPS)
-    k3_ms256 = cuda_ms(lambda: hopper_tracker.tracker_scan(st0, *raws256),
-                       KERNEL_REPS)
+    with SmClock() as k3_clock:
+        k3_ms64 = cuda_ms(lambda: hopper_tracker.tracker_scan(st0, *raws64),
+                          KERNEL_REPS)
+        k3_ms256 = cuda_ms(lambda: hopper_tracker.tracker_scan(
+            st0, *raws256), KERNEL_REPS)
     k3_ms4096 = cuda_ms(lambda: hopper_tracker.tracker_scan(st1, *raws4096),
                         KERNEL_REPS)
-    sm_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0])
     k3_plain_ms = cuda_ms(lambda: k3_plain(st0, main_raws))
     slope_ns = (k3_ms256 - k3_ms64) / (256 - 64) * 1e6
-    slope_cycles = slope_ns * sm_mhz / 1e3
+    slope_cycles = slope_ns * k3_clock.mhz / 1e3
     # Bytes: raws, onsets, the state in and out, the stable top-8 out; the
     # work is a dependent chain of 64 frames x 8 match rounds a stream, far
     # below any rate's bound.
@@ -1627,7 +1692,7 @@ def main() -> int:
         f"N=64 {k3_ms:.4f} ms on the main-path raws; random raws S=128 N=64 "
         f"{k3_ms64:.4f} ms, N=256 {k3_ms256:.4f} ms, S=1 N=4096 "
         f"{k3_ms4096:.4f} ms; per frame (N=64 -> 256) "
-        f"{slope_ns:.1f} ns = {slope_cycles:.0f} cycles at {sm_mhz:.0f} MHz; "
+        f"{k3_clock.cycles(slope_ns)}; "
         f"plain {k3_plain_ms:.3f} ms; bound {k3_bound * 1e3:.2f} us ({k3_by}: "
         f"{k3_bytes / 1e6:.2f} MB)")
     rows.append(dict(name="K3 tracker (batched PitchTracker scan + "
@@ -1638,7 +1703,8 @@ def main() -> int:
                      bound_ms=k3_bound, bound_by=k3_by, library_ms=None,
                      ms_random_s128_n64=k3_ms64, ms_random_s128_n256=k3_ms256,
                      ms_s1_n4096=k3_ms4096, per_frame_ns=slope_ns,
-                     per_frame_cycles=slope_cycles, sm_mhz=sm_mhz))
+                     per_frame_cycles=slope_cycles, sm_mhz=k3_clock.mhz,
+                     sm_clock=k3_clock.source))
 
     # K5: the noise-floor scan, bitwise to the plain loop on the step's K1
     # magnitudes (fresh, then the state carried into the next step), on the
@@ -1679,8 +1745,9 @@ def main() -> int:
     st_band1 = noisefloor.init_state(kc, dev, (1,))
     k5_ms = cuda_ms(lambda: hopper_noisefloor.noise_floor_scan(
         st_band, mags, gf, kc), KERNEL_REPS)
-    k5_ms_seq = cuda_ms(lambda: hopper_noisefloor.noise_floor_scan(
-        st_band1, mags_seq5, gf_seq5, kc), KERNEL_REPS)
+    with SmClock() as k5_clock:
+        k5_ms_seq = cuda_ms(lambda: hopper_noisefloor.noise_floor_scan(
+            st_band1, mags_seq5, gf_seq5, kc), KERNEL_REPS)
     k5_wrapper_ms = cuda_ms(lambda: noisefloor.noise_floor_scan(
         st128, mags, gf, kc), KERNEL_REPS)
     start = torch.cuda.Event(enable_timing=True)
@@ -1703,8 +1770,8 @@ def main() -> int:
         f"with a {half}-wide state, and at full width (band=None); S=128 "
         f"N=64 {k5_ms * 1e3:.2f} us alone, {k5_wrapper_ms * 1e3:.2f} us "
         f"through the wrapper with the {half}-wide state; S=1 N={n_seq5} "
-        f"{k5_ms_seq:.4f} ms = "
-        f"{k5_ms_seq / n_seq5 * 1e6 * sm_mhz / 1e3:.0f} cycles a frame; "
+        f"{k5_ms_seq:.4f} ms, a frame "
+        f"{k5_clock.cycles(k5_ms_seq / n_seq5 * 1e6)}; "
         f"plain {k5_plain_ms:.1f} ms at S=128 N=64 (one sample, ~30 "
         f"launches a frame); bound {k5_bound * 1e3:.2f} us ({k5_by}: "
         f"{k5_bytes / 1e6:.1f} MB)")
@@ -1714,7 +1781,8 @@ def main() -> int:
                   max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain_ms,
                   plain_samples=1, bound_ms=k5_bound, bound_by=k5_by,
                   library_ms=None, wrapper_ms=k5_wrapper_ms,
-                  ms_s1_n4096=k5_ms_seq, sm_mhz=sm_mhz)
+                  ms_s1_n4096=k5_ms_seq, sm_mhz=k5_clock.mhz,
+                  sm_clock=k5_clock.source)
     del mags_prev, mags_seq5, mags_full
     del streams, chunk, frames, audio_dev
 
@@ -1763,10 +1831,11 @@ def main() -> int:
         "fft")
     gf_seq = torch.full((1, n_seq), gf_on, device=dev)
     no_seq = torch.zeros((1, n_seq), dtype=torch.bool, device=dev)
-    k4_ms = cuda_ms(lambda: hopper_onset.onset_scan(st4, mags4, gf4, no4,
-                                                    no4), KERNEL_REPS)
-    k4_ms1k = cuda_ms(lambda: hopper_onset.onset_scan(st4, *in1k),
-                      KERNEL_REPS)
+    with SmClock() as k4_clock:
+        k4_ms = cuda_ms(lambda: hopper_onset.onset_scan(
+            st4, mags4, gf4, no4, no4), KERNEL_REPS)
+        k4_ms1k = cuda_ms(lambda: hopper_onset.onset_scan(st4, *in1k),
+                          KERNEL_REPS)
     k4_ms_seq = cuda_ms(lambda: hopper_onset.onset_scan(
         st1, mags_seq, gf_seq, no_seq, no_seq), KERNEL_REPS)
     start = torch.cuda.Event(enable_timing=True)
@@ -1777,7 +1846,7 @@ def main() -> int:
     end.synchronize()
     k4_plain_ms = start.elapsed_time(end)
     k4_slope_ns = (k4_ms - k4_ms1k) / (n_o - 1024) * 1e6
-    k4_slope_cycles = k4_slope_ns * sm_mhz / 1e3
+    k4_slope_cycles = k4_slope_ns * k4_clock.mhz / 1e3
     _, out4 = hopper_onset.onset_scan(st4, mags4, gf4, no4, no4)
     # Bytes: magnitudes, floors and flags in, the 8 per-frame outputs out,
     # the state in and out; the per-bin work (~30 operations a bin and
@@ -1789,8 +1858,8 @@ def main() -> int:
         f"S=1 N=4096 with tick-suppressed and held frames ({k4_fired} "
         f"fired); S=128 N=4096 {k4_ms:.4f} ms, S=128 N=1024 "
         f"{k4_ms1k:.4f} ms, S=1 N=131072 {k4_ms_seq:.3f} ms; per frame "
-        f"(N=1024 -> 4096) {k4_slope_ns:.1f} ns = {k4_slope_cycles:.0f} "
-        f"cycles at {sm_mhz:.0f} MHz; plain {k4_plain_ms:.1f} ms at S=128 "
+        f"(N=1024 -> 4096) {k4_clock.cycles(k4_slope_ns)}; plain "
+        f"{k4_plain_ms:.1f} ms at S=128 "
         f"N=4096 (one sample, ~60-80 launches a frame); bound "
         f"{k4_bound:.4f} ms ({k4_by}: {k4_bytes / 1e6:.1f} MB)")
     rows.append(dict(name="K4 onset (the onset recurrence)", route="cuda",
@@ -1800,7 +1869,8 @@ def main() -> int:
                      plain_samples=1, bound_ms=k4_bound, bound_by=k4_by,
                      library_ms=None, ms_s128_n1024=k4_ms1k,
                      ms_s1_n131072=k4_ms_seq, per_frame_ns=k4_slope_ns,
-                     per_frame_cycles=k4_slope_cycles, sm_mhz=sm_mhz))
+                     per_frame_cycles=k4_slope_cycles, sm_mhz=k4_clock.mhz,
+                     sm_clock=k4_clock.source))
     rows.append(k5_row)
     del o_audio, o_streams, mags4, gf4, no4, in1k, in_one, mags_seq, out4
 
@@ -1981,7 +2051,7 @@ def main() -> int:
 
     # 12. The batched full chain: K6, K7, make_batched_full_step, and the
     # floor warmup.
-    fullstep_phase(rows, card, audio, (sf, ss, sv), sm_mhz)
+    fullstep_phase(rows, card, audio, (sf, ss, sv))
 
     say(json.dumps({"kernels": rows}))
     say(f"card: {card}")

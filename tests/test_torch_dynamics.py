@@ -253,22 +253,45 @@ def _tree(v):
     return F32(v)
 
 
-def _hist_kth_np(counts, k, inc, dec):
-    """The kernel's two-level ballot search over counts with one added at
-    `inc` and one taken at `dec` (-1: none)."""
-    c = counts.astype(np.int64).copy()
-    if inc >= 0:
-        c[inc] += 1
-    if dec >= 0:
-        c[dec] -= 1
-    cum = np.cumsum(c.reshape(32, 32).sum(1))
-    hit = np.flatnonzero(cum > k)
-    if not len(hit):
-        return 0
-    w = hit[0]
-    before = cum[w] - c[w * 32:(w + 1) * 32].sum()
-    return int(w * 32 + np.flatnonzero(before + np.cumsum(
-        c[w * 32:(w + 1) * 32]) > k)[0])
+class HistNp:
+    """One histogram as K7's chain warp holds it: `pre` the counts'
+    inclusive prefix within each 32-bucket group ([32, 32], lane j owning
+    column j), `tot` each group's total and `cum` the totals' inclusive
+    prefix (a lane each)."""
+
+    def __init__(self, counts):
+        self.pre = np.cumsum(counts.astype(np.int64).reshape(32, 32), 1)
+        self.tot = self.pre[:, 31].copy()
+        self.cum = np.cumsum(self.tot)
+
+    def add(self, k, d):
+        if k < 0:
+            return
+        g = k >> 5
+        self.cum[g:] += d
+        self.tot[g] += d
+        self.pre[g, k & 31:] += d
+
+    def kth(self, k, inc, dec):
+        """The first bucket whose count so far exceeds k (0 if none does),
+        as if one were added at `inc` and taken at `dec` (-1: none): a
+        ballot over the adjusted group prefixes, then over the group's
+        adjusted bucket prefixes."""
+        lanes = np.arange(32)
+        gi = inc >> 5 if inc >= 0 else 32
+        gd = dec >> 5 if dec >= 0 else 32
+        c = self.cum + (lanes >= gi) - (lanes >= gd)
+        hit = np.flatnonzero(c > k)
+        if not len(hit):
+            return 0
+        w = int(hit[0])
+        before = c[w] - self.tot[w] - (w == gi) + (w == gd)
+        p = (self.pre[w] + ((w == gi) & (lanes >= (inc & 31)))
+             - ((w == gd) & (lanes >= (dec & 31))))
+        return w * 32 + int(np.flatnonzero(before + p > k)[0])
+
+    def counts(self):
+        return np.diff(self.pre, prepend=0, axis=1).reshape(-1)
 
 
 def _key(v):
@@ -298,74 +321,106 @@ def _select_np(ring, k):
     return np.array(bits, np.uint32).view(F32)[()]
 
 
-def kernel_np(slots, st: dict, mode: str):
-    """K7's slot loop for one stream, in numpy float32: st holds the
-    stream's leaves (numpy) and changes in place; → (outs [S] x 6,
-    gained [S, L])."""
-    k = kernel_constants()
+def sums_np(slots, k):
+    """Phase (A), a warp a slot: the tree sums, the peak and what follows
+    from them alone → per slot (rms, rms_db, PEAK_HEADROOM / peak, bucket,
+    rms finite, broadband shape)."""
+    inv = F32(1.0 / slots.shape[-1])
+    staged = []
+    for x in slots:
+        sq = (x * x).astype(F32)
+        sum_sq, sum_q = _tree(sq), _tree((sq * sq).astype(F32))
+        peak = F32(np.nan) if np.isnan(x).any() else F32(np.max(np.abs(x)))
+        rms = F32(np.sqrt(F32(sum_sq * inv)))
+        rms_db = _db(rms, k)
+        mean_sq = F32(rms * rms)
+        mean_quad = F32(sum_q * inv)
+        kurt = (F32(mean_quad / F32(mean_sq * mean_sq))
+                if mean_sq > k["MEAN_SQ_MIN"] else k["KURT_DEFAULT"])
+        broad = bool(kurt >= k["KURT_LO"] and kurt <= k["KURT_HI"]
+                     and rms_db < k["BROADBAND_DB"])
+        staged.append((rms, rms_db, F32(k["PEAK_HEADROOM"]
+                                        / _mx(peak, k["EPS"])),
+                       _bucket_of(rms, k), bool(np.isfinite(rms)), broad))
+    return staged
+
+
+def _mx(a, b):
+    return F32(np.nan) if np.isnan(a) or np.isnan(b) else F32(max(a, b))
+
+
+def _mn(a, b):
+    return F32(np.nan) if np.isnan(a) or np.isnan(b) else F32(min(a, b))
+
+
+def _db(v, k):
+    return F32(_log(_mx(v, k["EPS"])) * k["DB_PER_LOG"])
+
+
+def _lin(d, k):
+    return _pow10(F32(d * k["TWENTIETH"]))
+
+
+def _bucket_of(v, k):
+    w = F32(fma_np(_log(_mx(v, k["EPS"])), k["DB_PER_LOG"],
+                   k["NEG_HIST_LO_DB"]) * k["BUCKETS_PER_DB"])
+    w = 0 if np.isnan(w) else int(np.clip(np.trunc(w), -2 ** 31, 2 ** 31 - 1))
+    return min(max(w, 0), 1023)
+
+
+def _bucket_value(b, k):
+    return _lin(F32(F32(F32(F32(b) + F32(0.5)) * k["DB_PER_BUCKET"])
+                    + k["HIST_LO_DB"]), k)
+
+
+def _raw_gain_db(p95, k):
+    return _mn(_mx(fma_np(-_log(_mx(p95, k["EPS"])), k["DB_PER_LOG"],
+                          k["TARGET_DB"]), F32(0)), k["MAX_BOOST_DB"])
+
+
+def chain_np(staged, st: dict, mode: str, k):
+    """Phase (B), the scalar chain of one stream over its slots in order:
+    in "hist" mode the histograms as `HistNp`, the rings as buckets (-1:
+    not finite), and the dB and gain target of every bucket as tables; in
+    "exact" mode the radix select.  st (numpy leaves) changes in place →
+    outs [S] x 6."""
     rate = SR / L
     sa = F32(1.0 - np.exp(-1.0 / (tdyn.SMOOTH_SECS * rate)))
     si = F32(1.0 - np.exp(-1.0 / (tdyn.SILENCE_DECAY_SECS * rate)))
-    inv = F32(1.0 / slots.shape[-1])
-
-    def mx(a, b):
-        return F32(np.nan) if np.isnan(a) or np.isnan(b) else F32(max(a, b))
-
-    def mn(a, b):
-        return F32(np.nan) if np.isnan(a) or np.isnan(b) else F32(min(a, b))
-
-    def db(v):
-        return F32(_log(mx(v, k["EPS"])) * k["DB_PER_LOG"])
-
-    def lin(d):
-        return _pow10(F32(d * k["TWENTIETH"]))
-
-    def bucket_of(v):
-        w = F32(fma_np(_log(mx(v, k["EPS"])), k["DB_PER_LOG"],
-                       k["NEG_HIST_LO_DB"]) * k["BUCKETS_PER_DB"])
-        w = 0 if np.isnan(w) else int(np.clip(np.trunc(w), -2 ** 31,
-                                              2 ** 31 - 1))
-        return min(max(w, 0), 1023)
-
-    def bucket_value(b):
-        return lin(F32(F32(F32(F32(b) + F32(0.5)) * k["DB_PER_BUCKET"])
-                       + k["HIST_LO_DB"]))
-
+    db_of = [_db(_bucket_value(j, k), k) for j in range(1024)]
+    target_of = [_lin(_raw_gain_db(_bucket_value(j, k), k), k)
+                 for j in range(1024)]
+    ring_bucket = [
+        np.array([_bucket_of(v, k) if np.isfinite(v) else -1
+                  for v in st[f]]) for f in ("long_hist", "play_hist")]
+    hl, hp = HistNp(st["long_counts"]), HistNp(st["play_counts"])
     outs = [[] for _ in range(6)]
-    gained = np.empty_like(slots)
-    for s, x in enumerate(slots):
-        sq = (x * x).astype(F32)
-        sum_sq, sum_q = _tree(sq), _tree((sq * sq).astype(F32))
-        peak_raw = F32(np.max(np.abs(x)))
-        rms = F32(np.sqrt(F32(sum_sq * inv)))
-        rms_db = db(rms)
+    for rms, rms_db, hr, bucket, finite, broad in staged:
         lp, lf = int(st["long_pos"]), bool(st["long_filled"])
         pp, pf = int(st["play_pos"]), bool(st["play_filled"])
         long_n = tdyn.LONG_LEN if lf else max(lp, 1)
         p10_idx = int(F32(F32(long_n - 1) * k["TENTH"]))
         if mode == "exact":
-            p10 = _select_np(st["long_hist"], p10_idx)
+            p10 = F32(0) if lp == 0 and not lf else _select_np(
+                st["long_hist"], p10_idx)
+            floor_db = _db(p10, k)
         else:
-            p10 = bucket_value(_hist_kth_np(st["long_counts"], p10_idx, -1,
-                                            -1))
-        if lp == 0 and not lf:
-            p10 = F32(0)
-        floor_db = db(p10)
+            floor_db = (_db(F32(0), k) if lp == 0 and not lf
+                        else db_of[hl.kth(p10_idx, -1, -1)])
         long_count = tdyn.LONG_LEN if lf else lp
         gate_db = floor_db if long_count >= 32 else k["BOOTSTRAP_FLOOR_DB"]
         active = bool(rms_db > F32(gate_db + k["ACTIVE_SNR_DB"]))
-        mean_sq = F32(rms * rms)
-        mean_quad = F32(sum_q * inv)
-        kurt = (F32(mean_quad / F32(mean_sq * mean_sq))
-                if mean_sq > k["MEAN_SQ_MIN"] else k["KURT_DEFAULT"])
-        broad = (active and kurt >= k["KURT_LO"] and kurt <= k["KURT_HI"]
-                 and rms_db < k["BROADBAND_DB"])
         playing = active and not broad
-        upd_long = (not active) or broad
-        old_long, old_play = st["long_hist"][lp], st["play_hist"][pp]
-        inc_p = bucket_of(rms) if mode == "hist" and playing else -1
-        dec_p = (bucket_of(old_play) if mode == "hist" and playing
-                 and np.isfinite(old_play) else -1)
+        upd_long = not active or broad
+        old_play = ring_bucket[1][pp]
+        if upd_long:
+            if mode == "hist":
+                hl.add(bucket, 1)
+                hl.add(int(ring_bucket[0][lp]), -1)
+                ring_bucket[0][lp] = bucket if finite else -1
+            st["long_hist"][lp] = rms
+            st["long_pos"] = (lp + 1) % tdyn.LONG_LEN
+            st["long_filled"] = lf or st["long_pos"] == 0
         npp = (pp + 1) % tdyn.PLAY_LEN if playing else pp
         npf = pf or (playing and npp == 0)
         play_n = tdyn.PLAY_LEN if npf else npp
@@ -376,45 +431,96 @@ def kernel_np(slots, st: dict, mode: str):
             if playing:
                 ring[pp] = rms
             p50, p95 = _select_np(ring, p50_idx), _select_np(ring, p95_idx)
+            median_db = _db(p50, k) if play_n > 0 else rms_db
+            target = _lin(_raw_gain_db(p95, k) if play_n > 0 else F32(0), k)
         else:
-            p50 = bucket_value(_hist_kth_np(st["play_counts"], p50_idx,
-                                            inc_p, dec_p))
-            p95 = bucket_value(_hist_kth_np(st["play_counts"], p95_idx,
-                                            inc_p, dec_p))
-        median_db = db(p50) if play_n > 0 else rms_db
-        raw = (mn(mx(fma_np(-_log(mx(p95, k["EPS"])), k["DB_PER_LOG"],
-                            k["TARGET_DB"]), F32(0)), k["MAX_BOOST_DB"])
-               if play_n > 0 else F32(0))
+            inc = bucket if playing else -1
+            dec = int(old_play) if playing else -1
+            median_db = (db_of[hp.kth(p50_idx, inc, dec)] if play_n > 0
+                         else rms_db)
+            target = (target_of[hp.kth(p95_idx, inc, dec)] if play_n > 0
+                      else _lin(F32(0), k))
+            if playing:
+                hp.add(inc, 1)
+                hp.add(dec, -1)
+                ring_bucket[1][pp] = bucket if finite else -1
         g = F32(st["gain_linear"])
-        g = (F32(g + F32(sa * F32(lin(raw) - g))) if playing
+        g = (F32(g + F32(sa * F32(target - g))) if playing
              else F32(g + F32(si * F32(F32(1) - g))))
         st["gain_linear"] = g
-        eff = mn(g, F32(k["PEAK_HEADROOM"] / mx(peak_raw, k["EPS"])))
-        gained[s] = (x * eff).astype(F32)
+        eff = _mn(g, hr)
+        if playing:
+            st["play_hist"][pp] = rms
+        st["play_pos"], st["play_filled"] = npp, npf
         rel = F32(rms_db - median_db)
         bounds = [k[f"LEVEL_{i}"] for i in range(7)]
         level = next((i for i, bd in enumerate(bounds) if rel < bd), 7)
-        for o, v in zip(outs, (level if playing else -1, rms_db, db(eff),
-                               median_db, floor_db, eff)):
+        for o, v in zip(outs, (level if playing else -1, rms_db,
+                               _db(eff, k), median_db, floor_db, eff)):
             o.append(v)
-        if upd_long:
-            st["long_hist"][lp] = rms
-        if playing:
-            st["play_hist"][pp] = rms
-        if mode == "hist":
-            if upd_long:
-                st["long_counts"][bucket_of(rms)] += 1
-                if np.isfinite(old_long):
-                    st["long_counts"][bucket_of(old_long)] -= 1
-            if inc_p >= 0:
-                st["play_counts"][inc_p] += 1
-            if dec_p >= 0:
-                st["play_counts"][dec_p] -= 1
-        st["long_pos"] = (lp + 1) % tdyn.LONG_LEN if upd_long else lp
-        st["long_filled"] = lf or (upd_long and st["long_pos"] == 0)
-        st["play_pos"], st["play_filled"] = npp, npf
+    if mode == "hist":
+        st["long_counts"][:] = hl.counts()
+        st["play_counts"][:] = hp.counts()
     return [np.array(o, np.int32 if i == 0 else F32)
-            for i, o in enumerate(outs)], gained
+            for i, o in enumerate(outs)]
+
+
+def kernel_np(slots, st: dict, mode: str):
+    """K7's three phases for one stream, in numpy float32: the slot sums
+    (A), the scalar chain (B), the gained slots (C).  st holds the
+    stream's leaves (numpy) and changes in place; → (outs [S] x 6,
+    gained [S, L])."""
+    k = kernel_constants()
+    outs = chain_np(sums_np(slots, k), st, mode, k)
+    gained = (slots * outs[5][:, None]).astype(F32)
+    return outs, gained
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_hist_kth_prefix_search_matches_cumsum(seed):
+    """K7's percentile search over prefix counts (`HistNp.kth`, with a
+    pending increment and decrement) against the plain version's
+    first-bucket-whose-cumulative-count-exceeds-k over the adjusted counts,
+    for every k up to the total and past it, and after `add` updates."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 4, 1024) * (rng.random(1024) < 0.2)
+    h = HistNp(counts)
+    for _ in range(40):
+        inc = int(rng.integers(-1, 1024))
+        dec = int(rng.choice(np.flatnonzero(counts))) if rng.random() < 0.8 \
+            else -1
+        adj = counts.astype(np.int64).copy()
+        if inc >= 0:
+            adj[inc] += 1
+        if dec >= 0:
+            adj[dec] -= 1
+        total = int(adj.sum())
+        for k in sorted({0, 1, total // 2, total - 1, total,
+                         *rng.integers(0, total + 2, 6).tolist()}):
+            want = tdyn._hist_kth(torch.from_numpy(adj), torch.tensor(k))
+            got = _bucket_value(h.kth(k, inc, dec), kernel_constants())
+            assert got == F32(want), (seed, k, inc, dec)
+        h.add(inc, 1)
+        h.add(dec, -1)
+        counts = adj
+        np.testing.assert_array_equal(h.counts(), counts)
+
+
+@pytest.mark.parametrize("length", [1024, 480, 1])
+def test_sums_np_matches_tree_sum(slots, length):
+    """Phase (A)'s transcription (a lane a group of 32 halved, then the 32
+    partials) against the plain step's `tree_sum`, for full, short and
+    one-sample slots (the zero padding past L)."""
+    x = slots[0, :6].reshape(-1)[:6 * length].reshape(6, length)
+    k = kernel_constants()
+    staged = sums_np(x, k)
+    sq = torch.from_numpy(x) * torch.from_numpy(x)
+    inv = float(F32(1.0 / length))
+    rms = torch.sqrt(tdyn.tree_sum(sq) * inv)
+    for i, (r, r_db, hr, bucket, finite, _) in enumerate(staged):
+        assert np.float32(rms[i]).view(np.uint32) == r.view(np.uint32)
+        assert bucket == int(tdyn._bucket_of(rms[i:i + 1])[0])
+        assert finite == bool(torch.isfinite(rms[i]))
 
 
 def _bits(a):

@@ -8,8 +8,10 @@ test configuration:
 
 Small shapes of the main path's kinds; chip_smoke.py repeats the checks at
 the full main-path shapes and times them.  K6 (the reducer scan) and K7
-(the dynamics scan) are bitwise to their plain versions at B = 1, 33 and
-128, from fresh and carried states, with NaN samples and digital silence;
+(the dynamics scan) are bitwise to their plain versions at B = 1, 33, 128
+and 129, from fresh and carried states, with NaN samples and digital
+silence, K6 over T shorter than a tile and not a multiple of 4 and a hold
+across tiles, K7 over one slot and 480-sample slots;
 the full step launches K2-K7 once each and agrees with the CPU.  Tolerances: K1 max |Δ| <= 1e-5 ·
 max (3xTF32 on the tensor cores against cuBLAS FP32), and bitwise across
 batch geometries; K2, K3, K4 and K5 bitwise (K3's, K4's and K5's floats as
@@ -863,16 +865,41 @@ def _reducer_leaves(st):
     return [*st.hp, *st.lp, *st.gate]
 
 
+def _hold_streams(b: int, t: int) -> np.ndarray:
+    """[b, t]: a tone that drops 80 dB at sample 40 + 64i in stream i, so
+    that the gate's hold (960 samples at 48 kHz) starts inside a 64-sample
+    tile, runs across the tiles and across the two calls of the test."""
+    x = np.stack([gen.tone_with_harmonics(220.0 * (1 + i), t / SR48 + 0.01,
+                                          SR48, amplitude=0.3)[:t]
+                  for i in range(b)]).astype(np.float32)
+    for i in range(b):
+        x[i, 40 + 64 * i:] *= np.float32(1e-4)
+    return x
+
+
+# (B, T): None is the default length (1,500 samples at B >= 128, else
+# 3,000), each case run as two calls of T and T + 17 samples: T shorter
+# than a 64-sample tile (40), T not a multiple of the tile or of 4 (61,
+# 1001, and every T + 17), a partial block (B = 129), and "hold".
+K6_CASES = [(1, None), (33, None), (128, None), (129, 700), (1, 40), (3, 61),
+            (33, 1001), (4, "hold")]
+
+
 @pytest.mark.parametrize("gate_only", [False, True])
-@pytest.mark.parametrize("b", [1, 33, 128])
-def test_k6_matches_plain_bitwise(dev, b, gate_only):
+@pytest.mark.parametrize("b,t", K6_CASES)
+def test_k6_matches_plain_bitwise(dev, b, t, gate_only):
     """K6 against its plain version (`reduce_exact_plain`, or `gate_plain`
     for the gate-only entry), from a fresh state and then carried into a
     second chunk: outputs and state, NaNs by position, bits elsewhere.
     Each stream's bits are also its bits in a batch of one."""
     from audio_analyzer_rs_tpu_torch.ops import hopper_reducer, reducer
-    t = 1500 if b == 128 else 3000
-    x = torch.from_numpy(reducer_streams(b, 2 * t + 17, seed=b)).to(dev)
+    if t == "hold":
+        t = 500
+        x = _hold_streams(b, 2 * t + 17)
+    else:
+        t = t or (1500 if b >= 128 else 3000)
+        x = reducer_streams(b, 2 * t + 17, seed=b)
+    x = torch.from_numpy(x).to(dev)
     st = reducer.reducer_init(dev, (b,))
     launches = hopper_reducer.LAUNCHES
     for lo, hi in ((0, t), (t, 2 * t + 17)):
@@ -896,22 +923,30 @@ def test_k6_matches_plain_bitwise(dev, b, gate_only):
     assert hopper_reducer.LAUNCHES == launches + 4
 
 
+# (B, S, L): None is the default (S = 12 at B = 128, else 20; L = 1,024);
+# one slot (S = 1), a slot of 480 samples, a partial last block (B = 129).
+K7_CASES = [(1, None, 1024), (33, None, 1024), (128, None, 1024),
+            (3, 1, 1024), (5, 9, 480), (129, 6, 1024)]
+
+
 @pytest.mark.parametrize("mode", ["hist", "exact"])
-@pytest.mark.parametrize("b", [1, 33, 128])
-def test_k7_matches_plain_bitwise(dev, b, mode):
+@pytest.mark.parametrize("b,s,length", K7_CASES)
+def test_k7_matches_plain_bitwise(dev, b, s, length, mode):
     """K7 against `dynamics_scan_plain` on the card: from fresh states, and
     from carried session states (rings wrapped, histograms full); outputs,
     gained slots and every state leaf, NaNs by position.  Each stream's
     bits are also its bits in a batch of one."""
     from audio_analyzer_rs_tpu_torch.ops import dynamics, hopper_dynamics
-    s = 12 if b == 128 else 20
-    slots = torch.from_numpy(dynamics_streams(b, s, seed=b)).to(dev)
+    s = s or (12 if b == 128 else 20)
+    n = max(-(-s * length // 1024), 12)
+    audio = dynamics_streams(b, n, seed=b).reshape(b, -1)[:, :s * length]
+    slots = torch.from_numpy(audio.reshape(b, s, length).copy()).to(dev)
     for st in (dynamics.init_state(dev, (b,)),
                carried_dynamics_state(b, seed=b, device=dev)):
         st_k, out_k, g_k = hopper_dynamics.dynamics_scan(st, slots, SR48,
-                                                         1024, mode)
+                                                         length, mode)
         st_p, out_p, g_p = dynamics.dynamics_scan_plain(st, slots, SR48,
-                                                        1024, mode)
+                                                        length, mode)
         torch.cuda.synchronize()
         for name, a, c in zip(dynamics.DynamicsOut._fields, out_k, out_p):
             assert_same_bits_nan(a, c, f"K7 {mode} B={b} {name}")
@@ -920,11 +955,12 @@ def test_k7_matches_plain_bitwise(dev, b, mode):
             assert_same_bits_nan(a, c, f"K7 {mode} B={b} state {name}")
         one = dynamics.DynamicsState(*(t[:1].contiguous() for t in st))
         _, out_one, g_one = hopper_dynamics.dynamics_scan(
-            one, slots[:1].contiguous(), SR48, 1024, mode)
+            one, slots[:1].contiguous(), SR48, length, mode)
         for a, c in zip(out_one, out_k):
             assert_same_bits_nan(a[0], c[0], f"K7 B=1 vs B={b}")
         assert_same_bits_nan(g_one[0], g_k[0])
-    assert int((out_k.level >= 0).sum()) > 0
+    if s > 1:
+        assert int((out_k.level >= 0).sum()) > 0
 
 
 def test_fft_2048_mags_across_batches(dev):

@@ -54,19 +54,30 @@ def state_leaves(st):
     return [*st.hp, *st.lp, *st.gate]
 
 
-def kernel_np(x: np.ndarray, state: list):
+def kernel_tile() -> int:
+    return int(re.search(r"constexpr int TILE = (\d+);",
+                         SOURCE.read_text()).group(1))
+
+
+def kernel_np(x: np.ndarray, state: list, tile: int | None = None):
     """K6's per-sample body for one stream, in numpy float32: the biquads'
     FMA chains and the gate's release blend rounded once (`fma_np`), every
     other operation on its own, the two constants as the kernel spells
-    them.  state: [hp x1 x2 y1 y2, lp x1 x2 y1 y2, envelope, hold] →
-    (y, state)."""
+    them.  The gate as the kernel's two warps run it: the envelope and its
+    gain below the threshold, then the hold as a count of samples below the
+    threshold (z, rebased at each tile) against the count at which the hold
+    runs out (lim).  state: [hp x1 x2 y1 y2, lp x1 x2 y1 y2, envelope,
+    hold] → (y, state).  tile: the rebase's period (the kernel's TILE by
+    default)."""
     k = kernel_constants()
+    tile = tile or kernel_tile()
     hp = [F32(c) for c in tred.biquad_coeffs(tred.HPF_FREQ, SR, False)]
     lp = [F32(c) for c in tred.biquad_coeffs(tred.LPF_FREQ, SR, True)]
     rel, c1, hold_samples = tred.gate_params(SR)
     rel, c1 = F32(rel), F32(c1)
     bq = [[F32(v) for v in state[:4]], [F32(v) for v in state[4:8]]]
-    env, hold = F32(state[8]), int(state[9])
+    env = env_prev = F32(state[8])
+    z, lim = 0, int(state[9])
     out = np.empty(len(x), F32)
 
     def step(q, c, v):
@@ -77,19 +88,25 @@ def kernel_np(x: np.ndarray, state: list):
         q[:] = [v, x1, y, y1]
         return F32(y)
 
-    for i, v in enumerate(x.astype(F32)):
-        lo = step(bq[1], lp, step(bq[0], hp, v))
-        a = F32(abs(lo))
-        attack = a > env
-        blend = fma_np(rel, env, F32(c1 * a))
-        env = a if attack else F32(blend)
-        hold = hold_samples if attack else hold
-        above = env >= k["THRESHOLD"]
-        in_hold = (not above) and hold > 0
-        e4 = F32(F32(F32(F32(env * env) * env) * env) * k["GAIN_SCALE"])
-        gain = F32(1.0) if (above or in_hold) else e4
-        hold = hold - 1 if in_hold else hold
-        out[i] = F32(lo * gain)
+    x = x.astype(F32)
+    for t0 in range(0, len(x), tile):
+        lim, z = max(lim - z, -1), 0
+        for i in range(t0, min(t0 + tile, len(x))):
+            lo = step(bq[1], lp, step(bq[0], hp, x[i]))
+            # The envelope and the gain below the threshold.
+            a = F32(abs(lo))
+            blend = fma_np(rel, env, F32(c1 * a))
+            env = a if a > env else F32(blend)
+            low = F32(F32(F32(F32(env * env) * env) * env) * k["GAIN_SCALE"])
+            # The hold and the gated sample.
+            above = env >= k["THRESHOLD"]
+            if a > env_prev:
+                lim = z + hold_samples
+            keep = above or z < lim
+            out[i] = F32(lo * (F32(1.0) if keep else low))
+            z += 0 if above else 1
+            env_prev = env
+    hold = max(lim - z, 0)
     return out, [*bq[0], *bq[1], env, hold]
 
 
@@ -171,9 +188,10 @@ def test_jax_state_carries_into_the_port(streams):
 
 def test_kernel_np_matches_plain_bitwise(streams):
     """K6's transcription against the plain version: the four streams from a
-    fresh state and carried into a second chunk, and a stream of subnormal
+    fresh state and carried into a second chunk, a stream of subnormal
     samples, whose float64 sums sit below float32's normal range, where
-    the double-rounding check tests for odd multiples of 2**-150."""
+    the double-rounding check tests for odd multiples of 2**-150, and
+    carried holds of -5, 0, 3 and 700 samples (the last across tiles)."""
     tiny = (np.random.default_rng(5).standard_normal(600)
             * 1e-39).astype(F32)
     cases = [(streams[:, :2000], tred.reducer_init("cpu", (4,)))]
@@ -181,6 +199,10 @@ def test_kernel_np_matches_plain_bitwise(streams):
         streams[:, :2000].copy()), SR)
     cases.append((streams[:, 2000:3500], st_a))
     cases.append((tiny[None], tred.reducer_init("cpu", (1,))))
+    neg = tred.reducer_init("cpu", (4,))
+    neg = tred.ReducerState(neg.hp, neg.lp, tred.GateState(
+        neg.gate.envelope, torch.tensor([-5, 0, 3, 700], dtype=torch.int32)))
+    cases.append((streams[:, 2000:2300], neg))
     assert (np.abs(tiny.astype(np.float64)) < 2.0 ** -126).all()
     for x, st in cases:
         got_st, got = tred.reduce_exact_plain(
@@ -191,6 +213,23 @@ def test_kernel_np_matches_plain_bitwise(streams):
             assert_bits(got[i], y, f"stream {i}")
             for a, b in zip(state_leaves(got_st), leaves):
                 assert_bits(a[i], np.asarray(b, a.numpy().dtype))
+
+
+@pytest.mark.parametrize("tile", [1, 7, 64, 128])
+def test_kernel_np_hold_count_is_tile_independent(streams, tile):
+    """The hold as a count rebased at each tile gives the plain gate's bits
+    whatever the tile: a hold carried in (700 samples, across tiles) and
+    holds set by attacks run through tile boundaries unchanged."""
+    st = tred.reducer_init("cpu", (4,))
+    st = tred.ReducerState(st.hp, st.lp, tred.GateState(
+        st.gate.envelope, torch.tensor([0, 700, 3, 0], dtype=torch.int32)))
+    x = np.ascontiguousarray(streams[:, 1300:2200])
+    got_st, got = tred.reduce_exact_plain(st, torch.from_numpy(x), SR)
+    for i in range(4):
+        y, leaves = kernel_np(x[i], [float(a[i]) for a in state_leaves(st)],
+                              tile)
+        assert_bits(got[i], y, f"tile {tile} stream {i}")
+        assert int(got_st.gate.hold_remaining[i]) == leaves[9]
 
 
 def test_feedback_paths_agree():

@@ -58,6 +58,11 @@ Layer map (mirrors the JAX package):
                      host modules, copies of the JAX package's
   interop            JAX-package states (the full step's too) and fused
                      carries (as numpy) <-> this package's
+  devtools           the debug recorders (per-frame spectrum, floor,
+                     pitch and onset decision records; JSONL stream and
+                     its terminal view), a copy of the JAX package's
+  cli                the command-line harness (python -m
+                     audio_analyzer_rs_tpu_torch.cli ... --device cuda|cpu)
 
 Every entry point takes `device` (default "cuda"); nothing picks the CPU on
 its own.

@@ -21,8 +21,9 @@ one packed readback), or a lane of an `EnginePool` wave (api/pool.py).
 result is copied into page-locked host memory behind a CUDA event, and the
 drain waits on that event alone.  `aggregate_slots` A > 1 runs A slots in
 one `fused_slot_agg_step`.  Calibration slots at depth >= 1 dispatch
-speculatively and roll back at the calibration transition.  The debug
-recorder is not ported yet.
+speculatively and roll back at the calibration transition.
+`attach_debug_recorder` (devtools) leaves the fused path: the sequential
+consumers run, the pitch flow at full width.
 """
 
 from __future__ import annotations
@@ -538,17 +539,32 @@ class _OnsetConsumer:
             calibration_hold=not self.calibration_done)
         if out is None:
             return
-        self._post(out, base)
+        self._post(out, tick_sup, base)
 
-    def _post(self, out, base: int, anchor: Optional[dict] = None) -> None:
-        """Host side of a processed burst: calibration handling, event
-        stamping (shared by sequential and fused paths).  `anchor` is the
-        consume-time transport snapshot (see _PitchConsumer._post)."""
+    def _post(self, out, tick_sup: np.ndarray, base: int,
+              anchor: Optional[dict] = None) -> None:
+        """Host side of a processed burst: debug telemetry, calibration
+        handling, event stamping (shared by sequential and fused paths).
+        `anchor` is the consume-time transport snapshot (see
+        _PitchConsumer._post)."""
         e = self.engine
         t = e.transport
         if anchor is None:
             anchor = e._stamp_anchor()
         n = len(out.fired)
+        if e.debug_recorder is not None:
+            from .. import devtools
+            for i in range(n):
+                fired_i, det_i = bool(out.fired[i]), bool(out.detected[i])
+                e.debug_recorder.log_onset_frame(devtools.OnsetFrameRecord(
+                    frame=base + i, flux=float(out.flux[i]),
+                    burst_count=int(out.burst_count[i]), detected=det_i,
+                    fired=fired_i,
+                    status=devtools.onset_status(
+                        fired_i, det_i, bool(tick_sup[i]),
+                        bool(out.energy_rising[i]),
+                        int(out.frames_since[i]), float(out.flux[i]),
+                        int(out.burst_count[i]))))
         # Calibration timeout (ref onset.rs:361-371).  Elapsed frames come
         # from the consume-time anchor, not the live transport: a post sees
         # the clock as it stood when its slot was consumed.
@@ -599,9 +615,9 @@ class _OnsetConsumer:
                 e.onset_pending = True
 
     def _calibration_transition(self, out, base: int, anchor: dict) -> bool:
-        """Would `_post(out, base, anchor)` end the calibration hold
-        (timeout crossing or click acceptance)?  A pure pre-check with no
-        side effects, mirroring `_post`'s calibration decisions exactly:
+        """Would `_post(out, tick_sup, base, anchor)` end the calibration
+        hold (timeout crossing or click acceptance)?  A pure pre-check with
+        no side effects, mirroring `_post`'s calibration decisions exactly:
         the speculative calibration dispatch (solo `_fused_drain_entry`,
         api/pool.py) uses it to decide whether the one in-flight
         optimistic slot must be rolled back and rebuilt.  Any drift from
@@ -1150,7 +1166,7 @@ class AudioEngine:
         (transport.anchor)."""
         out, n_p, n_o, p_base, o_base, tick_sup, anchor = entry
         if n_o:
-            oc._post(out.onset, o_base, anchor=anchor)
+            oc._post(out.onset, tick_sup, o_base, anchor=anchor)
         # The device applied pending | fired to this burst's first frame;
         # clear the flag exactly like the sequential pitch consume does
         # (fires recorded by oc._post above were consumed in-burst, and
@@ -1358,12 +1374,18 @@ class AudioEngine:
         return tuner
 
     def attach_debug_recorder(self, recorder) -> None:
-        """Attach a devtools recorder to the live analysis (per-frame
-        spectrum/floor/pitch and onset decision records, ref
-        stft.rs:674-747, onset.rs:458-533).  The recorders and the
-        full-surface floor readback are not ported yet."""
-        raise NotImplementedError(
-            "attach_debug_recorder: the devtools recorders are not ported")
+        """Attach a devtools recorder (DebugRecorder / JsonlStreamRecorder)
+        to the live analysis: per-frame spectrum/floor/pitch records from
+        the active tuner (ref stft.rs:674-747) and per-frame onset decision
+        telemetry (ref onset.rs:458-533).  A JsonlStreamRecorder makes the
+        stream tail-able while the engine runs.  While one is attached the
+        engine runs the sequential consumers, the pitch flow at full width
+        (K1 and K5 over all window//2+1 bins)."""
+        self._flush_fused()
+        self.debug_recorder = recorder
+        for consumer in self._consumers.values():
+            if isinstance(consumer, _PitchConsumer):
+                consumer.analyzer.debug_recorder = recorder
 
     def start_onset_detection(self) -> OnsetDetection:
         if self.active_onset is not None:

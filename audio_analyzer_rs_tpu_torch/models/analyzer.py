@@ -34,24 +34,31 @@ class PitchChunkOut(NamedTuple):
     stable_scores: torch.Tensor  # [..., N, 8]
     stable_valid: torch.Tensor   # [..., N, 8]
     mags: torch.Tensor           # [..., N, B]
+    eff_floor: torch.Tensor      # [..., N, H] (empty [..., 0, 0] unless
+                                 # return_floor)
 
 
 def pitch_extract_frames(nf_state, frames, global_floor, sample_rate: float,
                          window: int = PITCH_WINDOW, hop: int = PITCH_HOP,
-                         backend: str = PITCH_BACKEND):
+                         backend: str = PITCH_BACKEND,
+                         return_floor: bool = False):
     """The frame-parallel front of the pitch pipeline (no tracker): frames
     [S, N, window] → (nf_state, PitchFrame [S, N, 8], mags, eff_floor).
 
     A backend suffixed "_band" (the default "dft_band") computes only the
     candidate-band bins [0, kc+1) — everything the pitch stages read — and
-    the floor recurrence runs on [0, kc) either way (floors above the
-    candidate band are never read)."""
+    the floor recurrence runs on [0, kc) (floors above the candidate band
+    are never read).  `return_floor` (the devtools recorder, which wants
+    the full surface) computes all window//2+1 bins with the "_band"
+    backend's full-width base and runs the floor recurrence over all of
+    them."""
     half = window // 2 + 1
     bin_width = float(np.float32(sample_rate) / np.float32(window))
-    band = pitch_ops.candidate_band(bin_width, half)
+    band = None if return_floor else pitch_ops.candidate_band(bin_width,
+                                                              half)
     if backend.endswith("_band"):
         mags = windowed_mags(frames, window, backend[:-len("_band")],
-                             band + 1)
+                             None if band is None else band + 1)
     else:
         mags = windowed_mags(frames, window, backend)
     nf_state, eff_floor = noisefloor.noise_floor_scan(nf_state, mags,
@@ -88,15 +95,20 @@ def floor_warmup_frames(nf_state, frames, global_floor, sample_rate: float,
 
 def pitch_analyze_frames(nf_state, tr_state, frames, global_floor, onsets,
                          sample_rate: float, window: int = PITCH_WINDOW,
-                         hop: int = PITCH_HOP, backend: str = PITCH_BACKEND):
+                         hop: int = PITCH_HOP, backend: str = PITCH_BACKEND,
+                         return_floor: bool = False):
     """Frames [S, N, window] → (nf_state, tr_state, PitchChunkOut): the
-    frame-parallel stages, then the batched tracker scan."""
-    nf_state, pf, mags, _ = pitch_extract_frames(
-        nf_state, frames, global_floor, sample_rate, window, hop, backend)
+    frame-parallel stages, then the batched tracker scan.  `return_floor`
+    as `pitch_extract_frames`; without it `eff_floor` is empty."""
+    nf_state, pf, mags, eff_floor = pitch_extract_frames(
+        nf_state, frames, global_floor, sample_rate, window, hop, backend,
+        return_floor)
     tr_state, (sf, ss, sv) = tracker.tracker_scan_batched(
         tr_state, pf.freqs, pf.scores, pf.valid, onsets)
+    if not return_floor:
+        eff_floor = mags[..., :0, :0]
     return nf_state, tr_state, PitchChunkOut(pf.freqs, pf.scores, pf.valid,
-                                             sf, ss, sv, mags)
+                                             sf, ss, sv, mags, eff_floor)
 
 
 @dataclass
@@ -111,9 +123,9 @@ class PitchAnalyzer:
     hop: int = PITCH_HOP
     backend: str = PITCH_BACKEND
     device: str = "cuda"
-    # Per-frame spectrum/floor records (the devtools recorder); the engine
-    # reads it to decide on fusion.  Recording is not ported yet, so
-    # process() raises while one is attached.
+    # devtools.DebugRecorder (optional): while set, each call computes the
+    # full-width spectrum and floor and logs one record a frame.  The
+    # engine reads it to leave its fused path.
     debug_recorder: object = None
     # Frames per device call; longer inputs are split with the state
     # carried (the pipeline is a scan, so results are identical).
@@ -137,10 +149,6 @@ class PitchAnalyzer:
         PitchChunkOut with [n, ...] leaves), or None when no frame
         completed.  `onset_pending`: optional [n_frames] bool onset flags
         (ref stft.rs:387); `onset_first` marks just the first frame."""
-        if self.debug_recorder is not None:
-            raise NotImplementedError(
-                "PitchAnalyzer: per-frame debug records (debug_recorder) "
-                "are not ported yet")
         buf = np.concatenate([self._tail, np.asarray(samples, np.float32)])
         n = num_frames(len(buf), self.window, self.hop)
         if n == 0:
@@ -157,6 +165,7 @@ class PitchAnalyzer:
                 onsets[0] = True
         buf_dev = torch.from_numpy(buf).to(self.device)
         onsets_dev = torch.from_numpy(onsets).to(self.device)
+        record = self.debug_recorder is not None
         outs = []
         for c0 in range(0, n, self.max_chunk_frames):
             c1 = min(c0 + self.max_chunk_frames, n)
@@ -167,11 +176,21 @@ class PitchAnalyzer:
             self.nf_state, self.tr_state, out = pitch_analyze_frames(
                 self.nf_state, self.tr_state, frames, gf,
                 onsets_dev[None, c0:c1], self.sample_rate, self.window,
-                self.hop, self.backend)
+                self.hop, self.backend, return_floor=record)
             outs.append(out)
+        out = PitchChunkOut(*(torch.cat(parts, 1)[0].cpu().numpy()
+                              for parts in zip(*outs)))
+        if record:
+            bin_width = self.sample_rate / self.window
+            for i in range(n):
+                stable = [(float(f), float(s)) for f, s, v in
+                          zip(out.stable_freqs[i], out.stable_scores[i],
+                              out.stable_valid[i]) if v]
+                self.debug_recorder.log_pitch_frame(
+                    self.frames_consumed + i, out.mags[i], out.eff_floor[i],
+                    bin_width, stable)
         self.frames_consumed += n
-        return PitchChunkOut(*(torch.cat(parts, 1)[0].cpu().numpy()
-                               for parts in zip(*outs)))
+        return out
 
 
 class OnsetChunkOut(NamedTuple):

@@ -1,12 +1,13 @@
 """The test signals the port's smoke run and tests render: numpy, float32.
 
 A copy of the generators of `audio_analyzer_rs_tpu.models.generators` that
-drive the ported paths (`mixed_scene`, the canonical agreement scene;
-`tone_with_harmonics`, the spectral-gate probe; `tick` and
-`calibration_click`, the onset probes), with the helpers they call, so that
-the port renders its inputs without importing the JAX package.  Same
-formulas, same order of operations, same numpy RNG stream:
-tests/test_torch_generators.py holds them bit-equal to the originals.
+drive the ported paths and the CLI (`mixed_scene`, the canonical agreement
+scene; `tone_with_harmonics`, the spectral-gate probe; `tick` and
+`calibration_click`, the onset probes; `sine`, `sweep`, `silence` and
+`adsr_envelope`), with the helpers they call, so that the port renders its
+inputs without importing the JAX package.  Same formulas, same order of
+operations, same numpy RNG stream: tests/test_torch_generators.py holds them
+bit-equal to the originals.
 """
 
 from __future__ import annotations
@@ -19,6 +20,25 @@ MIN_ENVELOPE = 0.001
 _LCG_A = 1103515245
 _LCG_C = 12345
 _LCG_MASK = 0x7FFFFFFF
+
+
+def sine(freq: float, duration_s: float, sample_rate: float,
+         amplitude: float = 1.0, phase: float = 0.0) -> np.ndarray:
+    """Pure sine, float32."""
+    n = int(round(duration_s * sample_rate))
+    t = np.arange(n, dtype=np.float64)
+    return (amplitude * np.sin(2.0 * np.pi * freq * t / sample_rate + phase)
+            ).astype(np.float32)
+
+
+def sweep(f0: float, f1: float, duration_s: float, sample_rate: float,
+          amplitude: float = 1.0) -> np.ndarray:
+    """Linear chirp f0→f1, float32."""
+    n = int(round(duration_s * sample_rate))
+    t = np.arange(n, dtype=np.float64) / sample_rate
+    k = (f1 - f0) / duration_s
+    phase = 2.0 * np.pi * (f0 * t + 0.5 * k * t * t)
+    return (amplitude * np.sin(phase)).astype(np.float32)
 
 
 def lcg_states(n: int, seed: int) -> np.ndarray:
@@ -92,6 +112,10 @@ def calibration_click(sample_rate: float, volume: float = 0.8,
     return (click + noise).astype(np.float32)
 
 
+def silence(duration_s: float, sample_rate: float) -> np.ndarray:
+    return np.zeros(int(round(duration_s * sample_rate)), dtype=np.float32)
+
+
 def tone_with_harmonics(freq: float, duration_s: float, sample_rate: float,
                         harmonics: int = 6, decay: float = 0.7,
                         amplitude: float = 0.5) -> np.ndarray:
@@ -105,6 +129,29 @@ def tone_with_harmonics(freq: float, duration_s: float, sample_rate: float,
         out += (decay ** (h - 1)) * np.sin(2.0 * np.pi * freq * h * t)
     out *= amplitude / np.max(np.abs(out))
     return out.astype(np.float32)
+
+
+def adsr_envelope(n: int, sample_rate: float, attack_sec: float,
+                  decay_sec: float, sustain_level: float, release_sec: float,
+                  sustain_samples: int) -> np.ndarray:
+    """Closed-form ADSR matching the per-sample Voice envelope recurrences
+    (ref synth.rs:150-198): linear attack to 1, linear decay to sustain,
+    hold, linear release to 0."""
+    t = np.arange(n, dtype=np.float64)
+    a = max(attack_sec, 0.001) * sample_rate
+    d_rate = (1.0 - sustain_level) / (max(decay_sec, 0.001) * sample_rate)
+    r_rate = sustain_level / (max(release_sec, 0.001) * sample_rate)
+    attack_end = a
+    decay_end = attack_end + (1.0 - sustain_level) / max(d_rate, 1e-12)
+    sustain_end = decay_end + sustain_samples
+    env = np.where(
+        t < attack_end, t / a,
+        np.where(
+            t < decay_end, 1.0 - (t - attack_end) * d_rate,
+            np.where(
+                t < sustain_end, sustain_level,
+                np.maximum(sustain_level - (t - sustain_end) * r_rate, 0.0))))
+    return env.astype(np.float32)
 
 
 def mixed_scene(duration_s: float, sample_rate: float,

@@ -103,7 +103,21 @@ Phases, one line each on standard output:
      detecting its own tone; and `warmup_mode="floor"` on the 30-minute
      pitch path against "full" (differing on exactly the frames where the
      JAX package's two modes differ on this scene, segment 0's prefix
-     bitwise), warm wall of each.
+     bitwise), warm wall of each;
+ 13. the debug surface ("devtools:" lines): K1 at full width (1,025 bins)
+     at [1, 2, 2048] and [1, 4096, 2048] within 1e-5·max of its plain
+     version, through the float64 spectral gate, its bins [0, 465) bit
+     for bit the banded launch's, timed in turns with the cuBLAS FP32
+     product; K5 over all 1,025 bins from a state that ran banded (S=1 x
+     N=4096), bitwise to the plain scan; `PitchAnalyzer` with a
+     `DebugRecorder` over 60 s of the scene (stable outputs bitwise those
+     without a recorder, one record a frame, K1/K2/K3/K5 launches, warm
+     wall); the live engine of phase 10 with a `JsonlStreamRecorder` for
+     20 s (no fused slot, onset events and tuner notes equal to the
+     sequential consumers without a recorder, one JSONL record a frame,
+     host ms a slot); and `python -m audio_analyzer_rs_tpu_torch.cli`
+     analyze (60 s, --segments auto) and tuner --debug-jsonl (10 s) as
+     subprocesses on the card (exit 0, outputs parsed, wall).
 Then the kernel table as one JSON line, the card's name and power limit, and
 last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; with no CUDA device the script exits 1 and prints no
@@ -284,16 +298,19 @@ TUNER_EXACT = ("label", "mode", "system", "base_freq", "key")
 
 
 def live_session(scene, device: str, slots: int, fused: bool = True,
-                 prepare: bool = False, on_slot=None):
+                 prepare: bool = False, on_slot=None, recorder=None):
     """The app's practice session on `device`: returns (engine, per-slot
     polls (tuner, onsets, dynamics), per-slot host ms of advance(),
-    prepare()'s result or None).  on_slot(i) runs before slot i."""
+    prepare()'s result or None).  on_slot(i) runs before slot i; a devtools
+    `recorder` is attached before the consumers start."""
     from audio_analyzer_rs_tpu_torch import AudioEngine
     from audio_analyzer_rs_tpu_torch.api.device import ArraySource
     e = AudioEngine(input_source=ArraySource(scene), sample_rate=LIVE_SR,
                     buffer_size=LIVE_SLOT, loopback_latency_samples=2048,
                     loopback_gain=1.0, device=device)
     e.fused_streaming = fused
+    if recorder is not None:
+        e.attach_debug_recorder(recorder)
     prep = e.prepare() if prepare else None
     tuner, onset = e.start_tuner(), e.start_onset_detection()
     slot_s = LIVE_SLOT / LIVE_SR
@@ -1489,6 +1506,265 @@ def fullstep_phase(rows, card: str, audio44, full_outs) -> None:
                      sm_clock=k7_clock["hist"].source))
 
 
+DEBUG_SECONDS = 60.0              # PitchAnalyzer with a recorder (phase 13)
+K1_FULL_FROM_S = 50.0             # the 30-min scene's first melody section
+DEBUG_LIVE_SLOTS = 937            # the live debug session: 20 s of slots
+DEBUG_TUNER_SECONDS = 10.0        # the CLI's tuner --debug-jsonl
+CLI_TIMEOUT_S = 300
+
+
+def pct(values, q: float) -> float:
+    ms = sorted(values)
+    return ms[int(q * (len(ms) - 1))]
+
+
+def devtools_phase(rows, card: str, audio44) -> None:
+    """Phase 13, the debug surface on the card (see the module docstring):
+    K1 and K5 at full width, `PitchAnalyzer` and the live engine with a
+    recorder, and the CLI as subprocesses."""
+    import tempfile
+    import numpy as np
+    import torch
+    from audio_analyzer_rs_tpu_torch import devtools
+    from audio_analyzer_rs_tpu_torch.models import generators as gen
+    from audio_analyzer_rs_tpu_torch.models.analyzer import PitchAnalyzer
+    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
+                                                 hopper_noisefloor,
+                                                 hopper_onset, hopper_stft,
+                                                 hopper_tracker, noisefloor,
+                                                 pitch)
+    from audio_analyzer_rs_tpu_torch.ops.fft import hann, rdft_trig
+    from audio_analyzer_rs_tpu_torch.ops.stft import (FIDELITY_MAX_REL_MSE,
+                                                      stft_mags_np)
+    from audio_analyzer_rs_tpu_torch.utils import wav
+    from audio_analyzer_rs_tpu_torch.utils.framing import (frame_signal,
+                                                           num_frames)
+    dev = torch.device("cuda")
+    window, hop, half = 2048, 512, 1025
+    bin_w = float(np.float32(SR) / np.float32(window))
+    kc = pitch.candidate_band(bin_w, half)
+    full = rdft_trig(window, dev)                 # [2048, 2050]: 1,025 bins
+    banded = full[:, :2 * (kc + 1)]
+    win = hann(window, dev)
+    by_name = {row["name"].split()[0]: row for row in rows}
+
+    # K1 at full width against its plain version, the float64 spectral
+    # gate and cuBLAS; bins [0, kc] bit for bit the banded launch's.
+    first = int(K1_FULL_FROM_S * SR)
+    x = torch.from_numpy(
+        audio44[first:first + (2 * 4096 - 1) * hop + window]).to(dev)
+    full_rows = {}
+    for n in (2, 4096):
+        frames = frame_signal(x[:(n - 1) * hop + window], window, hop)[None]
+        got = hopper_stft.dft_mag(frames, full, win)
+        ref = hopper_stft.dft_mag_plain(frames, full, win)
+        band_got = hopper_stft.dft_mag(frames, banded, win)
+        torch.cuda.synchronize()
+        assert got.shape == (1, n, half), got.shape
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        assert err <= K1_REL_TOL * scale, (n, err, scale)
+        prefix = got[..., :kc + 1].contiguous()
+        if not same_bits(prefix, band_got):
+            diff = (prefix.view(torch.int32) != band_got.view(torch.int32))
+            f, b = (int(i) for i in diff[0].nonzero()[0])
+            raise AssertionError(
+                f"K1 full width [1, {n}]: frame {f} bin {b} is "
+                f"{float(prefix[0, f, b])!r} at full width and "
+                f"{float(band_got[0, f, b])!r} banded")
+        oracle = stft_mags_np(x[:(n - 1) * hop + window].cpu().numpy(),
+                              window, hop)
+        mags = got[0].cpu().numpy()
+        mse = float(np.mean((mags - oracle) ** 2) / np.mean(oracle ** 2))
+        assert mse < FIDELITY_MAX_REL_MSE, (n, mse)
+        windowed = (frames * win).reshape(-1, window).contiguous()
+        k_ms, lib_ms, turns = in_turns(
+            lambda: hopper_stft.dft_mag(frames, full, win),
+            lambda: torch.matmul(windowed, full), KERNEL_REPS)
+        plain_ms = cuda_ms(lambda: hopper_stft.dft_mag_plain(frames, full,
+                                                             win))
+        flops = 2 * n * window * full.shape[1]
+        k_bytes = n * hop * 4 + (window - hop) * 4 + nbytes(full, win, got)
+        b_ms, b_by = bound(k_bytes, 3 * flops, TF32_FLOPS)
+        full_rows[n] = dict(ms=k_ms, library_ms=lib_ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        say(f"devtools: K1 full width {tuple(frames.shape)} -> "
+            f"{tuple(got.shape)}: max|d| {err:.3e} of max {scale:.3e} vs "
+            f"its plain version (tol {K1_REL_TOL:g}x); spectral rel MSE "
+            f"{mse:.3e} (< {FIDELITY_MAX_REL_MSE:g}); bins [0, {kc + 1}) "
+            f"bitwise the banded launch's; {k_ms:.4f} ms vs cuBLAS FP32 "
+            f"{lib_ms:.4f} ms (turns kernel/cuBLAS/kernel/cuBLAS "
+            f"{'/'.join(f'{t:.4f}' for t in turns)}), plain "
+            f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+            f"{3 * flops / 1e9:.2f} GFLOP 3xTF32, {k_bytes / 1e6:.1f} MB)")
+        del windowed, got, ref, band_got, prefix
+    k1 = by_name["K1"]
+    k1.update({f"full_width_{k}": v for k, v in full_rows[4096].items()})
+    k1.update({f"full_width_live_{k}": v for k, v in full_rows[2].items()})
+
+    # K5 over all 1,025 bins from a state that ran banded (its tail above
+    # the band frozen, never seeded from banded magnitudes), S=1 x N=4096.
+    n5 = 4096
+    fr = frame_signal(x, window, hop)[None]                 # [1, 8192, W]
+    gf = torch.full((1, n5), float(noisefloor.global_floor_linear(-96.0,
+                                                                  half)),
+                    device=dev)
+    mags_b = hopper_stft.dft_mag(fr[:, :n5], banded, win)
+    mags_f = hopper_stft.dft_mag(fr[:, n5:], full, win)
+    st_b, _ = noisefloor.noise_floor_scan(
+        noisefloor.init_state(half, dev, (1,)), mags_b, gf, kc)
+    assert not bool(st_b.floor[..., kc:].any()), "tail not frozen"
+    st_k, eff_k = noisefloor.noise_floor_scan(st_b, mags_f, gf, None)
+    st_p, eff_p = noisefloor.noise_floor_scan_plain(st_b, mags_f, gf, None)
+    torch.cuda.synchronize()
+    assert eff_k.shape == (1, n5, half)
+    assert same_bits(eff_k, eff_p), "K5 banded -> full effective differs"
+    for name, a, b in zip(noisefloor.NoiseFloorState._fields, st_k, st_p):
+        assert same_bits(a, b), f"K5 banded -> full final {name} differs"
+    k5_full_ms = cuda_ms(lambda: hopper_noisefloor.noise_floor_scan(
+        st_b, mags_f, gf, half), KERNEL_REPS)
+    k5_bytes = 2 * n5 * half * 4 + nbytes(gf) + 2 * (3 * half * 4 + 1)
+    k5_bound, k5_by = bound(k5_bytes, 30 * n5 * half, FP32_FLOPS)
+    say(f"devtools: K5 full width from a banded state (S=1 N={n5}, "
+        f"{half} bins, the tail above {kc} frozen): bitwise equal to the "
+        f"plain scan (effective floors and the final state); "
+        f"{k5_full_ms:.4f} ms; bound {k5_bound * 1e3:.2f} us ({k5_by})")
+    k5 = by_name["K5"]
+    k5.update(full_width_continuation_bitwise=True,
+              full_width_ms_s1_n4096=k5_full_ms,
+              full_width_bound_ms=k5_bound)
+    del fr, mags_b, mags_f, st_b, st_k, st_p, eff_k, eff_p
+
+    # PitchAnalyzer with a DebugRecorder over 60 s: stable outputs bit for
+    # bit the analyzer's without one, a record a frame, warm wall.
+    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_noisefloor)
+    minute = audio44[:int(DEBUG_SECONDS * SR)]
+    n60 = num_frames(len(minute), window, hop)
+    PitchAnalyzer(SR).process(minute)
+    t0 = time.perf_counter()
+    plain = PitchAnalyzer(SR).process(minute)
+    plain_s = time.perf_counter() - t0
+    PitchAnalyzer(SR, debug_recorder=devtools.DebugRecorder()).process(
+        minute[:int(5 * SR)])
+    rec = devtools.DebugRecorder(max_frames=n60)
+    an = PitchAnalyzer(SR, debug_recorder=rec)
+    for mod in counters:
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = an.process(minute)
+    debug_s = time.perf_counter() - t0
+    launches = [mod.LAUNCHES for mod in counters]
+    assert all(n > 0 for n in launches), launches
+    for name in ("stable_freqs", "stable_scores", "stable_valid"):
+        a, b = getattr(out, name), getattr(plain, name)
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), name
+    assert out.mags.shape == out.eff_floor.shape == (n60, half)
+    assert plain.eff_floor.shape == (0, 0)
+    assert [r.frame for r in rec.pitch_frames] == list(range(n60))
+    assert rec.pitch_frames[-1].noise_floor.shape == (half,)
+    assert np.isfinite(out.eff_floor).all() and plain.stable_valid.any()
+    say(f"devtools: PitchAnalyzer with a DebugRecorder over "
+        f"{DEBUG_SECONDS:.0f} s ({n60} frames): stable outputs bitwise equal to the analyzer "
+        f"without one; {len(rec.pitch_frames)} records (one a frame, "
+        f"{half}-bin spectra and floors); warm {debug_s:.3f} s against "
+        f"{plain_s:.3f} s without; launches K1/K2/K3/K5 {launches}")
+    for key, n in zip(("K1", "K2", "K3", "K5"), launches):
+        by_name[key]["launches_debug_analyzer"] = n
+    del rec, an, out, plain
+
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".devtools_") as tmp:
+        tmp = Path(tmp)
+        # The live engine in phase 10's configuration with a
+        # JsonlStreamRecorder: the sequential consumers, K1 and K5 at full
+        # width, against the sequential consumers without a recorder.
+        scene = gen.mixed_scene(DEBUG_LIVE_SLOTS * LIVE_SLOT / LIVE_SR + 0.5,
+                                LIVE_SR, seed=11)
+        live_session(scene, "cuda", 50, fused=False,
+                     recorder=devtools.DebugRecorder())
+        jsonl = tmp / "live.jsonl"
+        rec = devtools.JsonlStreamRecorder(str(jsonl))
+        counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_onset,
+                    hopper_noisefloor)
+
+        def zero(i):
+            if i == 0:
+                for mod in counters:
+                    mod.LAUNCHES = 0
+
+        e, polls, host_ms, _ = live_session(scene, "cuda", DEBUG_LIVE_SLOTS,
+                                            on_slot=zero, recorder=rec)
+        launches = [mod.LAUNCHES for mod in counters]
+        rec.close()
+        assert all(n > 0 for n in launches), launches
+        assert e._fused_slots == 0, f"{e._fused_slots} fused slots"
+        _, ref_polls, ref_ms, _ = live_session(scene, "cuda",
+                                               DEBUG_LIVE_SLOTS, fused=False)
+        same = sum(a == b for a, b in zip(polls, ref_polls))
+        events = 0
+        for k, ((t, o, d), (rt, ro, rd)) in enumerate(zip(polls, ref_polls)):
+            assert o == ro, f"live debug slot {k}: onsets {o} != {ro}"
+            assert json.loads(t)["notes"] == json.loads(rt)["notes"], k
+            events += len(json.loads(o))
+        kinds = {"pitch": 0, "onset": 0}
+        for line in jsonl.read_text().splitlines():
+            kinds[json.loads(line)["kind"]] += 1
+        pc, oc = (next(c for c in e._consumers.values()
+                       if type(c).__name__ == kind)
+                  for kind in ("_PitchConsumer", "_OnsetConsumer"))
+        assert kinds["pitch"] == pc.analyzer.frames_consumed, kinds
+        assert kinds["onset"] == oc.analyzer.frames_consumed, kinds
+        assert events > 0
+        over = sum(t > LIVE_BUDGET_MS for t in host_ms)
+        live_s = DEBUG_LIVE_SLOTS * LIVE_SLOT / LIVE_SR
+        say(f"devtools: live engine with a JsonlStreamRecorder, "
+            f"{DEBUG_LIVE_SLOTS} slots ({live_s:.1f} s), 0 fused: onset events ({events}) and tuner notes equal "
+            f"to the sequential consumers without a recorder on every slot "
+            f"({same} of {len(polls)} polls identical); {kinds['pitch']} "
+            f"pitch and {kinds['onset']} onset records, one a frame, every "
+            f"line parsed; host ms a slot p50 {pct(host_ms, 0.5):.3f}, p99 "
+            f"{pct(host_ms, 0.99):.3f}, max {max(host_ms):.3f}, {over} over "
+            f"{LIVE_BUDGET_MS:.2f} ms (without a recorder, sequential: p50 "
+            f"{pct(ref_ms, 0.5):.3f}, p99 {pct(ref_ms, 0.99):.3f}); "
+            f"launches K1/K2/K3/K4/K5 {launches}")
+        for key, n in zip(("K1", "K2", "K3", "K4", "K5"), launches):
+            by_name[key]["launches_debug_live"] = n
+
+        # The CLI as a user runs it, on the card.
+        wav60 = tmp / "minute.wav"
+        wav.write_wav(str(wav60), minute, int(SR))
+        wav10 = tmp / "ten.wav"
+        wav.write_wav(str(wav10), minute[:int(DEBUG_TUNER_SECONDS * SR)],
+                      int(SR))
+        for args, what in (
+                (["analyze", str(wav60), str(tmp / "a.jsonl"), "--segments",
+                  "auto"], "analyze 60 s --segments auto"),
+                (["tuner", str(wav10), "--debug-jsonl",
+                  str(tmp / "d.jsonl")],
+                 f"tuner {DEBUG_TUNER_SECONDS:.0f} s --debug-jsonl")):
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", f"{PKG}.cli", *args],
+                                 cwd=REPO, capture_output=True, text=True,
+                                 timeout=CLI_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            assert res.returncode == 0, (what, res.stderr[-2000:])
+            if args[0] == "analyze":
+                lines = (tmp / "a.jsonl").read_text().splitlines()
+                header = json.loads(lines[0])
+                frames = [json.loads(line) for line in lines[1:]]
+                assert header["frames"] == len(frames) == n60
+                assert any(f["stable_pitches"] for f in frames)
+                detail = (f"{len(frames)} frames, {len(header['onsets'])} "
+                          f"onsets")
+            else:
+                recs = [json.loads(line) for line in
+                        (tmp / "d.jsonl").read_text().splitlines()]
+                assert recs and {r["kind"] for r in recs} == {"pitch"}
+                assert [r["frame"] for r in recs] == list(range(len(recs)))
+                detail = (f"{len(recs)} pitch records, "
+                          f"{len(res.stdout.splitlines())} lines of output")
+            say(f"devtools: cli {what}: exit 0 in {wall:.2f} s (process "
+                f"start and the card's set-up included); {detail}")
+
+
 def main() -> int:
     if not (REPO / PKG).is_dir():
         print(f"chip_smoke: {PKG}/ is not beside this script", file=sys.stderr)
@@ -2052,6 +2328,10 @@ def main() -> int:
     # 12. The batched full chain: K6, K7, make_batched_full_step, and the
     # floor warmup.
     fullstep_phase(rows, card, audio, (sf, ss, sv))
+
+    # 13. The debug surface: K1 and K5 at full width, the recorders, the
+    # CLI.
+    devtools_phase(rows, card, audio)
 
     say(json.dumps({"kernels": rows}))
     say(f"card: {card}")

@@ -32,6 +32,7 @@ from audio_analyzer_rs_tpu.api.engine import AudioEngine as JaxEngine
 from audio_analyzer_rs_tpu_torch import interop
 from audio_analyzer_rs_tpu_torch.api import engine as E
 from audio_analyzer_rs_tpu_torch.api.device import ArraySource
+from audio_analyzer_rs_tpu_torch.devtools import DebugRecorder
 from audio_analyzer_rs_tpu_torch.models import generators as gen
 from audio_analyzer_rs_tpu_torch.ops.onset import HOP, TICK_GUARD_S, WINDOW
 from audio_analyzer_rs_tpu_torch.utils.midi import write_midi_file
@@ -338,8 +339,10 @@ def test_tick_suppression_matches_per_frame_stamping():
 def test_unported_knobs_raise_at_the_next_slot(knob, value):
     """The deferral knobs, once unported, now run: set mid-session, the
     engine goes on and after a flush has consumed the same slots with the
-    same states as a depth-0 engine.  What is still not ported, the debug
-    recorder, raises."""
+    same states as a depth-0 engine.  The debug recorder, once unported
+    too, now attaches to that engine: the next slots run the sequential
+    consumers and log a record a frame (tests/test_torch_devtools.py holds
+    the records to JAX's)."""
     engines = []
     for turn_knob in (False, True):
         e = E.AudioEngine(input_source=ArraySource(_scene()), device="cpu")
@@ -360,12 +363,18 @@ def test_unported_knobs_raise_at_the_next_slot(knob, value):
                      *o1.analyzer.state)):
         assert torch.equal(x, y)
     e = engines[1]
-    with pytest.raises(NotImplementedError, match="devtools"):
-        e.attach_debug_recorder(object())
-    pc, _ = _consumers(e)
-    pc.analyzer.debug_recorder = object()
-    with pytest.raises(NotImplementedError, match="debug_recorder"):
-        pc.analyzer.process(np.zeros(2048, np.float32))
+    rec = DebugRecorder()
+    e.attach_debug_recorder(rec)
+    pc, oc = _consumers(e)
+    assert pc.analyzer.debug_recorder is rec and e._resident is None
+    fused, frames = e._fused_slots, pc.analyzer.frames_consumed
+    e.advance(0.1)
+    e.flush_analysis()
+    assert e._fused_slots == fused
+    assert [r.frame for r in rec.pitch_frames] == list(
+        range(frames, pc.analyzer.frames_consumed))
+    assert rec.pitch_frames[-1].noise_floor.shape == (1025,)
+    assert len(rec.onset_frames) > 0
 
 
 def test_prepare_walks_the_ramp():

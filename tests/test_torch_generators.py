@@ -57,3 +57,19 @@ def test_calibration_click_bit_equal(sr, volume, n):
     ref = jgen.calibration_click(sr, volume=volume, n=n)
     assert got.dtype == ref.dtype == np.float32
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("name,args", [
+    ("sine", (440.0, 0.5, SR)),
+    ("sine", (261.63, 0.37, 48000.0, 0.3, 1.1)),
+    ("sweep", (80.0, 4000.0, 0.8, SR)),
+    ("sweep", (2000.0, 100.0, 0.25, 48000.0, 0.6)),
+    ("silence", (0.73, SR)),
+    ("adsr_envelope", (30000, SR, 0.01, 0.1, 0.6, 0.2, 9000)),
+    ("adsr_envelope", (4000, 48000.0, 0.0, 0.0, 1.0, 0.0, 100)),
+])
+def test_signal_generator_bit_equal(name, args):
+    got = getattr(tgen, name)(*args)
+    ref = getattr(jgen, name)(*args)
+    assert got.dtype == ref.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))

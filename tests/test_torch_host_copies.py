@@ -3,7 +3,7 @@
 The live engine stands on host code that imports no JAX: the theory,
 transport, tracing, MIDI and WAV modules, the audio sources and the tuner
 core, the practice package, the virtual audio device and the runtime
-binding.  The port keeps its own copies at the same paths, so that it
+binding; beside them the dev tools' recorders (`devtools.py`).  The port keeps its own copies at the same paths, so that it
 imports nothing of the JAX package, and this file holds each copy to the
 original: the same source, line for line, apart from the rewrites listed
 here (relative imports resolve inside each package, so none is needed for
@@ -31,7 +31,7 @@ SR = 48000.0
 ONE_SECOND = int(SR)
 
 COPIES = (
-    "theory.py", "transport.py", "tracing.py", "runtime.py",
+    "theory.py", "transport.py", "tracing.py", "runtime.py", "devtools.py",
     "utils/midi.py", "utils/wav.py",
     "models/sources.py", "models/calibration.py", "models/metronome.py",
     "models/synth.py", "models/player.py", "models/tuner.py",

@@ -22,6 +22,13 @@ onset frames a slot, every state carried from call to call) and NaN input
 (live audio can hold one) have tests of their own: with a NaN, every
 kernel must put its NaNs where its plain version does, and agree bit for
 bit (K1 within its tolerance) everywhere else.
+
+The debug path (the devtools recorder) runs K1 and K5 over all 1,025
+bins: K1 at full width within its tolerance of its plain version and, on
+bins [0, kc], bit for bit the banded launch's; K5 continuing over all
+bins from a state that ran banded, bitwise; `PitchAnalyzer` and the live
+engine with a recorder keep the stable outputs and polls of those
+without one, bit for bit.
 """
 
 import numpy as np
@@ -1053,3 +1060,91 @@ def test_full_step_launches_each_kernel_once(dev, monkeypatch):
     st, out = step(st, audio)
     torch.cuda.synchronize()
     assert [m.LAUNCHES - n for m, n in zip(mods, before)] == [1] * 6
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 2), (1, 3), (4, 37), (1, 300)])
+def test_k1_full_width_matches_plain_and_banded(dev, shape):
+    """K1 over all 1,025 bins (the debug path's table: 2,080 padded
+    columns, 13 column tiles) at the live shapes and beyond: within 1e-5 ·
+    max of its plain version, and bins [0, kc] bit for bit the banded
+    launch's on the same frames (a column's sum does not depend on the
+    tile that holds it)."""
+    s, n = shape
+    x = torch.from_numpy(
+        gen.tone_with_harmonics(220.0, 8.0, SR, harmonics=8, amplitude=0.4)
+        + gen.mixed_scene(8.0, SR, seed=11)).to(dev)
+    streams = torch.stack([x[i * 30000:i * 30000 + (n - 1) * HOP + W]
+                           for i in range(s)])
+    frames = frame_signal(streams, W, HOP)
+    full = rdft_trig(W, dev)
+    win = hann(W, dev)
+    got = hopper_stft.dft_mag(frames, full, win)
+    ref = hopper_stft.dft_mag_plain(frames, full, win)
+    banded = hopper_stft.dft_mag(frames, full[:, :2 * (KC + 1)], win)
+    torch.cuda.synchronize()
+    assert got.shape == (s, n, HALF)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert_same_bits(got[..., :KC + 1].contiguous(), banded)
+    assert hopper_stft._cached_split(full)[1] == 2080
+
+
+@pytest.mark.parametrize("s,n", [(1, 2), (1, 4096), (3, 31)])
+def test_k5_banded_then_full_width_bitwise(dev, s, n):
+    """A state that ran banded (its tail above the band frozen: banded
+    magnitudes never seed it) continued over all 1,025 bins, as attaching
+    a recorder mid-stream does: bitwise to the plain scan."""
+    mags_b, gf = _k5_inputs(dev, s, n, KC + 1, seed=n + 1)
+    st, _ = noisefloor.noise_floor_scan(
+        noisefloor.init_state(HALF, dev, (s,)), mags_b, gf, KC)
+    assert not bool(st.floor[..., KC:].any())
+    mags_f, gf = _k5_inputs(dev, s, n, HALF, seed=n + 2)
+    _assert_k5_matches_plain(st, mags_f, gf, None)
+
+
+def test_pitch_analyzer_recorder_keeps_its_outputs(dev):
+    """PitchAnalyzer on the card with a DebugRecorder (K1 and K5 at full
+    width) gives the stable outputs of the one without, bit for bit, and
+    a full-width record a frame."""
+    from audio_analyzer_rs_tpu_torch.devtools import DebugRecorder
+    from audio_analyzer_rs_tpu_torch.models.analyzer import PitchAnalyzer
+    x = gen.mixed_scene(6.0, SR, seed=11)
+    rec = DebugRecorder()
+    plain = PitchAnalyzer(SR, device="cuda", max_chunk_frames=100)
+    debug = PitchAnalyzer(SR, device="cuda", max_chunk_frames=100,
+                          debug_recorder=rec)
+    for part in (x[:100000], x[100000:]):
+        a, b = plain.process(part), debug.process(part)
+        for name in ("stable_freqs", "stable_scores", "stable_valid"):
+            np.testing.assert_array_equal(getattr(a, name).view(np.uint8),
+                                          getattr(b, name).view(np.uint8))
+    assert b.stable_valid.any()
+    assert [r.frame for r in rec.pitch_frames] == list(
+        range(debug.frames_consumed))
+    assert rec.pitch_frames[-1].noise_floor.shape == (HALF,)
+
+
+def test_engine_with_recorder_on_the_card(dev):
+    """The live engine with a recorder attached at slot 30: no fused slot
+    from then on, and the polls equal an engine without one."""
+    from audio_analyzer_rs_tpu_torch.api.device import ArraySource
+    from audio_analyzer_rs_tpu_torch.api.engine import AudioEngine
+    from audio_analyzer_rs_tpu_torch.devtools import DebugRecorder
+    scene = gen.mixed_scene(3.0, SR48, seed=11)
+    runs = []
+    for attach in (False, True):
+        e = AudioEngine(input_source=ArraySource(scene), sample_rate=SR48,
+                        loopback_latency_samples=2048, loopback_gain=1.0,
+                        device="cuda")
+        tuner, onset = e.start_tuner(), e.start_onset_detection()
+        rec, polls = DebugRecorder(), []
+        for k in range(120):
+            if attach and k == 30:
+                fused = e._fused_slots
+                e.attach_debug_recorder(rec)
+            e.advance(1024 / SR48)
+            polls.append((tuner.poll_output(), onset.poll_onsets(),
+                          e.poll_dynamics()))
+        runs.append(polls)
+    assert runs[0] == runs[1]
+    assert e._fused_slots == fused == 30
+    assert rec.pitch_frames and rec.onset_frames

@@ -174,12 +174,12 @@ class TransitionLog:
         orig = self._orig = E._OnsetConsumer._post
         records = self.records
 
-        def post(oc, out, base, anchor=None):
+        def post(oc, out, tick_sup, base, anchor=None):
             if anchor is None:
                 anchor = oc.engine._stamp_anchor()
             predicted = oc._calibration_transition(out, base, anchor)
             before = oc.calibration_done
-            orig(oc, out, base, anchor=anchor)
+            orig(oc, out, tick_sup, base, anchor=anchor)
             records.append((predicted, not before and oc.calibration_done))
         E._OnsetConsumer._post = post
         return self

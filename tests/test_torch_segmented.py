@@ -236,6 +236,11 @@ def test_port_runs_without_jax_in_a_fresh_process():
         "st, out = step(init_stream_states(1, device='cpu'), "
         "x[None, :4096])\n"
         "assert out.stable_freqs.shape == (1, 5, 8)\n"
+        "from audio_analyzer_rs_tpu_torch import cli, devtools\n"
+        "rec = devtools.DebugRecorder()\n"
+        "e.attach_debug_recorder(rec)\n"
+        "e.advance(0.1)\n"
+        "assert rec.pitch_frames and rec.onset_frames\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -265,7 +270,7 @@ def test_source_scan():
     assert len(files) >= 15
     for new in ("api/pool.py", "api/rpc.py", "checkpoint.py",
                 "parallel/sharding.py", "ops/hopper_reducer.py",
-                "ops/hopper_dynamics.py"):
+                "ops/hopper_dynamics.py", "devtools.py", "cli.py"):
         assert PORT / new in files, new
     for path in files:
         assert "torch.compile" not in path.read_text(), path

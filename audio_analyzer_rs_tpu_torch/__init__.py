@@ -34,10 +34,12 @@ Layer map (mirrors the JAX package):
   models/analyzer    PitchAnalyzer and OnsetAnalyzer (sequential streaming);
                      fused_slot_step, the live engine's per-slot program
                      (both flows, carries on the device) for one engine or
-                     K lanes; fused_slot_agg_step (A slots chained) and
-                     fused_slot_pool_step (an engine pool's wave)
+                     K lanes; fused_slot_agg_step (A slots chained),
+                     fused_slot_pool_step (an engine pool's wave) and
+                     fused_slot_pool_step_stacked (the wave over stacked
+                     carries, the form the mesh shards)
   models/segmented   segment-parallel and batched offline pitch and onset
-                     analysis
+                     analysis, on one card or shared over a mesh
   api/engine         AudioEngine, the uniffi-shaped live engine: virtual
                      audio device, host reducer and AGC, tuner, onset
                      detection with loopback calibration, practice
@@ -51,8 +53,19 @@ Layer map (mirrors the JAX package):
                      (the JAX package's file format)
   api/device         the virtual audio device and its input sources
   runtime            the C++ host reducer, built when possible
+  parallel/mesh      make_mesh (a 1-D torch DeviceMesh named "data"),
+                     batch_sharding, replicated: data parallelism over
+                     torch.distributed ranks
   parallel/sharding  make_batched_full_step: reducer -> AGC -> pitch ->
-                     onset over a batch of B streams on one card
+                     onset over a batch of B streams, on one card or each
+                     rank its share with the fleet statistics all-reduced;
+                     make_pooled_wave_step: an engine pool's lanes shared
+                     over a mesh
+  parallel/dryrun    dryrun_multichip(n): the mesh over n gloo processes
+                     on the CPU, held to one process
+  ops/gather         the Mosaic probe's lane gathers (kernels K8 and K9:
+                     ops/hopper_gather.py, csrc/gather.cu; their path is
+                     port_tools/gather_probe.py)
   models/{sources,calibration,metronome,synth,player,tuner}, practice/,
   theory, transport, tracing, utils/{midi,wav}
                      host modules, copies of the JAX package's
@@ -88,7 +101,9 @@ _EXPORTS = {
     "models.analyzer": ("PitchAnalyzer", "OnsetAnalyzer"),
     "ops.reducer": ("reduce_signal",),
     "ops.dynamics": ("dynamics_scan",),
-    "parallel.sharding": ("make_batched_full_step", "init_stream_states"),
+    "parallel.sharding": ("make_batched_full_step", "init_stream_states",
+                          "make_pooled_wave_step"),
+    "parallel.mesh": ("make_mesh",),
     "api.engine": ("AudioEngine",),
     "api.pool": ("EnginePool",),
     "transport": ("MusicalTransport",),

@@ -66,6 +66,9 @@ _SIGNATURES = {
     # silence alpha, stream
     "aat_dynamics_scan": (_P,) * 26 + (_I, _I, _I, _I)
     + (ctypes.c_float,) * 3 + (_P,),
+    # x, idx, out, rows, columns, stream
+    "aat_lane_gather": (_P, _P, _P, _I, _I, _P),
+    "aat_comb_gather12": (_P, _P, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()

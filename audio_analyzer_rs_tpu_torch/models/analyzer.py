@@ -502,6 +502,24 @@ def unstack_carries(stacked: PoolCarries, n: int) -> list:
                         pend[k:k + 1], pt[k], ot[k]) for k in range(n)]
 
 
+def _pool_wave_stacked(stacked: PoolCarries, host_vecs: torch.Tensor,
+                       sample_rate: float, slot_len: int, n_slots: int,
+                       p_window: int, p_hop: int, o_window: int, o_hop: int,
+                       pitch_backend: str, onset_backend: str):
+    """The pool wave over pre-stacked [C, ...] carries: the body of both
+    `fused_slot_pool_step` and `fused_slot_pool_step_stacked` (JAX
+    `_pool_wave_stacked`, models/analyzer.py:528).  The lanes are
+    `fused_slot_agg_step`'s lane axis, where the JAX package vmaps one
+    engine's program."""
+    if host_vecs.shape[0] != stacked.pending.shape[0]:
+        raise ValueError(f"pool wave: {stacked.pending.shape[0]} lanes, "
+                         f"{host_vecs.shape[0]} host vectors")
+    *new, out = fused_slot_agg_step(
+        *stacked, host_vecs, sample_rate, slot_len, n_slots, p_window, p_hop,
+        o_window, o_hop, pitch_backend, onset_backend)
+    return PoolCarries(*new), out
+
+
 def fused_slot_pool_step(states, host_vecs: torch.Tensor, sample_rate: float,
                          slot_len: int, n_slots: int,
                          p_window: int = PITCH_WINDOW, p_hop: int = PITCH_HOP,
@@ -527,16 +545,32 @@ def fused_slot_pool_step(states, host_vecs: torch.Tensor, sample_rate: float,
     card (K1's frames, K2-K5's streams and the plain ops are independent of
     the batch) and on the CPU while the plain matmul's rounding does not
     depend on its row count (2C frames <= 128 with one thread).  Port of
-    `fused_slot_pool_step` (models/analyzer.py:478) with its body
-    `_pool_wave_stacked` (:528): the lanes are `fused_slot_agg_step`'s lane
-    axis, where the JAX package vmaps one engine's program."""
-    if host_vecs.shape[0] != len(states):
-        raise ValueError(f"fused_slot_pool_step: {len(states)} engines, "
-                         f"{host_vecs.shape[0]} host vectors")
-    *new, out = fused_slot_agg_step(
-        *stack_carries(states), host_vecs, sample_rate, slot_len, n_slots,
+    `fused_slot_pool_step` (models/analyzer.py:478); its body is
+    `_pool_wave_stacked`, shared with `fused_slot_pool_step_stacked`."""
+    new, out = _pool_wave_stacked(
+        stack_carries(states), host_vecs, sample_rate, slot_len, n_slots,
         p_window, p_hop, o_window, o_hop, pitch_backend, onset_backend)
-    return unstack_carries(PoolCarries(*new), len(states)), out
+    return unstack_carries(new, len(states)), out
+
+
+def fused_slot_pool_step_stacked(stacked: PoolCarries, host_vecs: torch.Tensor,
+                                 sample_rate: float, slot_len: int,
+                                 n_slots: int, p_window: int = PITCH_WINDOW,
+                                 p_hop: int = PITCH_HOP,
+                                 o_window: int = ONSET_WINDOW,
+                                 o_hop: int = ONSET_HOP,
+                                 pitch_backend: str = PITCH_BACKEND,
+                                 onset_backend: str = DEFAULT_BACKEND):
+    """`fused_slot_pool_step` over PRE-STACKED carries (`stack_carries`: one
+    PoolCarries of [C, ...] leaves): the multi-card classroom form.  The
+    lanes never communicate, so a rank that holds some lanes' carries and
+    host rows runs them alone (parallel/sharding.py
+    `make_pooled_wave_step`).  Returns (new stacked PoolCarries, packed
+    outputs over these lanes, leaf-major and lane-minor).  Port of
+    `fused_slot_pool_step_stacked` (models/analyzer.py:552)."""
+    return _pool_wave_stacked(stacked, host_vecs, sample_rate, slot_len,
+                              n_slots, p_window, p_hop, o_window, o_hop,
+                              pitch_backend, onset_backend)
 
 
 @dataclass

@@ -9,8 +9,13 @@ the tracker K3) -> the onset pipeline (the "fft" STFT, the onset scan K4),
 every stage once over the whole batch, each stream's states carried to its
 next chunk.  The JAX package vmaps one stream's chain and shards the batch
 over a device mesh with `shard_map`, whose only collectives are the fleet
-statistics; on one card those are plain sums over B.  The mesh is not
-ported yet: `mesh` must be None.
+statistics (three `psum`s).  Here `mesh=None` runs the whole batch on one
+card; with a mesh (parallel/mesh.py) every rank passes its [B / world, T]
+rows and their states, gets its own rows back, and the fleet statistics
+are all-reduced over the mesh, so every rank sees the same scalars.
+
+`make_pooled_wave_step` shares an engine pool's lanes over a mesh: the
+lanes never communicate, so each rank runs its own with no collective.
 
 Each pitch and onset frame reads the AGC noise floor of the slot holding
 its last sample (the reference's STFT worker reads the floor right after
@@ -21,13 +26,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..ops import dynamics, noisefloor, onset as onset_ops, pitch as pitch_ops
 from ..ops import reducer, tracker
 from ..ops.stft import ONSET_WINDOW, PITCH_WINDOW, windowed_mags
 from ..utils.framing import frame_signal
+from .mesh import check_mesh, replicated
 
 
 class FullStepOut(NamedTuple):
@@ -112,6 +117,26 @@ def _batched_stream_step(states: StreamStates, audio: torch.Tensor,
                         floors_db[:, -1])
 
 
+def fleet_statistics(gf_db: torch.Tensor, fired: torch.Tensor,
+                     psum=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fleet's mean last-slot floor and its onsets from this card's
+    streams: the JAX step's `psum(sum(gf_db)) / total_b` and
+    `psum(sum(fired))`, with `psum` the sum over the mesh (None: one card).
+    The mean is the floor sum times the float32 reciprocal of the stream
+    count, the form XLA gives JAX's division: the per-device sums added,
+    then multiplied by 1 / total_b rounded to float32 (bit for bit on the
+    JAX package's 8-device CPU mesh at B = 8, 24 and 40, and on one device
+    at B = 3 and 5, where a division differs)."""
+    psum = psum or (lambda t: t)
+    floor_sum = psum(gf_db.sum().reshape(1))
+    counts = psum(torch.stack([
+        torch.full((), gf_db.shape[0], dtype=torch.int64,
+                   device=gf_db.device),
+        fired.to(torch.int64).sum()]))
+    global_floor = floor_sum[0] * (1.0 / counts[0].to(torch.float32))
+    return global_floor, counts[1].to(torch.int32)
+
+
 def make_batched_full_step(mesh, sample_rate: float, slot_len: int = 1024,
                            pitch_hop: int = 512, onset_hop: int = 64,
                            dyn_mode: str = "hist", device="cuda"):
@@ -119,10 +144,15 @@ def make_batched_full_step(mesh, sample_rate: float, slot_len: int = 1024,
     FullStepOut).  `audio` is a float32 tensor or array (uploaded to
     `device`); the states come from `init_stream_states(B, device=...)`.
     T must hold at least one slot and one pitch frame.  `dyn_mode`: the AGC
-    percentiles, "hist" (default) or "exact".  `mesh` must be None (one
-    card): the mesh is not ported yet."""
+    percentiles, "hist" (default) or "exact".
+
+    `mesh`: None (one card, the whole batch) or a 1-D DeviceMesh: every
+    rank of it calls the step with its own [B / world, T] rows and their
+    states and gets its rows' states and outputs back; the fleet
+    statistics are the all-reduced sums (`fleet_statistics`), the same on
+    every rank.  At world size 1 the step is bitwise the mesh-free one."""
     if mesh is not None:
-        raise NotImplementedError("mesh is not ported yet")
+        check_mesh(mesh, device)
     if dyn_mode not in ("hist", "exact"):
         raise ValueError(f"dyn_mode={dyn_mode!r}: expected 'hist' or "
                          "'exact'")
@@ -140,10 +170,60 @@ def make_batched_full_step(mesh, sample_rate: float, slot_len: int = 1024,
             onset_hop, dyn_mode)
         # The fleet statistics (the JAX step's psums over the mesh): the
         # mean of the streams' last-slot floors, the total of their onsets.
-        b = audio.shape[0]
-        global_floor = gf_db.sum() * float(np.float32(1.0 / b))
-        global_onsets = fired.to(torch.int32).sum().to(torch.int32)
+        global_floor, global_onsets = fleet_statistics(
+            gf_db, fired, None if mesh is None else replicated(mesh).sum)
         return states, FullStepOut(sf, sv, fired, vel, level, global_floor,
                                    global_onsets)
 
     return step
+
+
+def make_pooled_wave_step(mesh, sample_rate: float, slot_len: int = 1024,
+                          n_slots: int = 1, device="cuda"):
+    """The multi-card classroom: an engine pool's slot waves with its C lanes
+    shared over a mesh (port of the JAX `make_pooled_wave_step`).
+
+    The lanes never communicate, so each rank runs its own share with no
+    collective.  Returns `(place, step)`:
+
+      place(stacked, host_vecs) -> this rank's lanes of the pre-stacked
+          carries of all C lanes (`models.analyzer.stack_carries`) and of
+          the [C, L] host rows of a wave, on `device` (C a multiple of the
+          mesh's size); either argument may be None, and comes back None
+          (the carries are placed once, each wave's rows as they come);
+      step(stacked, host_vecs, p_tail_len, o_tail_len) ->
+          (new_stacked, packed): `fused_slot_pool_step_stacked` with this
+          wave geometry over the rank's lanes; `packed` holds their
+          outputs, leaf-major and lane-minor (`unpack_fused_pool_out` with
+          this rank's lane count).
+
+    Every lane's carries and outputs are bitwise those of the
+    single-card pool step (held by the multichip dryrun,
+    parallel/dryrun.py, and the tests)."""
+    from ..models.analyzer import fused_slot_pool_step_stacked
+    from .mesh import batch_sharding
+    check_mesh(mesh, device)
+    sharding = batch_sharding(mesh)
+
+    def to_device(t):
+        return torch.as_tensor(t).to(device).contiguous()
+
+    def place(stacked, host_vecs):
+        if stacked is not None:
+            stacked = type(stacked)(*(
+                type(part)(*map(to_device, sharding.shard(part)))
+                if isinstance(part, tuple) else to_device(sharding.shard(part))
+                for part in stacked))
+        if host_vecs is not None:
+            host_vecs = to_device(sharding.shard(host_vecs))
+        return stacked, host_vecs
+
+    def step(stacked, host_vecs, p_tail_len: int, o_tail_len: int):
+        tails = (stacked.p_tail.shape[-1], stacked.o_tail.shape[-1])
+        if tails != (p_tail_len, o_tail_len):
+            raise ValueError(f"tails of {tails} samples, the wave geometry "
+                             f"says {(p_tail_len, o_tail_len)}")
+        return fused_slot_pool_step_stacked(stacked, host_vecs, sample_rate,
+                                            slot_len, n_slots)
+
+    return place, step

@@ -117,7 +117,24 @@ Phases, one line each on standard output:
      sequential consumers without a recorder, one JSONL record a frame,
      host ms a slot); and `python -m audio_analyzer_rs_tpu_torch.cli`
      analyze (60 s, --segments auto) and tuner --debug-jsonl (10 s) as
-     subprocesses on the card (exit 0, outputs parsed, wall).
+     subprocesses on the card (exit 0, outputs parsed, wall);
+ 14. the probe's gathers and the mesh ("gather:" and "mesh:" lines): K8
+     (lane_gather) and K9 (comb_gather12) through port_tools/
+     gather_probe.py's five cases and its index edge cases (wrapped
+     negative and out-of-range indices, -0.0), bitwise to numpy and to the
+     plain versions, with the launch counts of that run; each timed at
+     [8, 7296] beside its bound, K8 in turns with torch.gather.  The mesh
+     at world size 1 (an NCCL group through a FileStore):
+     `segmented_pitch_analysis(mesh=...)` over the 30-minute scene bitwise
+     to phase 4's outputs (warm wall, K1/K2/K3/K5 launched), one
+     `make_batched_full_step(mesh, ...)` step at phase 12's configuration
+     bitwise to phase 12's first step, `make_pooled_wave_step` over 33
+     lanes x 3 chained waves bitwise to `fused_slot_pool_step`.  Then two
+     ranks on the one card (spawned processes, gloo: NCCL refuses two ranks
+     on one GPU): the full step at B = 16 (8 a rank) bitwise to world size
+     1 with the STFT equalized (cuFFT's flips counted without), the
+     segmented pitch path over the first minute at 8 segments bitwise, and
+     the pooled wave (8 lanes x 3 waves) bitwise.
 Then the kernel table as one JSON line, the card's name and power limit, and
 last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; with no CUDA device the script exits 1 and prints no
@@ -1097,10 +1114,12 @@ def same_bits_nan(a, b) -> bool:
                             torch.where(bn, 0, b.view(torch.int32))))
 
 
-def fullstep_phase(rows, card: str, audio44, full_outs) -> None:
+def fullstep_phase(rows, card: str, audio44, full_outs):
     """Phase 12: K6 and K7 against their plain versions and timed at the
     full step's shape; the batched full step over 128 streams x 3 chunks;
-    its gates; the floor warmup on the 30-minute pitch path."""
+    its gates; the floor warmup on the 30-minute pitch path.  Returns the
+    fleet's first chunk (on the card) and the step's output on it from
+    fresh states, for phase 14."""
     import numpy as np
     import torch
     from audio_analyzer_rs_tpu_torch.models import generators as gen
@@ -1455,6 +1474,7 @@ def fullstep_phase(rows, card: str, audio44, full_outs) -> None:
         f"and {raw_err[1]} fired flips, frequencies within "
         f"{raw_err[2]:.1e}, velocities {raw_err[3]:.1e}; 8 streams each "
         f"detect their own tone")
+    first = (chunks[0], outs[0])
     del fleet, chunks, outs, last, states, st
 
     # 4. The floor warmup on the 30-minute pitch path against "full".
@@ -1504,6 +1524,7 @@ def fullstep_phase(rows, card: str, audio44, full_outs) -> None:
                      per_slot_ns=k7_ns, per_slot_cycles=k7_cycles,
                      sm_mhz=k7_clock["hist"].mhz,
                      sm_clock=k7_clock["hist"].source))
+    return first
 
 
 DEBUG_SECONDS = 60.0              # PitchAnalyzer with a recorder (phase 13)
@@ -1763,6 +1784,245 @@ def devtools_phase(rows, card: str, audio44) -> None:
                           f"{len(res.stdout.splitlines())} lines of output")
             say(f"devtools: cli {what}: exit 0 in {wall:.2f} s (process "
                 f"start and the card's set-up included); {detail}")
+
+
+GATHER_F, GATHER_P = 8, 7296      # the probe's comb-shaped row (phase 14)
+MESH_LANES = 33                   # the pooled wave at world size 1 ...
+MESH_WAVES = 3                    # ... chained waves
+TWO_RANK_B = 16                   # the full step's fleet over two ranks
+TWO_RANK_LANES = 8
+TWO_RANK_SEGMENTS = 8
+TWO_RANK_SECONDS = 60.0           # the scene's first minute, segmented
+TWO_RANK_TIMEOUT_S = 300.0
+
+
+def _probe():
+    """port_tools/gather_probe.py, the probe's twin."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "gather_probe", REPO / "port_tools" / "gather_probe.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def gather_phase(rows) -> None:
+    """Phase 14a: K8 and K9 through the probe's path (its five cases and
+    the index edge cases, bitwise to numpy and the plain versions), the
+    launch counts of that run, then each kernel timed at [8, 7296] beside
+    its bound, K8 beside torch.gather."""
+    import numpy as np
+    import torch
+    from audio_analyzer_rs_tpu_torch.ops import gather, hopper_gather
+    probe = _probe()
+    hopper_gather.LAUNCHES_K8 = hopper_gather.LAUNCHES_K9 = 0
+    res = probe.check_cases(say=lambda line: say(f"gather: {line}"))
+    launches = (hopper_gather.LAUNCHES_K8, hopper_gather.LAUNCHES_K9)
+    assert all(res["ok"].values()), res["ok"]
+    assert all(n > 0 for n in launches), launches
+    dev = torch.device("cuda")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (GATHER_F, GATHER_P)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(probe.comb_index()).to(dev)
+    idx64 = idx.long()
+    k8_ms, lib_ms, k8_turns = in_turns(
+        lambda: hopper_gather.lane_gather(x, idx),
+        lambda: torch.gather(x, 1, idx64), KERNEL_REPS)
+    k9_ms = cuda_ms(lambda: hopper_gather.comb_gather12(x, idx), KERNEL_REPS)
+    k8_plain = cuda_ms(lambda: gather.lane_gather(x, idx))
+    k9_plain = cuda_ms(lambda: gather.comb_gather12(x, idx))
+    # Bytes: x and idx read once, the output written once; K9's 12 adds an
+    # output are far below the FP32 rate's bound.
+    g_bytes = 3 * GATHER_F * GATHER_P * 4
+    k8_bound, k8_by = bound(g_bytes, 0, FP32_FLOPS)
+    k9_bound, k9_by = bound(g_bytes, 12 * GATHER_F * GATHER_P, FP32_FLOPS)
+    say(f"gather: K8 lane_gather and K9 comb_gather12 bitwise to numpy and "
+        f"to their plain versions in all {len(res['ok'])} cases; launches "
+        f"K8/K9 over the probe's run {list(launches)}; at [{GATHER_F}, "
+        f"{GATHER_P}] K8 {k8_ms * 1e3:.2f} us vs torch.gather "
+        f"{lib_ms * 1e3:.2f} us (turns "
+        f"{'/'.join(f'{t * 1e3:.2f}' for t in k8_turns)} us), plain "
+        f"{k8_plain * 1e3:.1f} us; K9 {k9_ms * 1e3:.2f} us, plain "
+        f"{k9_plain * 1e3:.1f} us; bound {k8_bound * 1e3:.3f} us each "
+        f"({k8_by}: {g_bytes / 1e6:.2f} MB)")
+    rows.append(dict(name="K8 lane_gather (the probe's take_along_axis)",
+                     route="cuda", source=f"{PKG}/csrc/gather.cu",
+                     replaces="tools/mosaic_probe.py:24",
+                     launches=launches[0], max_abs_err=res["max_abs_err"]["K8"],
+                     ms=k8_ms, plain_ms=k8_plain, bound_ms=k8_bound,
+                     bound_by=k8_by, library_ms=lib_ms))
+    rows.append(dict(name="K9 comb_gather12 (the probe's 12 summed gathers)",
+                     route="cuda", source=f"{PKG}/csrc/gather.cu",
+                     replaces="tools/mosaic_probe.py:83",
+                     launches=launches[1], max_abs_err=res["max_abs_err"]["K9"],
+                     ms=k9_ms, plain_ms=k9_plain, bound_ms=k9_bound,
+                     bound_by=k9_by, library_ms=None))
+
+
+def per_stream_mags(frames, window, backend="fft", band=None):
+    """The full step's STFT with each stream's magnitudes computed alone:
+    cuFFT's 2,048-point bits depend on the batch (ROADMAP Queue 3), so the
+    mesh's gates equalize them, as phase 12's do."""
+    import torch
+    from audio_analyzer_rs_tpu_torch.ops.stft import windowed_mags
+    return torch.cat([windowed_mags(frames[i:i + 1], window, backend, band)
+                      for i in range(frames.shape[0])])
+
+
+def _full_step_outs(mesh, audio, equalized: bool):
+    """One full step from fresh states over `audio` (this rank's rows with
+    a mesh), the STFT per stream or cuFFT's batch; outputs on the host."""
+    import torch
+    from audio_analyzer_rs_tpu_torch.parallel import mesh as pmesh
+    from audio_analyzer_rs_tpu_torch.parallel import sharding
+    windowed = sharding.windowed_mags
+    states = sharding.init_stream_states(TWO_RANK_B)
+    if mesh is not None:
+        states = pmesh.batch_sharding(mesh).shard(states)
+    if equalized:
+        sharding.windowed_mags = per_stream_mags
+    try:
+        _, out = sharding.make_batched_full_step(mesh, FULL_SR)(states, audio)
+    finally:
+        sharding.windowed_mags = windowed
+    torch.cuda.synchronize()
+    return sharding.FullStepOut(*(t.cpu() for t in out))
+
+
+def two_rank_case(rank: int, world: int, audio16, scene):
+    """Phase 14c on one of two ranks sharing the card (gloo): the full step
+    over this rank's streams (equalized and cuFFT's), the segmented pitch
+    path, and the pooled wave, bitwise to one process."""
+    import torch
+    from audio_analyzer_rs_tpu_torch.models import segmented
+    from audio_analyzer_rs_tpu_torch.parallel import dryrun
+    from audio_analyzer_rs_tpu_torch.parallel import mesh as pmesh
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    mesh = pmesh.make_mesh("cuda")
+    local = pmesh.batch_sharding(mesh).shard(torch.from_numpy(audio16)).cuda()
+    out = {"equalized": _full_step_outs(mesh, local, True),
+           "cufft": _full_step_outs(mesh, local, False)}
+    out["segmented"] = segmented.segmented_pitch_analysis(
+        scene, SR, segments=TWO_RANK_SEGMENTS, mesh=mesh)
+    out["pool"] = dryrun.pooled_wave_check(mesh, TWO_RANK_LANES, MESH_WAVES,
+                                           seed=7, device="cuda")
+    out["backend"] = str(torch.distributed.get_backend())
+    return out
+
+
+def mesh_phase(card: str, audio44, full_outs, fleet_chunk,
+               fleet_out) -> None:
+    """Phase 14b and 14c: the mesh on the card.  World size 1 (NCCL, a
+    FileStore): the 30-minute segmented pitch path bitwise to phase 4's
+    mesh-free outputs, one full step at phase 12's configuration bitwise
+    to phase 12's first step, the pooled wave over 33 lanes x 3 waves
+    bitwise to `fused_slot_pool_step`.  Then two ranks on the one card
+    (spawned, gloo): the full step at B = 16 bitwise to world size 1 with
+    the STFT equalized (flips counted with cuFFT's batches), the segmented
+    pitch path at 8 segments bitwise, the pooled wave bitwise."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from audio_analyzer_rs_tpu_torch.models import segmented
+    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
+                                                 hopper_noisefloor,
+                                                 hopper_stft, hopper_tracker)
+    from audio_analyzer_rs_tpu_torch.parallel import dryrun
+    from audio_analyzer_rs_tpu_torch.parallel import mesh as pmesh
+    from audio_analyzer_rs_tpu_torch.parallel import sharding
+    t_phase = time.perf_counter()
+    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_noisefloor)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(Path(tmp) / "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = pmesh.make_mesh("cuda")
+            t0 = time.perf_counter()
+            segmented.segmented_pitch_analysis(audio44, SR, mesh=mesh)
+            cold = time.perf_counter() - t0
+            for mod in counters:
+                mod.LAUNCHES = 0
+            t0 = time.perf_counter()
+            got = segmented.segmented_pitch_analysis(audio44, SR, mesh=mesh)
+            warm = time.perf_counter() - t0
+            launches = [mod.LAUNCHES for mod in counters]
+            assert all(n > 0 for n in launches), launches
+            for a, b in zip(got, full_outs):
+                assert a.dtype == b.dtype and np.array_equal(a, b)
+            _, out = sharding.make_batched_full_step(mesh, FULL_SR)(
+                sharding.init_stream_states(FULL_B), fleet_chunk)
+            for name, a, b in zip(sharding.FullStepOut._fields, out,
+                                  fleet_out):
+                assert same_bits_nan(a, b), f"full step on the mesh: {name}"
+            pool = dryrun.pooled_wave_check(mesh, MESH_LANES, MESH_WAVES,
+                                            seed=5, device="cuda")
+        finally:
+            dist.destroy_process_group()
+    del out
+    say(f"mesh: world size 1 (NCCL): segmented_pitch_analysis 30 min on the "
+        f"mesh bitwise to phase 4's mesh-free run, cold {cold:.2f} s, warm "
+        f"{warm:.3f} s, launches K1/K2/K3/K5 {launches}; "
+        f"make_batched_full_step {FULL_B} streams x {fleet_chunk.shape[1]} "
+        f"samples bitwise to phase 12's first step (every output, the fleet "
+        f"statistics included); make_pooled_wave_step {pool['lanes']} lanes "
+        f"x {pool['waves']} waves bitwise to fused_slot_pool_step")
+
+    # Two ranks on the one card.
+    audio16 = fleet_chunk[:TWO_RANK_B].cpu().numpy()
+    scene = audio44[:int(TWO_RANK_SECONDS * SR)]
+    t0 = time.perf_counter()
+    ranks = dryrun.run_world(two_rank_case, 2, audio16, scene,
+                             timeout=TWO_RANK_TIMEOUT_S)
+    two_s = time.perf_counter() - t0
+    x16 = torch.from_numpy(audio16).cuda()
+    ref = {"equalized": _full_step_outs(None, x16, True),
+           "cufft": _full_step_outs(None, x16, False)}
+    ref_seg = segmented.segmented_pitch_analysis(
+        scene, SR, segments=TWO_RANK_SEGMENTS)
+    fields = sharding.FullStepOut._fields
+    per_stream = fields[:5]
+
+    def cat(label):
+        return {f: torch.cat([getattr(r[label], f) for r in ranks])
+                for f in per_stream}
+    eq = cat("equalized")
+    for f in per_stream:
+        assert same_bits_nan(eq[f], getattr(ref["equalized"], f)), \
+            f"two ranks, equalized: {f}"
+    floor_err = {}
+    for label in ("equalized", "cufft"):
+        want = getattr(ref[label], "global_noise_floor_db")
+        for r in ranks:
+            got = r[label].global_noise_floor_db
+            assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+            assert int(r[label].global_onset_count) == int(
+                ranks[0][label].global_onset_count)
+            floor_err[label] = abs(float(got) - float(want))
+        assert torch.equal(ranks[0][label].global_noise_floor_db,
+                           ranks[1][label].global_noise_floor_db)
+    assert int(ranks[0]["equalized"].global_onset_count) == int(
+        ref["equalized"].global_onset_count)
+    raw = cat("cufft")
+    flips = (int((raw["stable_valid"] != ref["cufft"].stable_valid).sum()),
+             int((raw["onset_fired"] != ref["cufft"].onset_fired).sum()))
+    for r in ranks:
+        for a, b in zip(r["segmented"], ref_seg):
+            assert np.array_equal(a, b), "two ranks: segmented differs"
+        assert r["pool"] == {"lanes": TWO_RANK_LANES // 2,
+                             "waves": MESH_WAVES}
+    say(f"mesh: two ranks on the one card ({ranks[0]['backend']}, CUDA "
+        f"tensors staged through the host for the collectives; "
+        f"{two_s:.1f} s with the spawn): the full step at B = {TWO_RANK_B} "
+        f"({TWO_RANK_B // 2} a rank) with the STFT equalized bitwise to "
+        f"world size 1 in every per-stream output, the fleet floor within "
+        f"{floor_err['equalized']:.2e} dB and the onset count equal; with "
+        f"cuFFT's batched magnitudes {flips[0]} stable-slot and {flips[1]} "
+        f"fired flips against B = {TWO_RANK_B} (fleet floor within "
+        f"{floor_err['cufft']:.2e} dB); segmented_pitch_analysis "
+        f"{TWO_RANK_SECONDS:.0f} s at {TWO_RANK_SEGMENTS} segments bitwise; "
+        f"the pooled wave {TWO_RANK_LANES} lanes x {MESH_WAVES} waves "
+        f"bitwise; phase 14 took {time.perf_counter() - t_phase:.0f} s")
 
 
 def main() -> int:
@@ -2327,11 +2587,16 @@ def main() -> int:
 
     # 12. The batched full chain: K6, K7, make_batched_full_step, and the
     # floor warmup.
-    fullstep_phase(rows, card, audio, (sf, ss, sv))
+    fleet_chunk, fleet_out = fullstep_phase(rows, card, audio, (sf, ss, sv))
 
     # 13. The debug surface: K1 and K5 at full width, the recorders, the
     # CLI.
     devtools_phase(rows, card, audio)
+
+    # 14. The probe's gathers (K8, K9) and the mesh: world size 1 on NCCL,
+    # two ranks on the one card with gloo.
+    gather_phase(rows)
+    mesh_phase(card, audio, (sf, ss, sv), fleet_chunk, fleet_out)
 
     say(json.dumps({"kernels": rows}))
     say(f"card: {card}")

@@ -147,7 +147,7 @@ def test_full_step_matches_jax(audio, mode):
 
 
 def test_mesh_and_modes_are_checked():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tsh.make_batched_full_step(object(), SR, device="cpu")
     with pytest.raises(ValueError, match="dyn_mode"):
         tsh.make_batched_full_step(None, SR, dyn_mode="sorted")

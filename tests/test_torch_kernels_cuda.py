@@ -1148,3 +1148,105 @@ def test_engine_with_recorder_on_the_card(dev):
     assert runs[0] == runs[1]
     assert e._fused_slots == fused == 30
     assert rec.pitch_frames and rec.onset_frames
+
+
+# ── K8 and K9: the Mosaic probe's lane gathers (csrc/gather.cu) ───────────
+
+def _gather_inputs(f, p, seed, special=False):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((f, p)).astype(np.float32)
+    idx = rng.integers(-2 * p, 2 * p, (f, p)).astype(np.int32)
+    if special:
+        x[0, : min(p, 20)] = -0.0
+        x[-1, ::3] = np.nan
+        x[-1, 1::7] = 0.0
+        idx[0, : min(p, 8)] = np.arange(min(p, 8), dtype=np.int32)
+        ends = [2 ** 31 - 1, 2 ** 31 - 11, -2 ** 31, -1][:p]
+        idx[-1, :len(ends)] = ends
+    return x, idx
+
+
+def _same_gather(got, want):
+    """Bitwise, NaNs compared by position (the card's NaN bits may be its
+    canonical ones)."""
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    assert torch.equal(gn, wn)
+    assert torch.equal(torch.where(gn, 0, got.view(torch.int32)),
+                       torch.where(wn, 0, want.view(torch.int32)))
+
+
+@pytest.mark.parametrize("kernel", ["lane_gather", "comb_gather12"])
+@pytest.mark.parametrize("f,p,special", [
+    (8, 1024, False), (8, 7296, False), (8, 7296, True), (1, 1, False),
+    (1, 1, True), (5, 3, True), (3, 129, True), (2, 7297, True),
+    (70000, 5, False)])
+def test_gathers_match_plain_bitwise(dev, kernel, f, p, special):
+    from audio_analyzer_rs_tpu_torch.ops import gather, hopper_gather
+    x, idx = _gather_inputs(f, p, f * 31 + p, special)
+    xd, idd = torch.from_numpy(x).to(dev), torch.from_numpy(idx).to(dev)
+    before = (hopper_gather.LAUNCHES_K8, hopper_gather.LAUNCHES_K9)
+    got = getattr(hopper_gather, kernel)(xd, idd)
+    want = getattr(gather, kernel)(xd, idd)
+    torch.cuda.synchronize()
+    _same_gather(got, want)
+    _same_gather(got.cpu(), getattr(gather, kernel)(torch.from_numpy(x),
+                                                    torch.from_numpy(idx)))
+    after = (hopper_gather.LAUNCHES_K8, hopper_gather.LAUNCHES_K9)
+    assert sum(after) - sum(before) == 1
+    if special and kernel == "comb_gather12" and p >= 20:
+        # Twelve -0.0 reads sum to +0.0.
+        assert not torch.signbit(got[0, :8]).any()
+
+
+def test_gathers_at_the_probes_cases(dev):
+    """The probe's five cases, bitwise to numpy (port_tools/gather_probe.py
+    prints them with its timings)."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "gather_probe",
+        Path(__file__).resolve().parents[1] / "port_tools" / "gather_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    res = probe.check_cases(say=lambda _: None)
+    assert all(res["ok"].values()), res
+    assert res["max_abs_err"] == {"K8": 0.0, "K9": 0.0}
+
+
+def test_gathers_over_wide_rows(dev):
+    """A row wider than a block's shared memory (60,000 values)."""
+    from audio_analyzer_rs_tpu_torch.ops import gather, hopper_gather
+    x, idx = _gather_inputs(3, 60000, 5, special=True)
+    xd, idd = torch.from_numpy(x).to(dev), torch.from_numpy(idx).to(dev)
+    for kernel in ("lane_gather", "comb_gather12"):
+        _same_gather(getattr(hopper_gather, kernel)(xd, idd),
+                     getattr(gather, kernel)(xd, idd))
+
+
+def test_mesh_at_world_size_one_on_the_card(dev, tmp_path):
+    """The full step and the segmented pitch path through an NCCL mesh of
+    one rank (a FileStore) equal mesh=None bit for bit."""
+    import torch.distributed as dist
+    from audio_analyzer_rs_tpu_torch.models import segmented
+    from audio_analyzer_rs_tpu_torch.parallel import mesh as pmesh
+    from audio_analyzer_rs_tpu_torch.parallel import sharding
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh("cuda")
+        rng = np.random.default_rng(9)
+        audio = (rng.standard_normal((4, 8192)) * 0.1).astype(np.float32)
+        outs = [sharding.make_batched_full_step(m, 48000.0)(
+            sharding.init_stream_states(4), audio)[1] for m in (None, mesh)]
+        for a, b in zip(*outs):
+            assert torch.equal(a.view(torch.int32) if a.dtype ==
+                               torch.float32 else a,
+                               b.view(torch.int32) if b.dtype ==
+                               torch.float32 else b)
+        x = gen.mixed_scene(20.0, SR, seed=4)
+        for a, b in zip(segmented.segmented_pitch_analysis(x, SR, segments=8),
+                        segmented.segmented_pitch_analysis(x, SR, segments=8,
+                                                           mesh=mesh)):
+            np.testing.assert_array_equal(a, b)
+    finally:
+        dist.destroy_process_group()

@@ -117,7 +117,7 @@ def test_short_empty_and_unported():
     silent = tseg.segmented_onset_analysis(np.zeros(int(SR), np.float32), SR,
                                            chunk_frames=256, device="cpu")
     assert not silent[0].any()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mesh"):
         tseg.segmented_onset_analysis(np.zeros(int(SR), np.float32), SR,
                                       mesh=object(), device="cpu")
     with pytest.raises(ValueError):

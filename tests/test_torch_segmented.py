@@ -173,7 +173,8 @@ def test_stream_plan_matches_jax(n_total, warmup):
 
 def test_unported_options_raise():
     x = np.zeros(int(SR), np.float32)
-    with pytest.raises(NotImplementedError):
+    # mesh is ported: a DeviceMesh (tests/test_torch_mesh.py), or None.
+    with pytest.raises(TypeError, match="mesh"):
         tseg.segmented_pitch_analysis(x, SR, mesh=object(), device="cpu")
     # device_audio is ported: a float32 tensor of len(audio) samples.
     with pytest.raises(ValueError):
@@ -262,21 +263,25 @@ def _imported_names(path):
 
 
 def test_source_scan():
-    """No jax, no torch.compile, and nothing of the JAX package, in the port
-    and in chip_smoke.py."""
+    """No jax, no torch.compile, and nothing of the JAX package, in the port,
+    in chip_smoke.py and in port_tools/."""
     files = sorted(p for p in PORT.rglob("*.py")
                    if "_build" not in p.relative_to(PORT).parts)
     files.append(REPO / "chip_smoke.py")
     assert len(files) >= 15
+    files += sorted((REPO / "port_tools").glob("*.py"))
     for new in ("api/pool.py", "api/rpc.py", "checkpoint.py",
                 "parallel/sharding.py", "ops/hopper_reducer.py",
-                "ops/hopper_dynamics.py", "devtools.py", "cli.py"):
+                "ops/hopper_dynamics.py", "devtools.py", "cli.py",
+                "parallel/mesh.py", "parallel/dryrun.py", "ops/gather.py",
+                "ops/hopper_gather.py"):
         assert PORT / new in files, new
+    assert REPO / "port_tools" / "gather_probe.py" in files
     for path in files:
         assert "torch.compile" not in path.read_text(), path
         for name in _imported_names(path):
             assert name.split(".")[0] not in ("jax", "audio_analyzer_rs_tpu"), \
                 (path, name)
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == \
-        ["comb.cu", "dynamics.cu", "noisefloor.cu", "onset.cu", "reducer.cu",
-         "stft.cu", "tracker.cu"]
+        ["comb.cu", "dynamics.cu", "gather.cu", "noisefloor.cu", "onset.cu",
+         "reducer.cu", "stft.cu", "tracker.cu"]

@@ -124,9 +124,9 @@ def fleet_statistics(gf_db: torch.Tensor, fired: torch.Tensor,
     `psum(sum(fired))`, with `psum` the sum over the mesh (None: one card).
     The mean is the floor sum times the float32 reciprocal of the stream
     count, the form XLA gives JAX's division: the per-device sums added,
-    then multiplied by 1 / total_b rounded to float32 (bit for bit on the
-    JAX package's 8-device CPU mesh at B = 8, 24 and 40, and on one device
-    at B = 3 and 5, where a division differs)."""
+    then multiplied by 1 / total_b rounded to float32 (bit for bit against
+    the JAX package's step on 1 and 8 devices at B = 3 and 40, where a
+    division rounds differently: tests/test_torch_fleet_stats.py)."""
     psum = psum or (lambda t: t)
     floor_sum = psum(gf_db.sum().reshape(1))
     counts = psum(torch.stack([

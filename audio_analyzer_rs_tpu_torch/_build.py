@@ -38,12 +38,18 @@ _I = ctypes.c_int
 # C signatures of csrc/*.cu: pointers and the stream as void*, sizes as int.
 _SIGNATURES = {
     # frames, frame stride (outer, inner), frames per outer row, window or
-    # NULL, split table, cols_pad, out, n, width, band, stream
+    # NULL, split table, cols_pad, out, n, width, band, splits, workspace
+    # or NULL, stream
     "aat_stft_mag": (_P, ctypes.c_longlong, ctypes.c_longlong, _I, _P, _P, _I,
-                     _P, _I, _I, _I, _P),
+                     _P, _I, _I, _I, _I, _P, _P),
     # pm, frac, fund, score, longest_run, total_harms, n, kc, half, max_bin,
     # stream
     "aat_comb": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # mags and its row stride, floor and its row stride, freq, score,
+    # valid, n, kc, half, min_bin, max_bin, bin width, min and max freq,
+    # stream
+    "aat_extract": (_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, _P, _P,
+                    _I, _I, _I, _I, _I) + (ctypes.c_float,) * 3 + (_P,),
     # raw freq/score/valid, onsets, state in (6), stable freq/score/valid,
     # state out (6), streams, frames, stream
     "aat_tracker_select": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -92,9 +98,15 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
+    """The library's path, named by a hash of the flags, the sources and
+    the headers they include (an edited header rebuilds too)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libaat_kernels_{h.hexdigest()[:16]}.so"

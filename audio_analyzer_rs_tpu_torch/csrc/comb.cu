@@ -47,9 +47,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "comb.cuh"
+
 namespace {
 
-constexpr int MAX_H = 14;
 constexpr int WARPS = 8;                 // frames a block
 
 __global__ void __launch_bounds__(WARPS * 32)
@@ -74,47 +75,12 @@ comb_kernel(const float* __restrict__ pm, const float* __restrict__ frac,
   __syncwarp();
 
   for (int k = lane; k < kc; k += 32) {
-    const float fr = __ldg(frac + f * kc + k);
-    float score = __ldg(fund + f * kc + k);
-    int last = k;
-    int longest = 0, current = 0, total = 0;
-    for (int h = 2; h <= MAX_H; ++h) {
-      const float e = __fmul_rn(fr, static_cast<float>(h));
-      if (!(e < static_cast<float>(half)) || h * (k - 1) > max_bin) break;
-      const int hk = h * k;
-      const int lo = max(max(static_cast<int>(floorf(__fadd_rn(e, -1.0f))),
-                             last + 1),
-                         max(hk - h - 1, 0));
-      const int hi = min(min(static_cast<int>(ceilf(__fadd_rn(e, 1.0f))),
-                             hk + h + 1),
-                         max_bin - 1);
-      float best = 0.f;
-      int best_pos = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {       // the window holds <= 4 bins
-        const int p = lo + j;
-        if (p <= hi) {
-          const float v = row[p];
-          if (v > best) {                 // strict: the first maximum wins
-            best = v;
-            best_pos = p;
-          }
-        }
-      }
-      if (best > 0.f) {
-        score = __fadd_rn(score, best);
-        last = best_pos;
-        ++current;
-        ++total;
-      } else {
-        longest = max(longest, current);
-        current = 0;
-      }
-    }
-    longest = max(longest, current);
-    score_out[f * kc + k] = score;
-    run_out[f * kc + k] = longest;
-    tot_out[f * kc + k] = total;
+    const CombOut c = comb_candidate(row, __ldg(frac + f * kc + k),
+                                     __ldg(fund + f * kc + k), k, half,
+                                     max_bin);
+    score_out[f * kc + k] = c.score;
+    run_out[f * kc + k] = c.longest_run;
+    tot_out[f * kc + k] = c.total_harms;
   }
 }
 

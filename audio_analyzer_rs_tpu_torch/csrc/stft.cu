@@ -37,16 +37,28 @@
 //   0..3) in a fresh tensor-core partial, and the 64 partials are added in
 //   order with __fadd_rn in registers.  The instruction sequence of a frame
 //   does not depend on its tile, its row in the tile or the batch, so a
-//   frame's magnitudes are bitwise the same in any batch.  No split-K.
+//   frame's magnitudes are bitwise the same in any batch.
+// - Split over the sample depth at the latency shapes.  With a handful of
+//   frames (a live slot's 2, a pool wave's 66) the grid above is 6 blocks
+//   banded, 13 at full width, on 132 SMs, each streaming 2.6 MB of table
+//   through one SM's ring.  The wrapper then asks for `splits` blocks a
+//   tile along a third grid dimension (`hopper_stft.split_count`), one
+//   warpgroup when n <= 64.  Each block writes its slices' fresh partials,
+//   unsummed, to a workspace [64, n, cols_pad] (0.5 MB at 2 frames banded,
+//   in L2), and a second kernel adds the 64 partials of each output in
+//   slice order from +0.0 with __fadd_rn, then applies the same epilogue.
+//   Same partials, same order of the sum: bitwise the unsplit launch.
 // - The epilogue takes (re, im) from adjacent accumulator columns of one
 //   thread and writes sqrt(re*re + im*im) with __fmul_rn / __fadd_rn;
 //   rows past n are read as zeros and never written.
-// ptxas (CUDA 12.9, sm_90a): 227 registers a thread, no spills; 64 B of
-// static shared memory and, at W = 2048, 173,056 B of dynamic (the ring of
-// four 40,960 B stages, the 8 KB window, 1 KB for alignment).
+// ptxas (CUDA 12.9, sm_90a): 228 registers a thread unsplit, 154 split
+// (no accumulators), no spills; 64 B of static shared memory and, at W =
+// 2048, 173,056 B of dynamic (the ring of four 40,960 B stages, the 8 KB
+// window, 1 KB for alignment).
 // Measured on an H100 80GB HBM3 at 700 W: 0.28 ms a launch at the
 // main-path shape (10 back-to-back), 67% of the 0.19 ms bound, 0.41x the
-// time of cuBLAS's FP32 GEMM for the same product (PERF.md).
+// time of cuBLAS's FP32 GEMM for the same product; split, 11.8 us at [1, 2]
+// frames against 89 us unsplit (PERF.md).
 //
 // Frames are read through two strides (outer row, frame within the row):
 // frame m lives at frames + (m / per_row) * stride_outer
@@ -62,11 +74,9 @@
 
 namespace {
 
-constexpr int BM = 128;                  // frames per block
 constexpr int BN = 160;                  // table columns per block
 constexpr int BK = 32;                   // samples per stage (128 B rows)
 constexpr int STAGES = 4;
-constexpr int THREADS = 256;             // two warpgroups
 constexpr int ACC = BN / 2;              // f32 accumulators a thread
 constexpr int TILE_BYTES = BN * BK * 4;  // one of hi / lo: 20,480 B
 constexpr int STAGE_BYTES = 2 * TILE_BYTES;
@@ -121,11 +131,10 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// One stage: the hi and lo tiles of K slice t, table rows col0 .. +BN.
+// Stage s: the hi and lo tiles of K slice t, table rows col0 .. +BN.
 __device__ __forceinline__ void load_stage(uint8_t* ring, uint64_t* full,
-                                           const CUtensorMap* map, int t,
-                                           int col0, int cols_pad) {
-  const int s = t % STAGES;
+                                           const CUtensorMap* map, int s,
+                                           int t, int col0, int cols_pad) {
   uint8_t* hi = ring + s * STAGE_BYTES;
   mbar_expect_tx(&full[s], STAGE_BYTES);
   tma_load(hi, map, &full[s], t * BK, col0);
@@ -215,12 +224,21 @@ __device__ __forceinline__ const float* frame_ptr(
                : nullptr;
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+// WG warpgroups of 64 frames a block (BM = 64 WG frames), slices
+// [t0, t1) of the sample depth, t0 = blockIdx.z * slices_per.  Unsplit
+// (SPLIT false, slices_per = width / BK) a block sums all 64 partials and
+// writes magnitudes; split, it writes each slice's partial, unsummed, to
+// ws[t][frame][column] and `split_sum_kernel` sums them in slice order.
+template <int WG, bool SPLIT>
+__global__ void __launch_bounds__(128 * WG, 1)
 stft_mag_kernel(const __grid_constant__ CUtensorMap table_map,
                 const float* __restrict__ frames, long long stride_outer,
                 long long stride_inner, int per_row,
                 const float* __restrict__ window, float* __restrict__ out,
-                int n, int width, int band, int cols_pad) {
+                float* __restrict__ ws, int n, int width, int band,
+                int cols_pad, int slices_per) {
+  constexpr int THREADS = 128 * WG;
+  constexpr int BM = 64 * WG;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES];
   __shared__ __align__(8) uint64_t empty[STAGES];
@@ -231,7 +249,8 @@ stft_mag_kernel(const __grid_constant__ CUtensorMap table_map,
   const int tid = threadIdx.x;
   const int col0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
-  const int ktiles = width / BK;
+  const int t0 = blockIdx.z * slices_per;
+  const int nt = min(slices_per, width / BK - t0);   // slices of this block
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -239,11 +258,11 @@ stft_mag_kernel(const __grid_constant__ CUtensorMap table_map,
       mbar_init(&empty[s], THREADS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int t = 0; t < STAGES && t < ktiles; ++t) {
-      load_stage(ring, full, &table_map, t, col0, cols_pad);
+    for (int i = 0; i < STAGES && i < nt; ++i) {
+      load_stage(ring, full, &table_map, i, t0 + i, col0, cols_pad);
     }
   }
-  for (int i = tid; i < width; i += THREADS) {
+  for (int i = t0 * BK + tid; i < (t0 + nt) * BK; i += THREADS) {
     win[i] = window != nullptr ? window[i] : 1.f;
   }
   __syncthreads();
@@ -264,9 +283,10 @@ stft_mag_kernel(const __grid_constant__ CUtensorMap table_map,
 #pragma unroll
   for (int i = 0; i < ACC; ++i) acc[i] = part[i] = 0.f;
 
-  Slice cur = load_slice(p0, p1, 8 * q);
-  for (int t = 0; t < ktiles; ++t) {
-    const int s = t % STAGES;
+  Slice cur = load_slice(p0, p1, t0 * BK + 8 * q);
+  for (int i = 0; i < nt; ++i) {
+    const int t = t0 + i;
+    const int s = i % STAGES;
     // k-step ks reads samples 2ks (fragment column q) and 2ks+1 (column
     // q+4): a0 = row g, a1 = row g+8, a2 / a3 the same at 2ks+1.
     const float4 wa = *reinterpret_cast<const float4*>(win + t * BK + 8 * q);
@@ -285,16 +305,17 @@ stft_mag_kernel(const __grid_constant__ CUtensorMap table_map,
       split(x0[2 * ks + 1], w[2 * ks + 1], ahi[ks][2], alo[ks][2]);
       split(x1[2 * ks + 1], w[2 * ks + 1], ahi[ks][3], alo[ks][3]);
     }
-    if (t + 1 < ktiles) cur = load_slice(p0, p1, (t + 1) * BK + 8 * q);
-    // Refill the stage that slice t - 1 used once all 8 warps are done
+    if (i + 1 < nt) cur = load_slice(p0, p1, (t + 1) * BK + 8 * q);
+    // Refill the stage that slice i - 1 used once all warps are done
     // with it.
-    if (tid == 0 && t >= 1 && t - 1 + STAGES < ktiles) {
-      const int sp = (t - 1) % STAGES;
-      mbar_wait(&empty[sp], ((t - 1) / STAGES) & 1);
-      load_stage(ring, full, &table_map, t - 1 + STAGES, col0, cols_pad);
+    if (tid == 0 && i >= 1 && i - 1 + STAGES < nt) {
+      const int sp = (i - 1) % STAGES;
+      mbar_wait(&empty[sp], ((i - 1) / STAGES) & 1);
+      load_stage(ring, full, &table_map, sp, t - 1 + STAGES, col0,
+                 cols_pad);
     }
 
-    mbar_wait(&full[s], (t / STAGES) & 1);
+    mbar_wait(&full[s], (i / STAGES) & 1);
     const uint8_t* tile = ring + s * STAGE_BYTES;
     const uint64_t bhi = sw128_desc(tile);
     const uint64_t blo = sw128_desc(tile + TILE_BYTES);
@@ -312,31 +333,93 @@ stft_mag_kernel(const __grid_constant__ CUtensorMap table_map,
     fence_operands(part);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
-    // The tensor cores truncate as they accumulate; summing each slice's
-    // 12 products there and the 64 slices here, rounded to nearest, keeps
-    // the error at FP32's level.
+    if constexpr (SPLIT) {
+      // Accumulator j of n8 group k: row g (j < 2) or g + 8, columns
+      // col0 + 8k + 2q + {0, 1}.
+      float* slab = ws + (long long)t * n * cols_pad + col0 + 2 * q;
 #pragma unroll
-    for (int i = 0; i < ACC; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
-  }
-
-  // Accumulator j of n8 group i: row g (j < 2) or g + 8, column 8i + 2q +
-  // (j & 1): (re, im) of bin col0/2 + 4i + q.
-#pragma unroll
-  for (int i = 0; i < ACC / 4; ++i) {
-    const int b = col0 / 2 + 4 * i + q;
-    if (b < band) {
-      if (r0 < n) {
-        out[(long long)r0 * band + b] = sqrtf(__fadd_rn(
-            __fmul_rn(acc[4 * i], acc[4 * i]),
-            __fmul_rn(acc[4 * i + 1], acc[4 * i + 1])));
+      for (int k = 0; k < ACC / 4; ++k) {
+        if (r0 < n) {
+          *reinterpret_cast<float2*>(slab + (long long)r0 * cols_pad
+                                     + 8 * k) =
+              make_float2(part[4 * k], part[4 * k + 1]);
+        }
+        if (r1 < n) {
+          *reinterpret_cast<float2*>(slab + (long long)r1 * cols_pad
+                                     + 8 * k) =
+              make_float2(part[4 * k + 2], part[4 * k + 3]);
+        }
       }
-      if (r1 < n) {
-        out[(long long)r1 * band + b] = sqrtf(__fadd_rn(
-            __fmul_rn(acc[4 * i + 2], acc[4 * i + 2]),
-            __fmul_rn(acc[4 * i + 3], acc[4 * i + 3])));
+    } else {
+      // The tensor cores truncate as they accumulate; summing each
+      // slice's 12 products there and the 64 slices here, rounded to
+      // nearest, keeps the error at FP32's level.
+#pragma unroll
+      for (int k = 0; k < ACC; ++k) acc[k] = __fadd_rn(acc[k], part[k]);
+    }
+  }
+  if constexpr (!SPLIT) {
+    // Accumulator j of n8 group i: row g (j < 2) or g + 8, column 8i + 2q
+    // + (j & 1): (re, im) of bin col0/2 + 4i + q.
+#pragma unroll
+    for (int i = 0; i < ACC / 4; ++i) {
+      const int b = col0 / 2 + 4 * i + q;
+      if (b < band) {
+        if (r0 < n) {
+          out[(long long)r0 * band + b] = sqrtf(__fadd_rn(
+              __fmul_rn(acc[4 * i], acc[4 * i]),
+              __fmul_rn(acc[4 * i + 1], acc[4 * i + 1])));
+        }
+        if (r1 < n) {
+          out[(long long)r1 * band + b] = sqrtf(__fadd_rn(
+              __fmul_rn(acc[4 * i + 2], acc[4 * i + 2]),
+              __fmul_rn(acc[4 * i + 3], acc[4 * i + 3])));
+        }
       }
     }
   }
+}
+
+// The split form's second pass: a thread a (frame, bin) adds the 64
+// partials of (re, im) in slice order from +0.0 with __fadd_rn, as the
+// unsplit block's register loop does, then the same epilogue.
+__global__ void __launch_bounds__(256)
+split_sum_kernel(const float* __restrict__ ws, float* __restrict__ out,
+                 int n, int band, int cols_pad, int ktiles) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)n * band) return;
+  const int r = static_cast<int>(idx / band);
+  const int b = static_cast<int>(idx % band);
+  const float* p = ws + (long long)r * cols_pad + 2 * b;
+  const long long slab = (long long)n * cols_pad;
+  float re = 0.f, im = 0.f;
+#pragma unroll 16
+  for (int t = 0; t < ktiles; ++t) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p + t * slab));
+    re = __fadd_rn(re, v.x);
+    im = __fadd_rn(im, v.y);
+  }
+  out[idx] = sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+}
+
+template <int WG, bool SPLIT>
+cudaError_t launch(const CUtensorMap& map, const float* frames,
+                   long long stride_outer, long long stride_inner,
+                   int per_row, const float* window, float* out, float* ws,
+                   int n, int width, int band, int cols_pad, int slices_per,
+                   cudaStream_t stream) {
+  const int smem = RING_BYTES + width * 4 + 1024;  // + 1 KB alignment
+  cudaError_t err = cudaFuncSetAttribute(
+      stft_mag_kernel<WG, SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int ktiles = width / BK;
+  dim3 grid(cols_pad / BN, (n + 64 * WG - 1) / (64 * WG),
+            (ktiles + slices_per - 1) / slices_per);
+  stft_mag_kernel<WG, SPLIT><<<grid, 128 * WG, smem, stream>>>(
+      map, frames, stride_outer, stride_inner, per_row, window, out, ws, n,
+      width, band, cols_pad, slices_per);
+  return cudaGetLastError();
 }
 
 PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
@@ -369,14 +452,17 @@ const char* aat_error_string(int code) {
 // Returns cudaGetLastError() after the launch (0 on success).  `table` is
 // the wrapper's split table: [2 * cols_pad, width] float32, hi rows then lo
 // rows, 16-byte aligned.  Requires width % 32 == 0, cols_pad % 160 == 0 and
-// 2 * band <= cols_pad.
+// 2 * band <= cols_pad.  `splits` > 1 spreads the width / 32 slices over
+// that many blocks a tile (ceil(slices / splits) slices each) and needs
+// `ws`, a [width / 32, n, cols_pad] float32 workspace; the magnitudes are
+// bitwise those of splits = 1.
 int aat_stft_mag(const float* frames, long long stride_outer,
                  long long stride_inner, int per_row, const float* window,
                  const float* table, int cols_pad, float* out, int n,
-                 int width, int band, void* stream) {
+                 int width, int band, int splits, float* ws, void* stream) {
   if (n <= 0 || band <= 0) return static_cast<int>(cudaGetLastError());
   if (width % BK != 0 || cols_pad % BN != 0 || 2 * band > cols_pad ||
-      per_row <= 0) {
+      per_row <= 0 || splits <= 0 || (splits > 1 && ws == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PFN_cuTensorMapEncodeTiled_v12000 encode = encode_fn();
@@ -394,15 +480,25 @@ int aat_stft_mag(const float* frames, long long stride_outer,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = RING_BYTES + width * 4 + 1024;  // + 1 KB alignment
-  cudaError_t err = cudaFuncSetAttribute(
-      stft_mag_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ktiles = width / BK;
+  if (splits == 1) {
+    return static_cast<int>(launch<2, false>(
+        map, frames, stride_outer, stride_inner, per_row, window, out,
+        nullptr, n, width, band, cols_pad, ktiles, st));
+  }
+  const int slices_per = (ktiles + splits - 1) / splits;
+  cudaError_t err =
+      n <= 64 ? launch<1, true>(map, frames, stride_outer, stride_inner,
+                                per_row, window, out, ws, n, width, band,
+                                cols_pad, slices_per, st)
+              : launch<2, true>(map, frames, stride_outer, stride_inner,
+                                per_row, window, out, ws, n, width, band,
+                                cols_pad, slices_per, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(cols_pad / BN, (n + BM - 1) / BM);
-  stft_mag_kernel<<<grid, THREADS, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      map, frames, stride_outer, stride_inner, per_row, window, out, n,
-      width, band, cols_pad);
+  const long long outs = static_cast<long long>(n) * band;
+  split_sum_kernel<<<static_cast<unsigned>((outs + 255) / 256), 256, 0,
+                     st>>>(ws, out, n, band, cols_pad, ktiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,6 +23,13 @@ slices' partial sums are added in FP32, rounded to nearest, on the CUDA
 cores.  Each output sums in one fixed order, so a frame's magnitudes are
 bitwise the same in any batch.
 
+At the latency shapes (a live slot's 2 frames, a pool wave's 66) that grid
+is 6 blocks banded, 13 at full width, on 132 SMs.  There the wrapper
+splits the 64 slices of the sample depth over `split_count` blocks a tile:
+each block writes its slices' fresh partials to a workspace [64, n,
+cols_pad], and a second kernel sums them in slice order, as the unsplit
+block does in registers, so the magnitudes are bitwise the same.
+
 The table's split is built here, once per table and device (`split_table`,
 cached): hi = rna_tf32(x), lo = rna_tf32(x - hi), stored transposed as
 [hi; lo] rows of [cols_pad, W] (TF32 `wgmma` takes B only K-major), with
@@ -46,6 +53,12 @@ from .. import _build
 LAUNCHES = 0
 COL_TILE = 160   # table columns a block (csrc/stft.cu BN)
 K_TILE = 32      # samples a pipeline stage (csrc/stft.cu BK)
+# The sample depth is split while the unsplit grid has at most this many
+# blocks.  Measured on an H100 (port_tools/k1_k10_probe.py, PERF.md
+# section 6): the split was faster at 12 and 13 blocks (banded n = 256,
+# full width n = 128), slower at 18 and 26; both crossovers fell where the
+# workspace reached ~87 MB.
+SPLIT_MAX_BLOCKS = 16
 # Slot c = 8s + j of a 32-sample slice (k-step s, fragment column j) holds
 # sample 8(j % 4) + 2s + j // 4, so thread q's A fragments of the slice are
 # its samples 8q .. 8q+7.
@@ -118,6 +131,25 @@ def _cached_split(trig: torch.Tensor) -> tuple[torch.Tensor, int]:
     return table
 
 
+def split_count(n: int, cols_pad: int, width: int, sms: int) -> int:
+    """Blocks a tile along the sample depth for n frames: 1 (the unsplit
+    launch) when its grid of 128-frame x 160-column tiles has more than
+    SPLIT_MAX_BLOCKS blocks, else `fill_splits`."""
+    blocks = -(-n // 128) * (cols_pad // COL_TILE)
+    return (1 if blocks > SPLIT_MAX_BLOCKS
+            else fill_splits(n, cols_pad, width, sms))
+
+
+def fill_splits(n: int, cols_pad: int, width: int, sms: int) -> int:
+    """The split that fills `sms` SMs once: each block takes
+    ceil(slices / splits) of the width / 32 slices of its tile.  Frame
+    tiles are 64 high at n <= 64 (one warpgroup), else 128."""
+    slices = width // K_TILE
+    tiles = (cols_pad // COL_TILE) * -(-n // (64 if n <= 64 else 128))
+    per = -(-slices * tiles // sms)
+    return -(-slices // per)
+
+
 def dft_mag(frames: torch.Tensor, trig: torch.Tensor,
             window: torch.Tensor | None = None) -> torch.Tensor:
     """Magnitudes [..., B] of (frames × window) through the rDFT table
@@ -125,6 +157,14 @@ def dft_mag(frames: torch.Tensor, trig: torch.Tensor,
     W (other strides are free: an unfold view is read in place).  On CUDA
     the frames' base and strides must be 16-byte aligned and W a multiple
     of 32."""
+    return _dft_mag(frames, trig, window)
+
+
+def _dft_mag(frames: torch.Tensor, trig: torch.Tensor,
+             window: torch.Tensor | None = None,
+             splits: int | None = None) -> torch.Tensor:
+    """`dft_mag`; `splits` forces the split over the sample depth (1: the
+    unsplit launch) for the card tests, else `split_count` decides."""
     if frames.device.type == "cpu":
         return dft_mag_plain(frames, trig, window)
     if frames.device.type != "cuda":
@@ -174,10 +214,17 @@ def dft_mag(frames: torch.Tensor, trig: torch.Tensor,
     if n == 0:
         return out
     table, cols_pad = _cached_split(trig)
+    if splits is None:
+        sms = torch.cuda.get_device_properties(
+            frames.device).multi_processor_count
+        splits = split_count(n, cols_pad, width, sms)
+    ws = (torch.empty((width // K_TILE, n, cols_pad), dtype=torch.float32,
+                      device=frames.device) if splits > 1 else None)
     code = _build.lib().aat_stft_mag(
         frames.data_ptr(), s_out, s_in, per_row,
         None if window is None else window.data_ptr(),
-        table.data_ptr(), cols_pad, out.data_ptr(), n, width, band,
+        table.data_ptr(), cols_pad, out.data_ptr(), n, width, band, splits,
+        None if ws is None else ws.data_ptr(),
         ctypes.c_void_p(_build.stream_ptr(frames)))
     _build.check(code, "aat_stft_mag")
     global LAUNCHES

@@ -2,9 +2,12 @@
 (port of audio_analyzer_rs_tpu/ops/pitch.py; ref src/audio_io/stft.rs:443-620).
 
 Batched over frames: every stage works on [N, kc] candidate-band tensors.
-The 13-harmonic comb is kernel K2 on CUDA tensors (ops/hopper_comb.py) and
-the plain `_comb` below on CPU tensors.  Top-K is a stable descending sort,
-which breaks score ties toward the lower bin as `lax.top_k` does.
+`extract_pitches` runs the whole extraction as kernel K10 on CUDA tensors
+(ops/hopper_extract.py) and the plain `_extract` below on CPU tensors.
+In `_extract` the 13-harmonic comb is kernel K2 on CUDA tensors
+(ops/hopper_comb.py) and the plain `_comb` on CPU tensors.  Top-K is a
+stable descending sort, which breaks score ties toward the lower bin as
+`lax.top_k` does.
 
 Constants (ref stft.rs:452-453,536-543,594,606): MAX_HARMONICS=14,
 MAX_NOTES=8, fund gate 5x floor, structure gate (longest_run<3 &&
@@ -19,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import hopper_comb
+from . import hopper_comb, hopper_extract
 
 MAX_HARMONICS = 14
 MAX_NOTES = 8
@@ -29,6 +32,13 @@ MIN_FREQ = 24.0      # ref stft.rs:173
 MAX_FREQ = 10_000.0  # ref stft.rs:174
 
 _FRONT = MAX_HARMONICS + 2
+# XLA folds JAX's divisions by constants into products with the float32
+# reciprocal: `/ (1 + MAX_HARMONICS)` is `* float32(1/15)`, and jnp.log2(x)
+# is `log(x) * float32(1/ln 2)`.  The port spells both the same way, so the
+# CPU, the card and JAX round alike.  (PyTorch's CPU divides by a Python
+# scalar in IEEE, its CUDA kernels multiply by the reciprocal.)
+RECIP_HARMONICS = float(np.float32(1) / np.float32(1 + MAX_HARMONICS))
+LOG2_E = float(np.float32(1) / np.log(np.float32(2)))
 
 
 class PitchFrame(NamedTuple):
@@ -149,6 +159,18 @@ def _comb(pm: torch.Tensor, frac_c: torch.Tensor, fund_mag: torch.Tensor,
     return score, longest_run, total_harms
 
 
+def _log2(x: torch.Tensor) -> torch.Tensor:
+    """jnp.log2 as XLA computes it: log(x) times float32(1/ln 2)."""
+    return torch.log(x) * LOG2_E
+
+
+def _struct_mult(longest_run: torch.Tensor,
+                 total_harms: torch.Tensor) -> torch.Tensor:
+    """(1 + run + total/2) / 15 as XLA computes it: times float32(1/15)."""
+    return ((1.0 + longest_run.float() + total_harms.float() / 2.0)
+            * RECIP_HARMONICS)
+
+
 def _extract(mags: torch.Tensor, noise_floor: torch.Tensor, bin_width: float,
              min_bin: int, max_bin: int, min_freq: float, max_freq: float,
              half: int) -> PitchFrame:
@@ -164,9 +186,8 @@ def _extract(mags: torch.Tensor, noise_floor: torch.Tensor, bin_width: float,
     # Gates (stft.rs:479-481,536-544).
     low_fund = fund_mag < nf_c * 5.0
     struct_fail = (longest_run < 3) & (fund_mag < 15.0 * nf_c)
-    log_score = torch.log2(0.5 + score)
-    struct_mult = ((1.0 + longest_run.float() + total_harms.float() / 2.0)
-                   / (1.0 + MAX_HARMONICS))
+    log_score = _log2(0.5 + score)
+    struct_mult = _struct_mult(longest_run, total_harms)
     scores = torch.where(is_peak & ~low_fund & ~struct_fail & ~degenerate,
                          log_score * struct_mult, 0.0)
 
@@ -228,5 +249,5 @@ def extract_pitches(mags: torch.Tensor, noise_floor: torch.Tensor,
     PitchFrame [N, 8]."""
     half = true_half if true_half is not None else mags.shape[-1]
     min_bin, max_bin = _bins(bin_width, half, min_freq, max_freq)
-    return _extract(mags, noise_floor, bin_width, min_bin, max_bin,
-                    min_freq, max_freq, half)
+    return hopper_extract.extract(mags, noise_floor, bin_width, min_bin,
+                                  max_bin, min_freq, max_freq, half)

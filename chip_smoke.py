@@ -17,7 +17,17 @@ Phases, one line each on standard output:
             of cuBLAS FP32 (plus the float64 spectral gate, rel MSE < 1e-6);
             yardstick: the cuBLAS FP32 product of the windowed frames;
        K2 comb  [8192, 464] from real spectra, bitwise; yardstick: the plain
-            comb;
+            comb (on the paths K2's comb runs inside K10);
+       K10 extract [8192, 465] magnitudes and [8192, 464] floors (the step's
+            K1 and K5 outputs) -> [8192, 8], bitwise (freqs, scores,
+            valid) to the plain extraction `ops/pitch.py` `_extract`;
+            yardstick: that plain extraction, in turns;
+       K1 at the latency shapes ([1, 2, 2048] and [33, 2, 2048] at the
+            48 kHz band, [1, 2, 2048] at full width), split over the sample
+            depth: bitwise to the unsplit launch (`_dft_mag(...,
+            splits=1)`), within K1's tolerance of the plain version, timed
+            in turns with the unsplit launch and beside cuBLAS FP32; its
+            bound with the table and with the split table it reads;
        K3 tracker scan + select_stable in one launch, bitwise (bit
             patterns) to the plain scan + select_stable on random and
             main-path raws at S=128 x N=64 and random raws and onsets at
@@ -43,14 +53,15 @@ Phases, one line each on standard output:
             N=4096; the plain scan timed once at S=128 x N=64;
   4. the main path: `segmented_pitch_analysis` over a 30-minute mixed scene at
      the default geometry (128 segments x 64-frame chunks), cold then warm, with
-     the launch counts of K1, K2, K3 and K5 over the warm run (and no plain
-     select_stable call and no plain noise-floor step); then
+     the launch counts of K1, K10, K3 and K5 over the warm run (and no plain
+     select_stable call, no plain noise-floor step, no plain extraction and
+     no K2 launch); then
      `segmented_pitch_analysis_batch` over 8 takes of 30 s;
   5. agreement: the sequential `PitchAnalyzer` on the first 5 minutes against
      the segmented run (segment 0 bitwise, >= 99.9% of frames);
   6. `analyze_buffer_segmented` over the 30-minute scene, cold then warm, with
-     K1-K5's launch counts over the warm run (K4's row takes its count) and
-     no plain onset or noise-floor step;
+     K1, K10, K3, K4 and K5's launch counts over the warm run (K4's row
+     takes its count) and no plain onset, noise-floor or extraction step;
   7. `analyze_buffer` over the first minute (per-frame structs);
   8. `segmented_onset_analysis_batch` over the 8 takes;
   9. onset agreement: the sequential `OnsetAnalyzer` on the first 5 minutes
@@ -60,7 +71,7 @@ Phases, one line each on standard output:
      configuration (tuner and onset detection over a 60 s mixed scene at
      48 kHz, 1,024-sample slots, loopback calibration), `prepare()` first,
      then 2,812 slots, each one fused per-slot program: the host ms a slot
-     (p50, p99, max, and the slots over the 21.33 ms budget), K1-K5's
+     (p50, p99, max, and the slots over the 21.33 ms budget), K1, K10, K3-K5's
      launches over the run and a slot, which host reducer ran, and each
      kernel's time at its live shape beside its bound; 200 slots with the
      host ms split by stage (reducer, inputs, dispatch, readback, posts);
@@ -80,7 +91,7 @@ Phases, one line each on standard output:
      aggregation 4 against 1.  Then the classroom run: 32 students
      at depth 1, capacity 33, `prepare()`, 20 s (937 waves), a 33rd
      student joining at 5 s: host ms a wave (p50/p99/max), ms an
-     engine-slot, waves over 21.33 ms, K1-K5's launches a wave over waves
+     engine-slot, waves over 21.33 ms, K1, K10, K3-K5's launches a wave over waves
      600-699 (1 each, asserted) and over the run, a profiled window of 50
      waves (CUDA kernels and card-busy ms a wave), rollbacks.  Then the
      sweep: K = 1, 8, 16, 32, 64, 128 students for 5 s each, host ms a
@@ -95,8 +106,11 @@ Phases, one line each on standard output:
      states), on the fleet's audio with digital silence, a NaN sample and
      quiet sections, each timed there beside its plain version and bound; `make_batched_full_step(None, 48000.0)` over 128 streams x 3
      chained chunks of 9.98 s: host ms a step, seconds of audio a wall
-     second, K2-K7 launched once a step each (asserted) and no plain scan
-     step, a profiled step (CUDA kernels, card-busy ms, idle share); the
+     second, K3-K7 and K10 launched once a step each (asserted), no plain scan
+     step, a profiled step (CUDA kernels, card-busy ms, idle share); K10
+     at the step's call (119,424 frames) bitwise to the plain extraction
+     and timed beside its bound, the plain extraction's card time by
+     torch.profiler (K2 inside it by CUDA events); the
      gates: one stream's bits equal at B = 1, 33 and 128, hist against
      exact AGC on the 25 s scene (>= 99.9% of pitch frames, fired
      identical), card against CPU (2 streams x 2 s), each of 8 streams
@@ -111,7 +125,7 @@ Phases, one line each on standard output:
      product; K5 over all 1,025 bins from a state that ran banded (S=1 x
      N=4096), bitwise to the plain scan; `PitchAnalyzer` with a
      `DebugRecorder` over 60 s of the scene (stable outputs bitwise those
-     without a recorder, one record a frame, K1/K2/K3/K5 launches, warm
+     without a recorder, one record a frame, K1/K10/K3/K5 launches, warm
      wall); the live engine of phase 10 with a `JsonlStreamRecorder` for
      20 s (no fused slot, onset events and tuner notes equal to the
      sequential consumers without a recorder, one JSONL record a frame,
@@ -126,7 +140,7 @@ Phases, one line each on standard output:
      [8, 7296] beside its bound, K8 in turns with torch.gather.  The mesh
      at world size 1 (an NCCL group through a FileStore):
      `segmented_pitch_analysis(mesh=...)` over the 30-minute scene bitwise
-     to phase 4's outputs (warm wall, K1/K2/K3/K5 launched), one
+     to phase 4's outputs (warm wall, K1/K10/K3/K5 launched), one
      `make_batched_full_step(mesh, ...)` step at phase 12's configuration
      bitwise to phase 12's first step, `make_pooled_wave_step` over 33
      lanes x 3 chained waves bitwise to `fused_slot_pool_step`.  Then two
@@ -135,6 +149,9 @@ Phases, one line each on standard output:
      1 with the STFT equalized (cuFFT's flips counted without), the
      segmented pitch path over the first minute at 8 segments bitwise, and
      the pooled wave (8 lanes x 3 waves) bitwise.
+Phases 4, 6 and 10-14 count the launches of the kernels their paths run
+(K2's comb runs inside K10) and fail on a plain extraction (`ops/pitch.py`
+`_extract`) run on the card.
 Then the kernel table as one JSON line, the card's name and power limit, and
 last {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; with no CUDA device the script exits 1 and prints no
@@ -280,6 +297,47 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# The wrapper module of each path kernel, by the tag that starts its row's
+# name.
+KERNEL_MODULES = {"K1": "hopper_stft", "K3": "hopper_tracker",
+                  "K4": "hopper_onset", "K5": "hopper_noisefloor",
+                  "K10": "hopper_extract"}
+# The kernels the pitch and onset paths launch (K2's comb runs inside K10).
+PATH_KERNELS = ("K1", "K10", "K3", "K4", "K5")
+
+
+def counters_of(tags) -> tuple:
+    """The wrapper modules (each with its LAUNCHES count) of these tags."""
+    import importlib
+    return tuple(importlib.import_module(f"{PKG}.ops.{KERNEL_MODULES[t]}")
+                 for t in tags)
+
+
+def row_of(rows, tag: str) -> dict:
+    """The kernel row whose name starts with `tag` ("K1", "K1-live", ...)."""
+    return next(r for r in rows if r["name"].split()[0] == tag)
+
+
+class PlainExtractions:
+    """Counts the plain extraction's calls (ops/pitch.py `_extract`) while
+    entered: on CUDA tensors `extract_pitches` must launch K10 instead."""
+
+    def __enter__(self):
+        from audio_analyzer_rs_tpu_torch.ops import pitch
+        self.calls, self.saved = 0, pitch._extract
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.saved(*args, **kwargs)
+        pitch._extract = counted
+        return self
+
+    def __exit__(self, *exc):
+        from audio_analyzer_rs_tpu_torch.ops import pitch
+        pitch._extract = self.saved
+        return False
+
+
 def random_raws(rng, s: int, n: int):
     """Random polyphonic raws that often continue (the JAX tracker test's)."""
     import numpy as np
@@ -382,7 +440,7 @@ def live_phase(rows, card: str) -> None:
     import numpy as np
     import torch
     from audio_analyzer_rs_tpu_torch.models import generators as gen
-    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
+    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_extract,
                                                  hopper_noisefloor,
                                                  hopper_onset, hopper_stft,
                                                  hopper_tracker, noisefloor,
@@ -390,8 +448,7 @@ def live_phase(rows, card: str) -> None:
     from audio_analyzer_rs_tpu_torch.ops.fft import hann, rdft_trig
     from audio_analyzer_rs_tpu_torch.ops.stft import windowed_mags
     from audio_analyzer_rs_tpu_torch.utils.framing import frame_signal
-    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_onset,
-                hopper_noisefloor)
+    counters = counters_of(PATH_KERNELS)
     scene = gen.mixed_scene(60.5, LIVE_SR, seed=11)
     dev = torch.device("cuda")
 
@@ -407,11 +464,13 @@ def live_phase(rows, card: str) -> None:
         if i in (1000, 1100):
             marks[i] = [mod.LAUNCHES for mod in counters]
 
-    e, polls, host_ms, prep = live_session(scene, "cuda", LIVE_SLOTS,
-                                           prepare=True, on_slot=mark)
+    with PlainExtractions() as plain_x:
+        e, polls, host_ms, prep = live_session(scene, "cuda", LIVE_SLOTS,
+                                               prepare=True, on_slot=mark)
     launches = [mod.LAUNCHES for mod in counters]
     per_slot = [(b - a) / 100 for a, b in zip(marks[1000], marks[1100])]
     assert all(n > 0 for n in launches), launches
+    assert not plain_x.calls, f"{plain_x.calls} plain extractions on the card"
     assert e._fused_slots > 0, "the fused path never engaged"
     events = sum(len(json.loads(o)) for _, o, _ in polls)
     assert events > 0, "no onset event in 60 s with percussion"
@@ -425,9 +484,10 @@ def live_phase(rows, card: str) -> None:
         f"samples at {LIVE_SR:.0f} Hz, {e._fused_slots} fused; host ms a "
         f"slot p50 {p50:.3f}, p99 {p99:.3f}, max {ms[-1]:.3f}, "
         f"{over} slots over {LIVE_BUDGET_MS:.2f} ms (first slot "
-        f"{host_ms[0]:.3f}); launches K1/K2/K3/K4/K5 over the run "
-        f"{launches}, a slot over slots 1000-1099 {per_slot}; host reducer "
-        f"{reducer}; {events} onset events")
+        f"{host_ms[0]:.3f}); launches K1/K10/K3/K4/K5 over the run "
+        f"{launches}, a slot over slots 1000-1099 {per_slot}, plain "
+        f"extractions 0; host reducer {reducer}; {events} onset events")
+    row_of(rows, "K1-live")["launches"] = launches[0]
 
     # Where a slot's host time goes: 200 slots with the engine's stages
     # timed on the host clock (the readback is where the host waits for
@@ -537,20 +597,26 @@ def live_phase(rows, card: str) -> None:
                                                           kc),
                2 * 2 * kc * 4 + nbytes(gf) + 2 * (3 * kc * 4 + 1),
                30 * 2 * kc, FP32_FLOPS),
+        "K10": (lambda: hopper_extract.extract(
+            mags[0], eff[0], bin_w, min_bin, max_bin, pitch.MIN_FREQ,
+            pitch.MAX_FREQ, half),
+                2 * (2 * kc + 1) * 4 + nbytes(*pf), 30 * 2 * (kc + 1),
+                FP32_FLOPS),
     }
     parts = []
-    for row, (name, (fn, nb, ops, rate)), n_run, n_slot in zip(
-            sorted(rows, key=lambda r: r["name"]), live.items(), launches,
-            per_slot):
+    counts = dict(zip(PATH_KERNELS, zip(launches, per_slot)))
+    for name, (fn, nb, ops, rate) in live.items():
         t_ms = cuda_ms(fn, KERNEL_REPS)
         b_ms, b_by = bound(nb, ops, rate)
-        row.update(launches_live=n_run, launches_live_per_slot=n_slot,
-                   live_ms=t_ms, live_bound_ms=b_ms, live_bound_by=b_by)
+        n_run, n_slot = counts.get(name, (0, 0.0))
+        row_of(rows, name).update(
+            launches_live=n_run, launches_live_per_slot=n_slot, live_ms=t_ms,
+            live_bound_ms=b_ms, live_bound_by=b_by)
         parts.append(f"{name} {t_ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} "
                      f"us, {b_by})")
     say("live: kernels at the live shapes (S=1: K1 [1, 2, 2048], K2 [2, "
-        f"{kc}], K3 N=2, K4 [1, 16, 129], K5 [1, 2, {kc}]): "
-        + "; ".join(parts))
+        f"{kc}], K3 N=2, K4 [1, 16, 129], K5 [1, 2, {kc}], K10 [2, "
+        f"{kc + 1}]): " + "; ".join(parts))
     del x
 
     # Fused against sequential on the card, the first 10 s: bitwise.
@@ -665,14 +731,14 @@ def pool_shape_kernels(rows, lanes: int) -> str:
     """Each kernel at the pool wave's shape, C lanes of one slot (2 pitch
     frames and 16 onset frames a lane, from the classroom's scenes): held
     against its plain version on the same inputs at phase 3's tolerances
-    (K1 within K1_REL_TOL of its scale, K2-K5 bitwise; K3-K5 from fresh
+    (K1 within K1_REL_TOL of its scale, K2-K5 and K10 bitwise; K3-K5 from fresh
     states and from states carried through the slot before), then timed
     beside its bound; the rows get pool_max_abs_err / pool_ms /
     pool_bound_ms / pool_bound_by."""
     import numpy as np
     import torch
     from audio_analyzer_rs_tpu_torch.models import generators as gen
-    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
+    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_extract,
                                                  hopper_noisefloor,
                                                  hopper_onset, hopper_stft,
                                                  hopper_tracker, noisefloor,
@@ -748,6 +814,14 @@ def pool_shape_kernels(rows, lanes: int) -> str:
     for g, r, name in zip(got, ref, ("score", "longest_run", "total_harms")):
         assert torch.equal(g, r), f"K2 {name} at C={lanes} differs"
     err["K2"] = float((got[0] - ref[0]).abs().max())
+    x_args = (bin_w, min_bin, max_bin, pitch.MIN_FREQ, pitch.MAX_FREQ, half)
+    got = hopper_extract.extract(flat, eff_flat, *x_args)
+    ref = pitch._extract(flat, eff_flat, *x_args)
+    torch.cuda.synchronize()
+    for g, r, name in zip(got, ref, pitch.PitchFrame._fields):
+        assert same_bits(g, r), f"K10 {name} at C={lanes} differs"
+    err["K10"] = float((got.scores - ref.scores).abs().max())
+    pf_pool = got
     for key in ("K3", "K4", "K5"):
         err[key] = 0.0
     for label, (st_nf, st_tr, st_on) in (
@@ -795,21 +869,25 @@ def pool_shape_kernels(rows, lanes: int) -> str:
                2 * lanes * 2 * kc * 4 + nbytes(gf)
                + 2 * (3 * lanes * kc * 4 + lanes),
                30 * lanes * 2 * kc, FP32_FLOPS),
+        "K10": (lambda: hopper_extract.extract(flat, eff_flat, *x_args),
+                2 * lanes * (2 * kc + 1) * 4 + nbytes(*pf_pool),
+                30 * 2 * lanes * (kc + 1), FP32_FLOPS),
     }
     parts = []
-    for row, (name, (fn, nb, ops, rate)) in zip(
-            sorted(rows, key=lambda r: r["name"]), shapes.items()):
+    for name, (fn, nb, ops, rate) in shapes.items():
         t_ms = cuda_ms(fn, KERNEL_REPS)
         b_ms, b_by = bound(nb, ops, rate)
-        row.update(pool_lanes=lanes, pool_max_abs_err=err[name],
-                   pool_ms=t_ms, pool_bound_ms=b_ms, pool_bound_by=b_by)
+        row_of(rows, name).update(
+            pool_lanes=lanes, pool_max_abs_err=err[name], pool_ms=t_ms,
+            pool_bound_ms=b_ms, pool_bound_by=b_by)
         parts.append(f"{name} {t_ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} "
                      f"us, {b_by})")
     return (f"C={lanes}: K1 [{lanes}, 2, 2048] within {K1_REL_TOL:g}x of "
             f"its scale (max|d| {err['K1']:.3e}), K2 [{2 * lanes}, {kc}], "
-            f"K3 S={lanes} N=2, K4 [{lanes}, 16, 129] and K5 [{lanes}, 2, "
-            f"{kc}] bitwise to their plain versions (K3-K5 from fresh and "
-            f"carried states); " + "; ".join(parts))
+            f"K3 S={lanes} N=2, K4 [{lanes}, 16, 129], K5 [{lanes}, 2, "
+            f"{kc}] and K10 [{2 * lanes}, {kc + 1}] bitwise to their plain "
+            f"versions (K3-K5 from fresh and carried states); "
+            + "; ".join(parts))
 
 
 def wave_split(students: int, waves: int = 100, settle: int = 150) -> str:
@@ -868,12 +946,7 @@ def classroom_phase(rows, card: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
     from audio_analyzer_rs_tpu_torch import EnginePool
-    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
-                                                 hopper_noisefloor,
-                                                 hopper_onset, hopper_stft,
-                                                 hopper_tracker)
-    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_onset,
-                hopper_noisefloor)
+    counters = counters_of(PATH_KERNELS)
     slot_s = LIVE_SLOT / LIVE_SR
 
     # The gates first: bitwise on the card.  Four solo students at depth 0,
@@ -939,6 +1012,7 @@ def classroom_phase(rows, card: str) -> None:
     gc.callbacks.append(gc_watch)
     for mod in counters:
         mod.LAUNCHES = 0
+    plain_x = PlainExtractions().__enter__()
     for i in range(n_waves):
         if i == join_at:
             members.append(class_member(100 + CLASS_K,
@@ -960,8 +1034,10 @@ def classroom_phase(rows, card: str) -> None:
             events[k] += len(json.loads(det.poll_onsets()))
             readings[k] += bool(json.loads(tuner.poll_output())["notes"])
     pool.flush()
+    plain_x.__exit__(None, None, None)
     gc.callbacks.remove(gc_watch)
     launches = [mod.LAUNCHES for mod in counters]
+    assert not plain_x.calls, f"{plain_x.calls} plain extractions on the card"
     for k, (_, _, det) in enumerate(members):
         events[k] += len(json.loads(det.poll_onsets()))
     span = CLASS_LAUNCH_WAVES[1] - CLASS_LAUNCH_WAVES[0]
@@ -1004,15 +1080,18 @@ def classroom_phase(rows, card: str) -> None:
         + ", ".join(f"{i}: {t:.1f}" for t, i in slowest)
         + f"); ms an engine-slot after the join ({CLASS_CAPACITY} students) "
         f"p50 {after[len(after) // 2] / CLASS_CAPACITY:.4f}; {over} waves "
-        f"over {LIVE_BUDGET_MS:.2f} ms; launches K1/K2/K3/K4/K5 a wave over "
+        f"over {LIVE_BUDGET_MS:.2f} ms; launches K1/K10/K3/K4/K5 a wave over "
         f"waves {CLASS_LAUNCH_WAVES[0]}-{CLASS_LAUNCH_WAVES[1] - 1} "
-        f"{per_wave}, over the run {launches}; profiled {n_prof} waves: "
+        f"{per_wave}, over the run {launches}, plain extractions 0; "
+        f"profiled {n_prof} waves: "
         f"{profiled}; {pool._rollbacks} rollbacks; {gc_note}; onset events "
         f"a student min {min(events)} max {max(events)}; waves with a tuner "
         f"note a student min {min(readings)} max {max(readings)}")
-    for row, n_run, n_wave in zip(sorted(rows, key=lambda r: r["name"]),
-                                  launches, per_wave):
-        row.update(launches_pool=n_run, launches_pool_per_wave=n_wave)
+    for tag, n_run, n_wave in zip(PATH_KERNELS, launches, per_wave):
+        row_of(rows, tag).update(launches_pool=n_run,
+                                 launches_pool_per_wave=n_wave)
+    row_of(rows, "K2").update(launches_pool=0, launches_pool_per_wave=0.0)
+    row_of(rows, "K1-pool")["launches"] = launches[0]
     del members, pool
     say("classroom: " + wave_split(CLASS_K))
 
@@ -1124,13 +1203,14 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
     import torch
     from audio_analyzer_rs_tpu_torch.models import generators as gen
     from audio_analyzer_rs_tpu_torch.models import segmented
-    from audio_analyzer_rs_tpu_torch.ops import (dynamics, hopper_comb,
+    from audio_analyzer_rs_tpu_torch.ops import (dynamics, hopper_extract,
                                                  hopper_dynamics,
                                                  hopper_noisefloor,
                                                  hopper_onset,
                                                  hopper_reducer,
                                                  hopper_tracker, noisefloor,
-                                                 onset, reducer, tracker)
+                                                 onset, pitch, reducer,
+                                                 tracker)
     from audio_analyzer_rs_tpu_torch.parallel import sharding
     dev = torch.device("cuda")
     sr = FULL_SR
@@ -1261,25 +1341,27 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
     saved = [getattr(m, n) for m, n in patched]
     for (m, n), f in zip(patched, saved):
         setattr(m, n, lambda *a, _f=f, _n=n: plain_steps.append(_n) or _f(*a))
-    counters = (hopper_comb, hopper_tracker, hopper_onset, hopper_noisefloor,
-                hopper_reducer, hopper_dynamics)
+    counters = (hopper_extract, hopper_tracker, hopper_onset,
+                hopper_noisefloor, hopper_reducer, hopper_dynamics)
     for mod in counters:
         mod.LAUNCHES = 0
     chunks = [torch.from_numpy(fleet[:, k * t_chunk:(k + 1) * t_chunk]
                                .copy()).to(dev) for k in range(FULL_STEPS)]
     step_s, outs = [], []
     st = states
-    for k in range(FULL_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st, out = step(st, chunks[k])
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        outs.append(out)
+    with PlainExtractions() as plain_x:
+        for k in range(FULL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, out = step(st, chunks[k])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            outs.append(out)
     launches = [mod.LAUNCHES for mod in counters]
     for (m, n), f in zip(patched, saved):
         setattr(m, n, f)
     assert not plain_steps, f"plain steps on the card: {set(plain_steps)}"
+    assert not plain_x.calls, f"{plain_x.calls} plain extractions on the card"
     assert launches == [FULL_STEPS] * 6, launches
     last = outs[-1]
     n_p, n_o = last.stable_freqs.shape[1], last.onset_fired.shape[1]
@@ -1293,8 +1375,8 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         f"stream) x {FULL_STEPS} chained steps: cold {cold:.2f} s, warm "
         f"{'/'.join(f'{s * 1e3:.1f}' for s in step_s)} ms a step = "
         f"{FULL_B * secs / med:,.0f} s of audio a wall second; launches "
-        f"K2/K3/K4/K5/K6/K7 {launches} ({FULL_STEPS} steps: once a step "
-        f"each), plain scan steps 0; global floor "
+        f"K10/K3/K4/K5/K6/K7 {launches} ({FULL_STEPS} steps: once a step "
+        f"each), plain scan steps 0, plain extractions 0; global floor "
         f"{float(last.global_noise_floor_db):.2f} dB, "
         f"{int(last.global_onset_count)} onsets in the last step")
     # A profiled step.  torch.profiler does not always see the kernels
@@ -1305,7 +1387,7 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
     from torch.profiler import ProfilerActivity, profile
     from audio_analyzer_rs_tpu_torch import _build
     lib = _build.lib()
-    ours = {"aat_comb": "comb", "aat_tracker_select": "tracker",
+    ours = {"aat_extract": "extraction", "aat_tracker_select": "tracker",
             "aat_onset_scan": "onset", "aat_noise_floor_scan": "noise floor",
             "aat_reducer_scan": "reducer", "aat_dynamics_scan": "dynamics"}
     spans = []
@@ -1339,7 +1421,7 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
     own = ("reducer_kernel", "dynamics_sums_kernel", "dynamics_hist_kernel",
            "dynamics_exact_kernel", "dynamics_gain_kernel",
            "noise_floor_kernel", "onset_kernel", "tracker_select_kernel",
-           "comb_kernel")
+           "extract_kernel")
     kern = [ev for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA
             and not any(k in ev.key for k in own)]
@@ -1361,6 +1443,78 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
                     f"{getattr(ev, 'self_device_time_total', 0) / 1e3:.2f} ms"
                     for ev in top))
     del prof, kern
+
+    # K10 at the full step's call (128 streams x 933 frames, full-width
+    # magnitudes, banded floors), held against the plain extraction and
+    # timed; the plain extraction's card time from torch.profiler (the
+    # torch kernels, K2 by CUDA events), the share of the step K10 took
+    # over.
+    seen = []
+    extract_pitches = pitch.extract_pitches
+
+    def capture(*args, **kwargs):
+        seen.append((args, kwargs))
+        return extract_pitches(*args, **kwargs)
+    pitch.extract_pitches = capture
+    try:
+        step(sharding.init_stream_states(FULL_B), chunks[0])
+    finally:
+        pitch.extract_pitches = extract_pitches
+    (x_mags, x_floor, x_bw), x_kw = seen[0]
+    n_x = x_mags.shape[0]
+    half_x = x_kw.get("true_half") or x_mags.shape[-1]
+    lo_bin, hi_bin = pitch._bins(x_bw, half_x, pitch.MIN_FREQ, pitch.MAX_FREQ)
+    kc_x = pitch.candidate_band(x_bw, half_x)
+    x_args = (x_bw, lo_bin, hi_bin, pitch.MIN_FREQ, pitch.MAX_FREQ, half_x)
+    got = hopper_extract.extract(x_mags, x_floor, *x_args)
+    ref = pitch._extract(x_mags, x_floor, *x_args)
+    torch.cuda.synchronize()
+    for name, g, r in zip(pitch.PitchFrame._fields, got, ref):
+        assert same_bits(g, r), f"K10 at the full step: {name} differs"
+    x_ms = cuda_ms(lambda: hopper_extract.extract(x_mags, x_floor, *x_args),
+                   KERNEL_REPS)
+    comb_spans = []
+    comb_fn = lib.aat_comb
+
+    def comb_timed(*args):
+        begin = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        code = comb_fn(*args)
+        done.record()
+        comb_spans.append((begin, done))
+        return code
+    lib.aat_comb = comb_timed
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pitch._extract(x_mags, x_floor, *x_args)
+            torch.cuda.synchronize()
+    finally:
+        lib.aat_comb = comb_fn
+    kern = [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and "comb_kernel" not in ev.key]
+    x_torch_ms = sum(getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+                     for ev in kern) / 1e3
+    x_comb_ms = sum(b.elapsed_time(e) for b, e in comb_spans)
+    x_bytes = n_x * (2 * kc_x + 1) * 4 + nbytes(*got)
+    x_bound, x_by = bound(x_bytes, 30 * n_x * (kc_x + 1), FP32_FLOPS)
+    say(f"fullstep: K10 at the step's call ({n_x} frames, magnitudes "
+        f"{tuple(x_mags.shape)}, floors {tuple(x_floor.shape)}): bitwise "
+        f"equal to the plain extraction ({int(ref.valid.sum())} notes); "
+        f"{x_ms:.4f} ms, bound {x_bound:.4f} ms ({x_by}: "
+        f"{x_bytes / 1e6:.1f} MB); the plain extraction's card time "
+        f"{x_torch_ms + x_comb_ms:.3f} ms (torch.profiler: "
+        f"{sum(ev.count for ev in kern)} torch kernels {x_torch_ms:.3f} ms; "
+        f"K2 {x_comb_ms:.3f} ms by CUDA events)")
+    row_of(rows, "K10").update(
+        full_step_frames=n_x, full_step_ms=x_ms, full_step_bound_ms=x_bound,
+        full_step_bound_by=x_by, full_step_plain_card_ms=x_torch_ms
+        + x_comb_ms, full_step_plain_kernels=sum(ev.count for ev in kern),
+        launches_full_step=launches[0])
+    del prof, kern, got, ref, seen, x_mags, x_floor
 
     # 3a. One stream's bits do not depend on B: stream 0's first step at
     # B = 1, 33 and 128.  cuFFT's 2,048-point magnitudes depend on the
@@ -1549,10 +1703,8 @@ def devtools_phase(rows, card: str, audio44) -> None:
     from audio_analyzer_rs_tpu_torch import devtools
     from audio_analyzer_rs_tpu_torch.models import generators as gen
     from audio_analyzer_rs_tpu_torch.models.analyzer import PitchAnalyzer
-    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
-                                                 hopper_noisefloor,
-                                                 hopper_onset, hopper_stft,
-                                                 hopper_tracker, noisefloor,
+    from audio_analyzer_rs_tpu_torch.ops import (hopper_noisefloor,
+                                                 hopper_stft, noisefloor,
                                                  pitch)
     from audio_analyzer_rs_tpu_torch.ops.fft import hann, rdft_trig
     from audio_analyzer_rs_tpu_torch.ops.stft import (FIDELITY_MAX_REL_MSE,
@@ -1657,7 +1809,8 @@ def devtools_phase(rows, card: str, audio44) -> None:
 
     # PitchAnalyzer with a DebugRecorder over 60 s: stable outputs bit for
     # bit the analyzer's without one, a record a frame, warm wall.
-    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_noisefloor)
+    tags = ("K1", "K10", "K3", "K5")
+    counters = counters_of(tags)
     minute = audio44[:int(DEBUG_SECONDS * SR)]
     n60 = num_frames(len(minute), window, hop)
     PitchAnalyzer(SR).process(minute)
@@ -1670,11 +1823,13 @@ def devtools_phase(rows, card: str, audio44) -> None:
     an = PitchAnalyzer(SR, debug_recorder=rec)
     for mod in counters:
         mod.LAUNCHES = 0
-    t0 = time.perf_counter()
-    out = an.process(minute)
-    debug_s = time.perf_counter() - t0
+    with PlainExtractions() as plain_x:
+        t0 = time.perf_counter()
+        out = an.process(minute)
+        debug_s = time.perf_counter() - t0
     launches = [mod.LAUNCHES for mod in counters]
     assert all(n > 0 for n in launches), launches
+    assert not plain_x.calls, f"{plain_x.calls} plain extractions on the card"
     for name in ("stable_freqs", "stable_scores", "stable_valid"):
         a, b = getattr(out, name), getattr(plain, name)
         assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), name
@@ -1687,8 +1842,9 @@ def devtools_phase(rows, card: str, audio44) -> None:
         f"{DEBUG_SECONDS:.0f} s ({n60} frames): stable outputs bitwise equal to the analyzer "
         f"without one; {len(rec.pitch_frames)} records (one a frame, "
         f"{half}-bin spectra and floors); warm {debug_s:.3f} s against "
-        f"{plain_s:.3f} s without; launches K1/K2/K3/K5 {launches}")
-    for key, n in zip(("K1", "K2", "K3", "K5"), launches):
+        f"{plain_s:.3f} s without; launches K1/K10/K3/K5 {launches}, "
+        f"plain extractions 0")
+    for key, n in zip(tags, launches):
         by_name[key]["launches_debug_analyzer"] = n
     del rec, an, out, plain
 
@@ -1703,19 +1859,21 @@ def devtools_phase(rows, card: str, audio44) -> None:
                      recorder=devtools.DebugRecorder())
         jsonl = tmp / "live.jsonl"
         rec = devtools.JsonlStreamRecorder(str(jsonl))
-        counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_onset,
-                    hopper_noisefloor)
+        counters = counters_of(PATH_KERNELS)
 
         def zero(i):
             if i == 0:
                 for mod in counters:
                     mod.LAUNCHES = 0
 
-        e, polls, host_ms, _ = live_session(scene, "cuda", DEBUG_LIVE_SLOTS,
-                                            on_slot=zero, recorder=rec)
+        with PlainExtractions() as plain_x:
+            e, polls, host_ms, _ = live_session(
+                scene, "cuda", DEBUG_LIVE_SLOTS, on_slot=zero, recorder=rec)
         launches = [mod.LAUNCHES for mod in counters]
         rec.close()
         assert all(n > 0 for n in launches), launches
+        assert not plain_x.calls, \
+            f"{plain_x.calls} plain extractions on the card"
         assert e._fused_slots == 0, f"{e._fused_slots} fused slots"
         _, ref_polls, ref_ms, _ = live_session(scene, "cuda",
                                                DEBUG_LIVE_SLOTS, fused=False)
@@ -1745,9 +1903,10 @@ def devtools_phase(rows, card: str, audio44) -> None:
             f"{pct(host_ms, 0.99):.3f}, max {max(host_ms):.3f}, {over} over "
             f"{LIVE_BUDGET_MS:.2f} ms (without a recorder, sequential: p50 "
             f"{pct(ref_ms, 0.5):.3f}, p99 {pct(ref_ms, 0.99):.3f}); "
-            f"launches K1/K2/K3/K4/K5 {launches}")
-        for key, n in zip(("K1", "K2", "K3", "K4", "K5"), launches):
+            f"launches K1/K10/K3/K4/K5 {launches}, plain extractions 0")
+        for key, n in zip(PATH_KERNELS, launches):
             by_name[key]["launches_debug_live"] = n
+        by_name["K1-debug"]["launches"] = launches[0]
 
         # The CLI as a user runs it, on the card.
         wav60 = tmp / "minute.wav"
@@ -1925,14 +2084,11 @@ def mesh_phase(card: str, audio44, full_outs, fleet_chunk,
     import torch
     import torch.distributed as dist
     from audio_analyzer_rs_tpu_torch.models import segmented
-    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
-                                                 hopper_noisefloor,
-                                                 hopper_stft, hopper_tracker)
     from audio_analyzer_rs_tpu_torch.parallel import dryrun
     from audio_analyzer_rs_tpu_torch.parallel import mesh as pmesh
     from audio_analyzer_rs_tpu_torch.parallel import sharding
     t_phase = time.perf_counter()
-    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_noisefloor)
+    counters = counters_of(("K1", "K10", "K3", "K5"))
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", store=dist.FileStore(
             str(Path(tmp) / "store"), 1), rank=0, world_size=1)
@@ -1943,11 +2099,15 @@ def mesh_phase(card: str, audio44, full_outs, fleet_chunk,
             cold = time.perf_counter() - t0
             for mod in counters:
                 mod.LAUNCHES = 0
-            t0 = time.perf_counter()
-            got = segmented.segmented_pitch_analysis(audio44, SR, mesh=mesh)
-            warm = time.perf_counter() - t0
+            with PlainExtractions() as plain_x:
+                t0 = time.perf_counter()
+                got = segmented.segmented_pitch_analysis(audio44, SR,
+                                                         mesh=mesh)
+                warm = time.perf_counter() - t0
             launches = [mod.LAUNCHES for mod in counters]
             assert all(n > 0 for n in launches), launches
+            assert not plain_x.calls, \
+                f"{plain_x.calls} plain extractions on the card"
             for a, b in zip(got, full_outs):
                 assert a.dtype == b.dtype and np.array_equal(a, b)
             _, out = sharding.make_batched_full_step(mesh, FULL_SR)(
@@ -1962,7 +2122,8 @@ def mesh_phase(card: str, audio44, full_outs, fleet_chunk,
     del out
     say(f"mesh: world size 1 (NCCL): segmented_pitch_analysis 30 min on the "
         f"mesh bitwise to phase 4's mesh-free run, cold {cold:.2f} s, warm "
-        f"{warm:.3f} s, launches K1/K2/K3/K5 {launches}; "
+        f"{warm:.3f} s, launches K1/K10/K3/K5 {launches}, plain "
+        f"extractions 0; "
         f"make_batched_full_step {FULL_B} streams x {fleet_chunk.shape[1]} "
         f"samples bitwise to phase 12's first step (every output, the fleet "
         f"statistics included); make_pooled_wave_step {pool['lanes']} lanes "
@@ -2041,7 +2202,7 @@ def main() -> int:
     from audio_analyzer_rs_tpu_torch.models import segmented
     from audio_analyzer_rs_tpu_torch.models.analyzer import (OnsetAnalyzer,
                                                              PitchAnalyzer)
-    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
+    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_extract,
                                                  hopper_noisefloor,
                                                  hopper_onset, hopper_stft,
                                                  hopper_tracker, noisefloor,
@@ -2165,11 +2326,110 @@ def main() -> int:
         f"plain {k2_plain_ms:.3f} ms (turns kernel/plain/kernel/plain "
         f"{'/'.join(f'{t:.3f}' for t in k2_turns)}); bound "
         f"{k2_bound:.4f} ms ({k2_by}: {k2_bytes / 1e6:.1f} MB)")
-    rows.append(dict(name="K2 comb (13-harmonic comb)", route="cuda",
+    rows.append(dict(name="K2 comb (13-harmonic comb; on the paths it runs "
+                     "inside K10)", route="cuda",
                      source=f"{PKG}/csrc/comb.cu",
                      replaces="audio_analyzer_rs_tpu/ops/pallas_comb.py:56",
                      max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
                      bound_ms=k2_bound, bound_by=k2_by, library_ms=None))
+
+    # K10: the whole extraction in one launch, bitwise to the plain
+    # `_extract` (torch ops around K2) on the step's K1 magnitudes and K5
+    # floors, 8,192 frames.
+    eff_flat = eff.reshape(s_n, -1)
+    x_args = (bin_width, min_bin, max_bin, pitch.MIN_FREQ, pitch.MAX_FREQ,
+              half)
+    got10 = hopper_extract.extract(flat, eff_flat, *x_args)
+    ref10 = pitch._extract(flat, eff_flat, *x_args)
+    torch.cuda.synchronize()
+    for name, g, r in zip(pitch.PitchFrame._fields, got10, ref10):
+        assert same_bits(g, r), f"K10 {name} differs from the plain extraction"
+    k10_err = float((got10.scores - ref10.scores).abs().max())
+    k10_ms, k10_plain_ms, k10_turns = in_turns(
+        lambda: hopper_extract.extract(flat, eff_flat, *x_args),
+        lambda: pitch._extract(flat, eff_flat, *x_args), 1)
+    # Bytes: the band's magnitudes (kc + 1) and floors (kc) read once, the
+    # three [N, 8] outputs written once; ~30 operations a bin (the logs,
+    # the peak tests) are far below the FP32 rate's bound.
+    k10_bytes = s_n * (2 * kc + 1) * 4 + nbytes(*got10)
+    k10_bound, k10_by = bound(k10_bytes, 30 * s_n * (kc + 1), FP32_FLOPS)
+    say(f"K10 extract [{s_n}, {kc + 1}] magnitudes and [{s_n}, {kc}] floors "
+        f"-> [{s_n}, 8] ({int(ref10.valid.sum())} notes): bitwise equal to "
+        f"the plain extraction (freqs, scores, valid); {k10_ms:.4f} ms vs "
+        f"plain {k10_plain_ms:.3f} ms (turns kernel/plain/kernel/plain "
+        f"{'/'.join(f'{t:.4f}' for t in k10_turns)}); bound "
+        f"{k10_bound * 1e3:.2f} us ({k10_by}: {k10_bytes / 1e6:.1f} MB)")
+    rows.append(dict(name="K10 extract (the pitch extraction: peaks, comb, "
+                     "gates, top-32, ghosts, dedup, first 8)", route="cuda",
+                     source=f"{PKG}/csrc/extract.cu",
+                     replaces="audio_analyzer_rs_tpu/ops/pitch.py:294",
+                     note="port-only kernel: no Pallas twin (XLA fused "
+                     "_extract_single on the TPU)",
+                     max_abs_err=k10_err, ms=k10_ms, plain_ms=k10_plain_ms,
+                     bound_ms=k10_bound, bound_by=k10_by, library_ms=None))
+    del got10, ref10
+
+    # K1 at the latency shapes (the live slot's [1, 2, 2048] and the pool
+    # wave's [33, 2, 2048] at 48 kHz's band, the debug slot's [1, 2] at
+    # full width): split over the sample depth, bitwise to the unsplit
+    # launch, timed in turns with it and beside cuBLAS FP32 and the plain
+    # version.
+    bw48 = float(np.float32(LIVE_SR) / np.float32(window))
+    trig48 = rdft_trig(window, dev)[:, :2 * (pitch.candidate_band(
+        bw48, half) + 1)]
+    trig_full = rdft_trig(window, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    at = 1000 * hop
+    latency = (
+        ("K1-live", "[1, 2, 2048]", trig48,
+         frame_signal(audio_dev[at:at + hop + window], window, hop)[None]),
+        ("K1-pool", "[33, 2, 2048]", trig48, frame_signal(torch.stack([
+            audio_dev[at + 9000 * i:at + 9000 * i + hop + window]
+            for i in range(33)]), window, hop)),
+        ("K1-debug", "[1, 2, 2048], full width", trig_full,
+         frame_signal(audio_dev[at:at + hop + window], window, hop)[None]))
+    for tag, shape, tr, fr in latency:
+        got = hopper_stft.dft_mag(fr, tr, win)
+        one = hopper_stft._dft_mag(fr, tr, win, splits=1)
+        ref = hopper_stft.dft_mag_plain(fr, tr, win)
+        torch.cuda.synchronize()
+        assert same_bits(got, one), f"{tag}: the split is not the unsplit"
+        err = float((got - ref).abs().max())
+        assert err <= K1_REL_TOL * float(ref.abs().max()), (tag, err)
+        n_fr = fr.shape[0] * fr.shape[1]
+        cols_pad = hopper_stft._cached_split(tr)[1]
+        splits = hopper_stft.split_count(n_fr, cols_pad, window, sms)
+        assert splits > 1, (tag, splits)
+        t_split, t_one, turns = in_turns(
+            lambda: hopper_stft.dft_mag(fr, tr, win),
+            lambda: hopper_stft._dft_mag(fr, tr, win, splits=1),
+            KERNEL_REPS)
+        wf = (fr * win).reshape(-1, window).contiguous()
+        t_lib = cuda_ms(lambda: torch.matmul(wf, tr), KERNEL_REPS)
+        t_plain = cuda_ms(lambda: hopper_stft.dft_mag_plain(fr, tr, win))
+        span = (fr.shape[1] - 1) * fr.stride(1) + window
+        nb = fr.shape[0] * span * 4 + nbytes(tr, win, got)
+        b_ms, b_by = bound(nb, 3 * 2 * n_fr * window * tr.shape[1],
+                           TF32_FLOPS)
+        split_table = 2 * cols_pad * window * 4
+        b_split, _ = bound(nb - nbytes(tr) + split_table, 0, TF32_FLOPS)
+        say(f"{tag} stft split {shape} -> {got.shape[-1]} bins ({splits} "
+            f"blocks a column tile): bitwise equal to the unsplit launch, "
+            f"max|d| {err:.3e} vs plain; split {t_split * 1e3:.2f} us vs "
+            f"unsplit {t_one * 1e3:.2f} us (turns split/unsplit/split/unsplit "
+            f"{'/'.join(f'{t * 1e3:.2f}' for t in turns)}), cuBLAS FP32 "
+            f"{t_lib * 1e3:.2f} us, plain {t_plain * 1e3:.2f} us; bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}: {nb / 1e6:.1f} MB with the "
+            f"table; {b_split * 1e3:.2f} us with the {split_table / 1e6:.1f} "
+            f"MB split table the kernel reads)")
+        rows.append(dict(name=f"{tag} stft split over the sample depth, "
+                         f"{shape} -> {got.shape[-1]} bins", route="cuda",
+                         source=f"{PKG}/csrc/stft.cu",
+                         replaces="audio_analyzer_rs_tpu/ops/pallas_stft.py:52",
+                         launches=0, max_abs_err=err, ms=t_split,
+                         plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=t_lib, unsplit_ms=t_one, splits=splits,
+                         bound_split_table_ms=b_split))
 
     pf = pitch.extract_pitches(flat, eff.reshape(s_n, -1), bin_width,
                                true_half=half)
@@ -2411,7 +2671,8 @@ def main() -> int:
     del o_audio, o_streams, mags4, gf4, no4, in1k, in_one, mags_seq, out4
 
     # 4. The main path through the public entry points.
-    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_noisefloor)
+    tags = ("K1", "K10", "K3", "K5")
+    counters = counters_of(tags)
     t0 = time.perf_counter()
     sf, ss, sv = segmented.segmented_pitch_analysis(audio, SR)
     cold = time.perf_counter() - t0
@@ -2419,27 +2680,32 @@ def main() -> int:
     tracker.select_stable = lambda *a: selects.append(1) or plain_select(*a)
     plain_nf_step, nf_steps = noisefloor._step, []
     noisefloor._step = lambda *a: nf_steps.append(1) or plain_nf_step(*a)
-    for mod in counters:
+    for mod in counters + (hopper_comb,):
         mod.LAUNCHES = 0
-    t0 = time.perf_counter()
-    sf, ss, sv = segmented.segmented_pitch_analysis(audio, SR)
-    warm = time.perf_counter() - t0
+    with PlainExtractions() as plain_x:
+        t0 = time.perf_counter()
+        sf, ss, sv = segmented.segmented_pitch_analysis(audio, SR)
+        warm = time.perf_counter() - t0
     launches = [mod.LAUNCHES for mod in counters]
     tracker.select_stable = plain_select
     noisefloor._step = plain_nf_step
     assert all(n > 0 for n in launches), launches
     assert not selects, f"{len(selects)} plain select_stable calls"
     assert not nf_steps, f"{len(nf_steps)} plain floor steps on the CUDA path"
+    assert not plain_x.calls, f"{plain_x.calls} plain extractions on the card"
+    assert hopper_comb.LAUNCHES == 0, "K2 launched outside K10"
     assert sf.shape == ss.shape == sv.shape == (n_total, 8), sf.shape
     assert np.isfinite(sf).all() and np.isfinite(ss).all()
     assert sv.any(), "no stable pitch in 30 minutes of tones"
     say(f"main path: segmented_pitch_analysis 30 min ({n_total} frames): "
         f"cold {cold:.2f} s, warm {warm:.2f} s = {n_total / warm:,.0f} "
-        f"frames/s; launches K1/K2/K3/K5 {launches}, plain select_stable "
-        f"calls 0, plain floor steps 0; "
+        f"frames/s; launches K1/K10/K3/K5 {launches} (K2 0: its comb runs "
+        f"inside K10), plain select_stable calls 0, plain floor steps 0, "
+        f"plain extractions 0; "
         f"{int(sv.any(1).sum())} frames with a stable pitch")
-    for row, n in zip(rows[:3] + rows[4:], launches):
-        row["launches"] = n
+    for tag, n in zip(tags, launches):
+        row_of(rows, tag)["launches"] = n
+    row_of(rows, "K2")["launches"] = 0
 
     takes = [audio[i * int(30 * SR):(i + 1) * int(30 * SR)] for i in range(8)]
     t0 = time.perf_counter()
@@ -2481,17 +2747,18 @@ def main() -> int:
     plain_step, steps = onset._step, []
     onset._step = lambda *a: steps.append(1) or plain_step(*a)
     noisefloor._step = lambda *a: nf_steps.append(1) or plain_nf_step(*a)
-    counters = (hopper_stft, hopper_comb, hopper_tracker, hopper_onset,
-                hopper_noisefloor)
+    counters = counters_of(PATH_KERNELS)
     for mod in counters:
         mod.LAUNCHES = 0
-    t0 = time.perf_counter()
-    arr = analysis.analyze_buffer_segmented(audio, SR)
-    warm = time.perf_counter() - t0
+    with PlainExtractions() as plain_x:
+        t0 = time.perf_counter()
+        arr = analysis.analyze_buffer_segmented(audio, SR)
+        warm = time.perf_counter() - t0
     launches = [mod.LAUNCHES for mod in counters]
     onset._step = plain_step
     noisefloor._step = plain_nf_step
     assert all(n > 0 for n in launches), launches
+    assert not plain_x.calls, f"{plain_x.calls} plain extractions on the card"
     assert not steps, f"{len(steps)} plain onset steps on the CUDA path"
     assert not nf_steps, f"{len(nf_steps)} plain floor steps on the CUDA path"
     assert len(arr.rms) == n_total and arr.spectrogram.shape == (n_total,
@@ -2503,12 +2770,13 @@ def main() -> int:
     assert arr.stable_valid.any() and arr.yin_voiced.any()
     say(f"analysis: analyze_buffer_segmented 30 min ({n_total} pitch frames, "
         f"{n_on} onset frames): cold {cold:.2f} s, warm {warm:.2f} s = "
-        f"{n_total / warm:,.0f} pitch frames/s; launches K1/K2/K3/K4/K5 "
-        f"{launches}, plain onset and floor steps 0; {len(arr.onsets)} "
+        f"{n_total / warm:,.0f} pitch frames/s; launches K1/K10/K3/K4/K5 "
+        f"{launches}, plain onset and floor steps 0, plain extractions 0; "
+        f"{len(arr.onsets)} "
         f"onsets, "
         f"{int(arr.stable_valid.any(1).sum())} frames with a stable pitch, "
         f"{int(arr.yin_voiced.sum())} YIN-voiced frames")
-    rows[3]["launches"] = launches[3]
+    row_of(rows, "K4")["launches"] = launches[3]
     del arr
     # Where the warm wall goes: the upload and each pass alone, warm, on
     # the shared device copy; the feature chunks are the rest.

@@ -10,7 +10,7 @@ Paths: `segmented_pitch_analysis` and `analyze_buffer_segmented` over the
 untraced call and then traced once.  Stages are marked by wrapping the
 package's functions in `torch.profiler.record_function` for the traced call
 (nothing in the package changes): the upload, the STFT (K1, or cuFFT), the
-noise-floor scan (K5), the extraction (plain ops and K2), the tracker (K3),
+noise-floor scan (K5), the extraction (K10), the tracker (K3),
 and for the analysis API the onset pass (cuFFT + K4), the pitch pass and the
 feature chunks (spectrogram, feature pack, YIN).
 
@@ -53,16 +53,14 @@ def wrap(module, name: str, label: str, undo: list) -> None:
 def stage_wrappers(analysis_api: bool) -> list:
     from audio_analyzer_rs_tpu_torch import analysis
     from audio_analyzer_rs_tpu_torch.models import analyzer, segmented
-    from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, noisefloor,
-                                                 pitch, tracker)
+    from audio_analyzer_rs_tpu_torch.ops import noisefloor, pitch, tracker
     undo: list = []
     wrap(segmented, "_upload_f32", "upload", undo)
     wrap(segmented, "_slice_streams", "slice streams", undo)
     wrap(analyzer, "windowed_mags", "stft (K1; cuFFT in the onset pass)",
          undo)
     wrap(noisefloor, "noise_floor_scan", "noise floor (K5)", undo)
-    wrap(pitch, "extract_pitches", "extraction (plain ops + K2)", undo)
-    wrap(hopper_comb, "comb", "comb (K2)", undo)
+    wrap(pitch, "extract_pitches", "extraction (K10)", undo)
     wrap(tracker, "tracker_scan_batched", "tracker (K3)", undo)
     if analysis_api:
         wrap(segmented, "segmented_onset_analysis", "onset pass", undo)
@@ -134,8 +132,7 @@ def summarize(prof, wall_s: float, steps: int) -> dict:
 
 STAGE_LABELS = {
     "upload", "slice streams", "stft (K1; cuFFT in the onset pass)",
-    "noise floor (K5)", "extraction (plain ops + K2)", "comb (K2)",
-    "tracker (K3)",
+    "noise floor (K5)", "extraction (K10)", "tracker (K3)",
     "onset pass", "pitch pass", "feature chunks: spectrogram",
     "feature chunks: feature pack", "feature chunks: YIN",
 }

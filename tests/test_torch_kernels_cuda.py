@@ -7,7 +7,13 @@ test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Small shapes of the main path's kinds; chip_smoke.py repeats the checks at
-the full main-path shapes and times them.  K6 (the reducer scan) and K7
+the full main-path shapes and times them.  K10 (the pitch extraction) is
+bitwise to the plain `_extract` on the card at the main (8,192 frames),
+live (2), pool (66), full-width and full-step (119,424) shapes and on
+ties, NaN, +inf, silence and more than 32 candidates; `extract_pitches`
+on CUDA tensors never runs the plain extraction.  K1 split over the
+sample depth (1-256 frames banded, 1-128 at full width) is bitwise the
+unsplit launch for every frame.  K6 (the reducer scan) and K7
 (the dynamics scan) are bitwise to their plain versions at B = 1, 33, 128
 and 129, from fresh and carried states, with NaN samples and digital
 silence, K6 over T shorter than a tile and not a multiple of 4 and a hold
@@ -31,12 +37,14 @@ engine with a recorder keep the stable outputs and polls of those
 without one, bit for bit.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from audio_analyzer_rs_tpu_torch.models import generators as gen
-from audio_analyzer_rs_tpu_torch.ops import (hopper_comb,
+from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_extract,
                                              hopper_noisefloor, hopper_onset,
                                              hopper_stft, hopper_tracker,
                                              noisefloor, onset, pitch,
@@ -98,18 +106,21 @@ def test_k1_matches_plain(dev, frames):
 
 
 def test_k1_is_geometry_independent(dev):
-    """The same frames give the same bits in batches of 1, 63, 64, 65 and
-    129 frames starting at other tile rows, as [N, W] views, as a
-    contiguous copy and as [S, F, W] views."""
+    """The same frames give the same bits in batches of 1 to 257 frames
+    starting at other tile rows, as [N, W] views, as a contiguous copy and
+    as [S, F, W] views: the batches up to 256 frames take the split over
+    the sample depth, the whole scene (686 frames) and 257 the unsplit
+    launch."""
     x = torch.from_numpy(
-        gen.mixed_scene(5.0, SR, seed=4)
-        + gen.tone_with_harmonics(330.0, 5.0, SR, harmonics=6,
+        gen.mixed_scene(8.0, SR, seed=4)
+        + gen.tone_with_harmonics(330.0, 8.0, SR, harmonics=6,
                                   amplitude=0.3)).to(dev)
     trig = rdft_trig(W, dev)[:, :2 * (KC + 1)]
     win = hann(W, dev)
     full = hopper_stft.dft_mag(frame_signal(x, W, HOP), trig, win)
+    assert hopper_stft.split_count(full.shape[0], 960, W, 132) == 1
     starts = (0, 37, 200)
-    for b in (1, 63, 64, 65, 129):
+    for b in (1, 2, 63, 64, 65, 66, 127, 128, 129, 256, 257):
         for s in starts:
             view = frame_signal(x[s * HOP:(s + b - 1) * HOP + W], W, HOP)
             for frames in (view, view.contiguous()):
@@ -160,6 +171,137 @@ def test_k2_matches_plain_bitwise(dev, frames):
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     assert int(got[2].sum()) > 0
+
+
+@functools.lru_cache(maxsize=1)
+def _k10_scene(dev):
+    """A 96 s mixed scene's K1 magnitudes and K5 floors on the card, banded
+    ([8192, 465] and [8192, 464]) and, for its first 256 frames, at full
+    width ([256, 1025] each); and the frames with a note (the scene has
+    stretches of digital silence)."""
+    x = torch.from_numpy(gen.mixed_scene(96.0, SR, seed=0)).to(dev)
+    frames = frame_signal(x, W, HOP)[:8192]
+    win = hann(W, dev)
+    trig = rdft_trig(W, dev)
+    gf = torch.full((1, 8192), float(noisefloor.global_floor_linear(
+        -96.0, HALF)), device=dev)
+    mags = hopper_stft.dft_mag(frames, trig[:, :2 * (KC + 1)], win)
+    _, eff = noisefloor.noise_floor_scan(
+        noisefloor.init_state(HALF, dev, (1,)), mags[None], gf, KC)
+    full = hopper_stft.dft_mag(frames[:256], trig, win)
+    _, eff_full = noisefloor.noise_floor_scan(
+        noisefloor.init_state(HALF, dev, (1,)), full[None], gf[:, :256],
+        None)
+    voiced = pitch._extract(mags, eff[0], BIN_W, MIN_BIN, MAX_BIN,
+                            pitch.MIN_FREQ, pitch.MAX_FREQ,
+                            HALF).valid.any(1).nonzero()[:, 0]
+    assert voiced.numel() > 1000
+    return mags, eff[0], full, eff_full[0], voiced
+
+
+def _k10_case(dev, case):
+    mags, eff, full, eff_full, voiced = _k10_scene(dev)
+    rng = np.random.default_rng(7)
+    rnd = torch.from_numpy(rng.exponential(1.0, (128, KC + 1)).astype(
+        np.float32)).to(dev)
+    flat = torch.full((128, KC), 0.3, device=dev)
+    if case == "main":
+        return mags, eff
+    if case == "live":
+        at = int(voiced[500])
+        return mags[at:at + 2], eff[at:at + 2]
+    if case == "pool":
+        rows = voiced[1000:1066]
+        return mags[rows], eff[rows]
+    if case == "full width":
+        return full, eff_full
+    if case == "full step":
+        return mags.repeat(15, 1)[:119424], eff.repeat(15, 1)[:119424]
+    if case == "empty":
+        return mags[:0], eff[:0]
+    if case == "strided":
+        wide = torch.zeros((64, 600), device=dev)
+        wide[:, :KC + 1] = mags[100:164]
+        return wide[:, :KC + 1], eff[100:164]
+    if case == "more than 32 candidates":
+        return rnd, flat
+    if case == "ties":
+        ties = torch.full((16, KC + 1), 1e-3, device=dev)
+        ties[:, 30:460:7] = 1.0
+        ties[1::2, 100:102] = 1.0
+        return ties, torch.full((16, KC), 1e-4, device=dev)
+    if case == "nan, inf and silence":
+        odd = rnd[:48].clone()
+        odd[::4, 100] = float("nan")
+        odd[1::4, 200] = float("inf")
+        odd[2::4, 50:60] = 0.0
+        odd[3::4] = 0.0
+        return odd, flat[:48]
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "main", "live", "pool", "full width", "full step", "empty", "strided",
+    "more than 32 candidates", "ties", "nan, inf and silence"])
+def test_k10_matches_plain_bitwise(dev, case):
+    """K10 against the plain `_extract` on the same inputs: freqs, scores
+    (as bit patterns) and valid flags, every frame."""
+    mags, floor = _k10_case(dev, case)
+    args = (BIN_W, MIN_BIN, MAX_BIN, pitch.MIN_FREQ, pitch.MAX_FREQ, HALF)
+    before = hopper_extract.LAUNCHES
+    got = hopper_extract.extract(mags, floor, *args)
+    ref = pitch._extract(mags, floor, *args)
+    torch.cuda.synchronize()
+    assert hopper_extract.LAUNCHES == before + (mags.shape[0] > 0)
+    for name, g, r in zip(("freqs", "scores", "valid"), got, ref):
+        assert g.shape == r.shape == (mags.shape[0], 8), name
+        assert_same_bits(g, r, f"K10 {case} {name}")
+    if case in ("main", "live", "pool", "full step",
+                "more than 32 candidates", "ties", "nan, inf and silence"):
+        assert bool(ref.valid.any())
+
+
+def test_extract_pitches_on_cuda_runs_no_plain_extraction(dev, monkeypatch):
+    """`extract_pitches` and the pitch front on CUDA tensors: one K10 launch
+    a call, and neither the plain extraction nor K2 nor a sort runs."""
+    from audio_analyzer_rs_tpu_torch.models import analyzer
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain extraction ran on the card")
+    mags, eff, _, _, voiced = _k10_scene(dev)
+    mags, eff = mags[voiced[:64]], eff[voiced[:64]]
+    for mod, name in ((pitch, "_extract"), (pitch, "_pre_comb"),
+                      (hopper_comb, "comb"), (torch, "sort")):
+        monkeypatch.setattr(mod, name, refuse)
+    before = hopper_extract.LAUNCHES
+    pf = pitch.extract_pitches(mags, eff, BIN_W, true_half=HALF)
+    assert hopper_extract.LAUNCHES == before + 1 and bool(pf.valid.any())
+    frames = frame_signal(_live_scene(dev, 2.0), W, HOP)[None, 40:45]
+    nf = noisefloor.init_state(HALF, dev, (1,))
+    gf = torch.full((1, 5), 0.002, device=dev)
+    analyzer.pitch_extract_frames(nf, frames, gf, SR48)
+    analyzer.pitch_extract_frames(nf, frames, gf, SR48, return_floor=True)
+    assert hopper_extract.LAUNCHES == before + 3
+
+
+@pytest.mark.parametrize("table", ["banded", "full"])
+@pytest.mark.parametrize("n", [1, 2, 66, 127, 128, 129])
+def test_k1_split_is_bitwise_the_unsplit_launch(dev, table, n):
+    """K1 split over the sample depth (the rule's split and the split that
+    fills the card) against the unsplit launch, every frame bit for bit."""
+    x = torch.from_numpy(gen.mixed_scene(4.0, SR, seed=8)).to(dev)
+    frames = frame_signal(x, W, HOP)[40:40 + n]
+    trig = rdft_trig(W, dev)
+    if table == "banded":
+        trig = trig[:, :2 * (KC + 1)]
+    win = hann(W, dev)
+    cols_pad = hopper_stft._cached_split(trig)[1]
+    one = hopper_stft._dft_mag(frames, trig, win, splits=1)
+    for splits in (None, hopper_stft.fill_splits(n, cols_pad, W, 132), 64):
+        got = hopper_stft._dft_mag(frames, trig, win, splits=splits)
+        torch.cuda.synchronize()
+        assert_same_bits(got, one, f"splits {splits}")
+    assert float(one.max()) > 0
 
 
 def _assert_k3_matches_plain(st0, raws):
@@ -540,12 +682,13 @@ def _live_scene(dev, seconds, nan_at=None):
 @pytest.mark.parametrize("nan", [False, True])
 @pytest.mark.parametrize("n", [1, 2, 3])
 def test_live_pitch_kernels(dev, n, nan):
-    """K1, K5, K2 and K3 as the live engine calls them: one stream, n pitch
-    frames a call, 12 calls in a row on a fresh buffer each (the ring tail
-    and the slot joined), every state carried from the first, fresh, call.
-    K5, K2 and K3 bitwise to their plain versions on the same inputs; K1
-    within 1e-5 · max of its plain version and bitwise to the same frames
-    in one batch.  With a NaN sample in call 5's frames, NaNs where the
+    """K1, K5, K2, K10 and K3 as the live engine calls them: one stream, n
+    pitch frames a call, 12 calls in a row on a fresh buffer each (the ring
+    tail and the slot joined), every state carried from the first, fresh,
+    call.  K5, K2, K10 and K3 bitwise to their plain versions on the same
+    inputs; K1 (split over the sample depth at these n) within 1e-5 · max
+    of its plain version and bitwise to the same frames in one batch (the
+    unsplit launch).  With a NaN sample in call 5's frames, NaNs where the
     plain versions have them."""
     calls = 12
     x = _live_scene(dev, 3.0, nan_at=(5 * n * HOP + 100) / SR48
@@ -580,6 +723,10 @@ def test_live_pitch_kernels(dev, n, nan):
         for g, r in zip(got, ref):
             assert_same_bits_nan(g, r, f"K2 call {c}")
         pf = pitch.extract_pitches(flat, floor, BIN_W48, true_half=HALF)
+        ref_pf = pitch._extract(flat, floor, BIN_W48, MIN48, MAX48,
+                                pitch.MIN_FREQ, pitch.MAX_FREQ, HALF)
+        for a, b in zip(pf, ref_pf):
+            assert_same_bits_nan(a, b, f"K10 call {c}")
         onsets = torch.zeros((1, n), dtype=torch.bool, device=dev)
         onsets[0, 0] = c % 4 == 1
         raws = (pf.freqs[None], pf.scores[None], pf.valid[None], onsets)
@@ -1039,7 +1186,8 @@ def test_full_step_card_matches_cpu(dev):
 
 
 def test_full_step_launches_each_kernel_once(dev, monkeypatch):
-    """One full step at B = 4: K2-K7 once each, no plain scan step."""
+    """One full step at B = 4: K3-K7 and K10 once each (K2's comb runs
+    inside K10), no plain scan step and no plain extraction."""
     from audio_analyzer_rs_tpu_torch.ops import (dynamics, hopper_dynamics,
                                                  hopper_reducer)
     from audio_analyzer_rs_tpu_torch.ops import reducer
@@ -1049,9 +1197,10 @@ def test_full_step_launches_each_kernel_once(dev, monkeypatch):
         raise AssertionError("a plain scan step ran on the card")
     for mod, name in ((noisefloor, "_step"), (onset, "_step"),
                       (dynamics, "_step"), (tracker, "select_stable"),
-                      (reducer, "_feedback"), (reducer, "_envelope")):
+                      (reducer, "_feedback"), (reducer, "_envelope"),
+                      (pitch, "_extract"), (hopper_comb, "comb")):
         monkeypatch.setattr(mod, name, refuse)
-    mods = (hopper_comb, hopper_tracker, hopper_onset, hopper_noisefloor,
+    mods = (hopper_extract, hopper_tracker, hopper_onset, hopper_noisefloor,
             hopper_reducer, hopper_dynamics)
     audio = torch.from_numpy(dynamics_streams(4, 6).reshape(4, -1)).to(dev)
     step = sharding.make_batched_full_step(None, SR48, device=dev)

@@ -274,14 +274,17 @@ def test_source_scan():
                 "parallel/sharding.py", "ops/hopper_reducer.py",
                 "ops/hopper_dynamics.py", "devtools.py", "cli.py",
                 "parallel/mesh.py", "parallel/dryrun.py", "ops/gather.py",
-                "ops/hopper_gather.py"):
+                "ops/hopper_gather.py", "ops/hopper_extract.py"):
         assert PORT / new in files, new
     assert REPO / "port_tools" / "gather_probe.py" in files
+    assert REPO / "port_tools" / "k1_k10_probe.py" in files
     for path in files:
         assert "torch.compile" not in path.read_text(), path
         for name in _imported_names(path):
             assert name.split(".")[0] not in ("jax", "audio_analyzer_rs_tpu"), \
                 (path, name)
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == \
-        ["comb.cu", "dynamics.cu", "gather.cu", "noisefloor.cu", "onset.cu",
-         "reducer.cu", "stft.cu", "tracker.cu"]
+        ["comb.cu", "dynamics.cu", "extract.cu", "gather.cu", "noisefloor.cu",
+         "onset.cu", "reducer.cu", "stft.cu", "tracker.cu"]
+    assert sorted(p.name for p in (PORT / "csrc").glob("*.cuh")) == \
+        ["comb.cuh"]

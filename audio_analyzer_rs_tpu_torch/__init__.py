@@ -23,8 +23,10 @@ Layer map (mirrors the JAX package):
                      (kernel K7: ops/hopper_dynamics.py, csrc/dynamics.cu)
                      and the host (numpy) tracker the engine runs per slot
   ops/rounding       fma32: a*b + c rounded once, as the kernels' fmaf
-  ops/pitch          peaks, interpolation, the harmonic comb (kernel K2:
-                     ops/hopper_comb.py, csrc/comb.cu), gates, top-K, dedup
+  ops/pitch          peaks, interpolation, the harmonic comb, gates,
+                     top-K, dedup: on the card one kernel, K10
+                     (ops/hopper_extract.py, csrc/extract.cu), whose comb
+                     is K2's (csrc/comb.cuh; K2's own entry ops/hopper_comb.py)
   ops/tracker        the 24-slot PitchTracker scan and its stable top-8
                      (kernel K3: ops/hopper_tracker.py, csrc/tracker.cu)
   ops/onset          the spectral-flux onset recurrence (kernel K4:

@@ -5,8 +5,8 @@
 // suppression, the greedy 2-bin dedup and the first 8 kept, in the 24 Hz -
 // 10 kHz range.  No Pallas twin: on the TPU, XLA fused these ops (JAX
 // audio_analyzer_rs_tpu/ops/pitch.py `_pre_comb` :259, `_extract_single`
-// :294).  The plain version is ops/pitch.py `_extract`, ~360 torch kernels
-// a call.
+// :294).  The plain version is ops/pitch.py `_extract`, plain torch
+// throughout, its comb included.
 //
 // What bounds it on an H100: bytes.  It reads a frame's kc + 1 magnitudes
 // and kc floors (465 and 464 at 44.1 kHz) and writes three [8] outputs: at

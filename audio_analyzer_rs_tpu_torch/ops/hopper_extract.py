@@ -2,8 +2,9 @@
 
 Replaces no Pallas kernel: on the TPU, XLA fused these ops (JAX
 audio_analyzer_rs_tpu/ops/pitch.py `_pre_comb` :259 and `_extract_single`
-:294, the dedup at :386).  The port ran them as ~360 plain torch kernels
-a call around K2 (ops/pitch.py `_extract`, the plain version).
+:294, the dedup at :386).  Before K10 the port ran them as ~360 plain
+torch kernels a call around K2.  The plain version, ops/pitch.py
+`_extract`, is plain torch throughout, its comb included.
 
 What bounds it on an H100: bytes.  A frame's kc + 1 magnitudes and kc
 floors are read and three [8] outputs written: 30.4 MB at the main path's

@@ -4,9 +4,10 @@
 Batched over frames: every stage works on [N, kc] candidate-band tensors.
 `extract_pitches` runs the whole extraction as kernel K10 on CUDA tensors
 (ops/hopper_extract.py) and the plain `_extract` below on CPU tensors.
-In `_extract` the 13-harmonic comb is kernel K2 on CUDA tensors
-(ops/hopper_comb.py) and the plain `_comb` on CPU tensors.  Top-K is a
-stable descending sort, which breaks score ties toward the lower bin as
+`_extract` is plain torch on every device, its comb the plain `_comb`, so
+on the card K10 is held against a reference that shares no code with it
+(K2, ops/hopper_comb.py, keeps its own entry).  Top-K is a stable
+descending sort, which breaks score ties toward the lower bin as
 `lax.top_k` does.
 
 Constants (ref stft.rs:452-453,536-543,594,606): MAX_HARMONICS=14,
@@ -22,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import hopper_comb, hopper_extract
+from . import hopper_extract
 
 MAX_HARMONICS = 14
 MAX_NOTES = 8
@@ -180,8 +181,8 @@ def _extract(mags: torch.Tensor, noise_floor: torch.Tensor, bin_width: float,
     pm, frac_c, m_c, is_peak, degenerate = _pre_comb(mags, nf_c, min_bin,
                                                      max_bin, kc)
     fund_mag = m_c.contiguous()
-    score, longest_run, total_harms = hopper_comb.comb(pm, frac_c, fund_mag,
-                                                       half, max_bin)
+    score, longest_run, total_harms = _comb(pm, frac_c, fund_mag, half,
+                                            max_bin)
 
     # Gates (stft.rs:479-481,536-544).
     low_fund = fund_mag < nf_c * 5.0

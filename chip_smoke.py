@@ -110,7 +110,8 @@ Phases, one line each on standard output:
      step, a profiled step (CUDA kernels, card-busy ms, idle share); K10
      at the step's call (119,424 frames) bitwise to the plain extraction
      and timed beside its bound, the plain extraction's card time by
-     torch.profiler (K2 inside it by CUDA events); the
+     torch.profiler, and that of the path K10 took over (the same torch
+     ops around K2, K2 by CUDA events); the
      gates: one stream's bits equal at B = 1, 33 and 128, hist against
      exact AGC on the 25 s scene (>= 99.9% of pitch frames, fired
      identical), card against CPU (2 streams x 2 s), each of 8 streams
@@ -299,11 +300,21 @@ def nbytes(*tensors) -> int:
 
 # The wrapper module of each path kernel, by the tag that starts its row's
 # name.
-KERNEL_MODULES = {"K1": "hopper_stft", "K3": "hopper_tracker",
-                  "K4": "hopper_onset", "K5": "hopper_noisefloor",
-                  "K10": "hopper_extract"}
+KERNEL_MODULES = {"K1": "hopper_stft", "K2": "hopper_comb",
+                  "K3": "hopper_tracker", "K4": "hopper_onset",
+                  "K5": "hopper_noisefloor", "K10": "hopper_extract"}
 # The kernels the pitch and onset paths launch (K2's comb runs inside K10).
 PATH_KERNELS = ("K1", "K10", "K3", "K4", "K5")
+# PATH_KERNELS and K2, whose own entry the paths must not launch: a phase
+# zeroes and reads K2's count with theirs and holds it at 0.
+COUNTED = PATH_KERNELS + ("K2",)
+
+
+def off_path_zero(launches: list) -> list:
+    """The path's counts of a COUNTED-ordered list, K2's (the last) held
+    at 0."""
+    assert launches[-1] == 0, f"K2 launched {launches[-1]} times outside K10"
+    return launches[:-1]
 
 
 def counters_of(tags) -> tuple:
@@ -448,7 +459,7 @@ def live_phase(rows, card: str) -> None:
     from audio_analyzer_rs_tpu_torch.ops.fft import hann, rdft_trig
     from audio_analyzer_rs_tpu_torch.ops.stft import windowed_mags
     from audio_analyzer_rs_tpu_torch.utils.framing import frame_signal
-    counters = counters_of(PATH_KERNELS)
+    counters = counters_of(COUNTED)
     scene = gen.mixed_scene(60.5, LIVE_SR, seed=11)
     dev = torch.device("cuda")
 
@@ -469,7 +480,7 @@ def live_phase(rows, card: str) -> None:
                                                prepare=True, on_slot=mark)
     launches = [mod.LAUNCHES for mod in counters]
     per_slot = [(b - a) / 100 for a, b in zip(marks[1000], marks[1100])]
-    assert all(n > 0 for n in launches), launches
+    assert all(n > 0 for n in off_path_zero(launches)), launches
     assert not plain_x.calls, f"{plain_x.calls} plain extractions on the card"
     assert e._fused_slots > 0, "the fused path never engaged"
     events = sum(len(json.loads(o)) for _, o, _ in polls)
@@ -484,7 +495,7 @@ def live_phase(rows, card: str) -> None:
         f"samples at {LIVE_SR:.0f} Hz, {e._fused_slots} fused; host ms a "
         f"slot p50 {p50:.3f}, p99 {p99:.3f}, max {ms[-1]:.3f}, "
         f"{over} slots over {LIVE_BUDGET_MS:.2f} ms (first slot "
-        f"{host_ms[0]:.3f}); launches K1/K10/K3/K4/K5 over the run "
+        f"{host_ms[0]:.3f}); launches K1/K10/K3/K4/K5/K2 over the run "
         f"{launches}, a slot over slots 1000-1099 {per_slot}, plain "
         f"extractions 0; host reducer {reducer}; {events} onset events")
     row_of(rows, "K1-live")["launches"] = launches[0]
@@ -604,11 +615,11 @@ def live_phase(rows, card: str) -> None:
                 FP32_FLOPS),
     }
     parts = []
-    counts = dict(zip(PATH_KERNELS, zip(launches, per_slot)))
+    counts = dict(zip(COUNTED, zip(launches, per_slot)))
     for name, (fn, nb, ops, rate) in live.items():
         t_ms = cuda_ms(fn, KERNEL_REPS)
         b_ms, b_by = bound(nb, ops, rate)
-        n_run, n_slot = counts.get(name, (0, 0.0))
+        n_run, n_slot = counts[name]
         row_of(rows, name).update(
             launches_live=n_run, launches_live_per_slot=n_slot, live_ms=t_ms,
             live_bound_ms=b_ms, live_bound_by=b_by)
@@ -946,7 +957,7 @@ def classroom_phase(rows, card: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
     from audio_analyzer_rs_tpu_torch import EnginePool
-    counters = counters_of(PATH_KERNELS)
+    counters = counters_of(COUNTED)
     slot_s = LIVE_SLOT / LIVE_SR
 
     # The gates first: bitwise on the card.  Four solo students at depth 0,
@@ -1037,13 +1048,14 @@ def classroom_phase(rows, card: str) -> None:
     plain_x.__exit__(None, None, None)
     gc.callbacks.remove(gc_watch)
     launches = [mod.LAUNCHES for mod in counters]
+    off_path_zero(launches)
     assert not plain_x.calls, f"{plain_x.calls} plain extractions on the card"
     for k, (_, _, det) in enumerate(members):
         events[k] += len(json.loads(det.poll_onsets()))
     span = CLASS_LAUNCH_WAVES[1] - CLASS_LAUNCH_WAVES[0]
     per_wave = [(b - a) / span for a, b in zip(
         marks[CLASS_LAUNCH_WAVES[0]], marks[CLASS_LAUNCH_WAVES[1]])]
-    assert per_wave == [1.0] * 5, f"launches a wave {per_wave}"
+    assert per_wave == [1.0] * 5 + [0.0], f"launches a wave {per_wave}"
     for k, (e, tuner, det) in enumerate(members):
         want = n_waves - (join_at if k == CLASS_K else 0)
         assert e._fused_slots == want, (k, e._fused_slots, want)
@@ -1080,17 +1092,16 @@ def classroom_phase(rows, card: str) -> None:
         + ", ".join(f"{i}: {t:.1f}" for t, i in slowest)
         + f"); ms an engine-slot after the join ({CLASS_CAPACITY} students) "
         f"p50 {after[len(after) // 2] / CLASS_CAPACITY:.4f}; {over} waves "
-        f"over {LIVE_BUDGET_MS:.2f} ms; launches K1/K10/K3/K4/K5 a wave over "
-        f"waves {CLASS_LAUNCH_WAVES[0]}-{CLASS_LAUNCH_WAVES[1] - 1} "
+        f"over {LIVE_BUDGET_MS:.2f} ms; launches K1/K10/K3/K4/K5/K2 a "
+        f"wave over waves {CLASS_LAUNCH_WAVES[0]}-{CLASS_LAUNCH_WAVES[1] - 1} "
         f"{per_wave}, over the run {launches}, plain extractions 0; "
         f"profiled {n_prof} waves: "
         f"{profiled}; {pool._rollbacks} rollbacks; {gc_note}; onset events "
         f"a student min {min(events)} max {max(events)}; waves with a tuner "
         f"note a student min {min(readings)} max {max(readings)}")
-    for tag, n_run, n_wave in zip(PATH_KERNELS, launches, per_wave):
+    for tag, n_run, n_wave in zip(COUNTED, launches, per_wave):
         row_of(rows, tag).update(launches_pool=n_run,
                                  launches_pool_per_wave=n_wave)
-    row_of(rows, "K2").update(launches_pool=0, launches_pool_per_wave=0.0)
     row_of(rows, "K1-pool")["launches"] = launches[0]
     del members, pool
     say("classroom: " + wave_split(CLASS_K))
@@ -1203,7 +1214,8 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
     import torch
     from audio_analyzer_rs_tpu_torch.models import generators as gen
     from audio_analyzer_rs_tpu_torch.models import segmented
-    from audio_analyzer_rs_tpu_torch.ops import (dynamics, hopper_extract,
+    from audio_analyzer_rs_tpu_torch.ops import (dynamics, hopper_comb,
+                                                 hopper_extract,
                                                  hopper_dynamics,
                                                  hopper_noisefloor,
                                                  hopper_onset,
@@ -1342,7 +1354,8 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
     for (m, n), f in zip(patched, saved):
         setattr(m, n, lambda *a, _f=f, _n=n: plain_steps.append(_n) or _f(*a))
     counters = (hopper_extract, hopper_tracker, hopper_onset,
-                hopper_noisefloor, hopper_reducer, hopper_dynamics)
+                hopper_noisefloor, hopper_reducer, hopper_dynamics,
+                hopper_comb)
     for mod in counters:
         mod.LAUNCHES = 0
     chunks = [torch.from_numpy(fleet[:, k * t_chunk:(k + 1) * t_chunk]
@@ -1362,7 +1375,7 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         setattr(m, n, f)
     assert not plain_steps, f"plain steps on the card: {set(plain_steps)}"
     assert not plain_x.calls, f"{plain_x.calls} plain extractions on the card"
-    assert launches == [FULL_STEPS] * 6, launches
+    assert off_path_zero(launches) == [FULL_STEPS] * 6, launches
     last = outs[-1]
     n_p, n_o = last.stable_freqs.shape[1], last.onset_fired.shape[1]
     assert torch.isfinite(last.stable_freqs).all()
@@ -1375,8 +1388,8 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         f"stream) x {FULL_STEPS} chained steps: cold {cold:.2f} s, warm "
         f"{'/'.join(f'{s * 1e3:.1f}' for s in step_s)} ms a step = "
         f"{FULL_B * secs / med:,.0f} s of audio a wall second; launches "
-        f"K10/K3/K4/K5/K6/K7 {launches} ({FULL_STEPS} steps: once a step "
-        f"each), plain scan steps 0, plain extractions 0; global floor "
+        f"K10/K3/K4/K5/K6/K7/K2 {launches} ({FULL_STEPS} steps: once a "
+        f"step each, K2 0), plain scan steps 0, plain extractions 0; global floor "
         f"{float(last.global_noise_floor_db):.2f} dB, "
         f"{int(last.global_onset_count)} onsets in the last step")
     # A profiled step.  torch.profiler does not always see the kernels
@@ -1446,9 +1459,9 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
 
     # K10 at the full step's call (128 streams x 933 frames, full-width
     # magnitudes, banded floors), held against the plain extraction and
-    # timed; the plain extraction's card time from torch.profiler (the
-    # torch kernels, K2 by CUDA events), the share of the step K10 took
-    # over.
+    # timed; the plain extraction's card time from torch.profiler, and
+    # that of the path K10 took over: the same torch ops around K2 (K2 by
+    # CUDA events).
     seen = []
     extract_pitches = pitch.extract_pitches
 
@@ -1473,8 +1486,20 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         assert same_bits(g, r), f"K10 at the full step: {name} differs"
     x_ms = cuda_ms(lambda: hopper_extract.extract(x_mags, x_floor, *x_args),
                    KERNEL_REPS)
+    def device_ms(events) -> float:
+        return sum(getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0))
+                   for ev in events) / 1e3
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pitch._extract(x_mags, x_floor, *x_args)
+        torch.cuda.synchronize()
+    kern = [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    x_plain_ms, x_plain_n = device_ms(kern), sum(ev.count for ev in kern)
     comb_spans = []
-    comb_fn = lib.aat_comb
+    comb_fn, plain_comb = lib.aat_comb, pitch._comb
 
     def comb_timed(*args):
         begin = torch.cuda.Event(enable_timing=True)
@@ -1484,20 +1509,19 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         done.record()
         comb_spans.append((begin, done))
         return code
-    lib.aat_comb = comb_timed
+    lib.aat_comb, pitch._comb = comb_timed, hopper_comb.comb
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             pitch._extract(x_mags, x_floor, *x_args)
             torch.cuda.synchronize()
     finally:
-        lib.aat_comb = comb_fn
+        lib.aat_comb, pitch._comb = comb_fn, plain_comb
+    assert len(comb_spans) == 1, f"{len(comb_spans)} K2 launches"
     kern = [ev for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA
             and "comb_kernel" not in ev.key]
-    x_torch_ms = sum(getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0))
-                     for ev in kern) / 1e3
+    x_torch_ms = device_ms(kern)
     x_comb_ms = sum(b.elapsed_time(e) for b, e in comb_spans)
     x_bytes = n_x * (2 * kc_x + 1) * 4 + nbytes(*got)
     x_bound, x_by = bound(x_bytes, 30 * n_x * (kc_x + 1), FP32_FLOPS)
@@ -1506,14 +1530,19 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         f"equal to the plain extraction ({int(ref.valid.sum())} notes); "
         f"{x_ms:.4f} ms, bound {x_bound:.4f} ms ({x_by}: "
         f"{x_bytes / 1e6:.1f} MB); the plain extraction's card time "
-        f"{x_torch_ms + x_comb_ms:.3f} ms (torch.profiler: "
-        f"{sum(ev.count for ev in kern)} torch kernels {x_torch_ms:.3f} ms; "
-        f"K2 {x_comb_ms:.3f} ms by CUDA events)")
+        f"{x_plain_ms:.3f} ms (torch.profiler, {x_plain_n} torch kernels); "
+        f"the path K10 took over (the same torch ops around K2) "
+        f"{x_torch_ms + x_comb_ms:.3f} ms ({sum(ev.count for ev in kern)} "
+        f"torch kernels {x_torch_ms:.3f} ms; K2 {x_comb_ms:.3f} ms by CUDA "
+        f"events)")
     row_of(rows, "K10").update(
         full_step_frames=n_x, full_step_ms=x_ms, full_step_bound_ms=x_bound,
-        full_step_bound_by=x_by, full_step_plain_card_ms=x_torch_ms
-        + x_comb_ms, full_step_plain_kernels=sum(ev.count for ev in kern),
+        full_step_bound_by=x_by, full_step_plain_card_ms=x_plain_ms,
+        full_step_plain_kernels=x_plain_n,
+        full_step_replaced_card_ms=x_torch_ms + x_comb_ms,
+        full_step_replaced_kernels=sum(ev.count for ev in kern) + 1,
         launches_full_step=launches[0])
+    row_of(rows, "K2")["launches_full_step"] = launches[-1]
     del prof, kern, got, ref, seen, x_mags, x_floor
 
     # 3a. One stream's bits do not depend on B: stream 0's first step at
@@ -1809,7 +1838,7 @@ def devtools_phase(rows, card: str, audio44) -> None:
 
     # PitchAnalyzer with a DebugRecorder over 60 s: stable outputs bit for
     # bit the analyzer's without one, a record a frame, warm wall.
-    tags = ("K1", "K10", "K3", "K5")
+    tags = ("K1", "K10", "K3", "K5", "K2")
     counters = counters_of(tags)
     minute = audio44[:int(DEBUG_SECONDS * SR)]
     n60 = num_frames(len(minute), window, hop)
@@ -1828,7 +1857,7 @@ def devtools_phase(rows, card: str, audio44) -> None:
         out = an.process(minute)
         debug_s = time.perf_counter() - t0
     launches = [mod.LAUNCHES for mod in counters]
-    assert all(n > 0 for n in launches), launches
+    assert all(n > 0 for n in off_path_zero(launches)), launches
     assert not plain_x.calls, f"{plain_x.calls} plain extractions on the card"
     for name in ("stable_freqs", "stable_scores", "stable_valid"):
         a, b = getattr(out, name), getattr(plain, name)
@@ -1842,7 +1871,7 @@ def devtools_phase(rows, card: str, audio44) -> None:
         f"{DEBUG_SECONDS:.0f} s ({n60} frames): stable outputs bitwise equal to the analyzer "
         f"without one; {len(rec.pitch_frames)} records (one a frame, "
         f"{half}-bin spectra and floors); warm {debug_s:.3f} s against "
-        f"{plain_s:.3f} s without; launches K1/K10/K3/K5 {launches}, "
+        f"{plain_s:.3f} s without; launches K1/K10/K3/K5/K2 {launches}, "
         f"plain extractions 0")
     for key, n in zip(tags, launches):
         by_name[key]["launches_debug_analyzer"] = n
@@ -1859,7 +1888,7 @@ def devtools_phase(rows, card: str, audio44) -> None:
                      recorder=devtools.DebugRecorder())
         jsonl = tmp / "live.jsonl"
         rec = devtools.JsonlStreamRecorder(str(jsonl))
-        counters = counters_of(PATH_KERNELS)
+        counters = counters_of(COUNTED)
 
         def zero(i):
             if i == 0:
@@ -1871,7 +1900,7 @@ def devtools_phase(rows, card: str, audio44) -> None:
                 scene, "cuda", DEBUG_LIVE_SLOTS, on_slot=zero, recorder=rec)
         launches = [mod.LAUNCHES for mod in counters]
         rec.close()
-        assert all(n > 0 for n in launches), launches
+        assert all(n > 0 for n in off_path_zero(launches)), launches
         assert not plain_x.calls, \
             f"{plain_x.calls} plain extractions on the card"
         assert e._fused_slots == 0, f"{e._fused_slots} fused slots"
@@ -1903,8 +1932,8 @@ def devtools_phase(rows, card: str, audio44) -> None:
             f"{pct(host_ms, 0.99):.3f}, max {max(host_ms):.3f}, {over} over "
             f"{LIVE_BUDGET_MS:.2f} ms (without a recorder, sequential: p50 "
             f"{pct(ref_ms, 0.5):.3f}, p99 {pct(ref_ms, 0.99):.3f}); "
-            f"launches K1/K10/K3/K4/K5 {launches}, plain extractions 0")
-        for key, n in zip(PATH_KERNELS, launches):
+            f"launches K1/K10/K3/K4/K5/K2 {launches}, plain extractions 0")
+        for key, n in zip(COUNTED, launches):
             by_name[key]["launches_debug_live"] = n
         by_name["K1-debug"]["launches"] = launches[0]
 
@@ -2088,7 +2117,7 @@ def mesh_phase(card: str, audio44, full_outs, fleet_chunk,
     from audio_analyzer_rs_tpu_torch.parallel import mesh as pmesh
     from audio_analyzer_rs_tpu_torch.parallel import sharding
     t_phase = time.perf_counter()
-    counters = counters_of(("K1", "K10", "K3", "K5"))
+    counters = counters_of(("K1", "K10", "K3", "K5", "K2"))
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", store=dist.FileStore(
             str(Path(tmp) / "store"), 1), rank=0, world_size=1)
@@ -2105,7 +2134,7 @@ def mesh_phase(card: str, audio44, full_outs, fleet_chunk,
                                                          mesh=mesh)
                 warm = time.perf_counter() - t0
             launches = [mod.LAUNCHES for mod in counters]
-            assert all(n > 0 for n in launches), launches
+            assert all(n > 0 for n in off_path_zero(launches)), launches
             assert not plain_x.calls, \
                 f"{plain_x.calls} plain extractions on the card"
             for a, b in zip(got, full_outs):
@@ -2122,7 +2151,7 @@ def mesh_phase(card: str, audio44, full_outs, fleet_chunk,
     del out
     say(f"mesh: world size 1 (NCCL): segmented_pitch_analysis 30 min on the "
         f"mesh bitwise to phase 4's mesh-free run, cold {cold:.2f} s, warm "
-        f"{warm:.3f} s, launches K1/K10/K3/K5 {launches}, plain "
+        f"{warm:.3f} s, launches K1/K10/K3/K5/K2 {launches}, plain "
         f"extractions 0; "
         f"make_batched_full_step {FULL_B} streams x {fleet_chunk.shape[1]} "
         f"samples bitwise to phase 12's first step (every output, the fleet "
@@ -2334,7 +2363,7 @@ def main() -> int:
                      bound_ms=k2_bound, bound_by=k2_by, library_ms=None))
 
     # K10: the whole extraction in one launch, bitwise to the plain
-    # `_extract` (torch ops around K2) on the step's K1 magnitudes and K5
+    # `_extract` (plain torch, its comb too) on the step's K1 magnitudes and K5
     # floors, 8,192 frames.
     eff_flat = eff.reshape(s_n, -1)
     x_args = (bin_width, min_bin, max_bin, pitch.MIN_FREQ, pitch.MAX_FREQ,
@@ -2705,7 +2734,7 @@ def main() -> int:
         f"{int(sv.any(1).sum())} frames with a stable pitch")
     for tag, n in zip(tags, launches):
         row_of(rows, tag)["launches"] = n
-    row_of(rows, "K2")["launches"] = 0
+    row_of(rows, "K2")["launches"] = hopper_comb.LAUNCHES
 
     takes = [audio[i * int(30 * SR):(i + 1) * int(30 * SR)] for i in range(8)]
     t0 = time.perf_counter()
@@ -2747,7 +2776,7 @@ def main() -> int:
     plain_step, steps = onset._step, []
     onset._step = lambda *a: steps.append(1) or plain_step(*a)
     noisefloor._step = lambda *a: nf_steps.append(1) or plain_nf_step(*a)
-    counters = counters_of(PATH_KERNELS)
+    counters = counters_of(COUNTED)
     for mod in counters:
         mod.LAUNCHES = 0
     with PlainExtractions() as plain_x:
@@ -2757,7 +2786,7 @@ def main() -> int:
     launches = [mod.LAUNCHES for mod in counters]
     onset._step = plain_step
     noisefloor._step = plain_nf_step
-    assert all(n > 0 for n in launches), launches
+    assert all(n > 0 for n in off_path_zero(launches)), launches
     assert not plain_x.calls, f"{plain_x.calls} plain extractions on the card"
     assert not steps, f"{len(steps)} plain onset steps on the CUDA path"
     assert not nf_steps, f"{len(nf_steps)} plain floor steps on the CUDA path"
@@ -2770,7 +2799,7 @@ def main() -> int:
     assert arr.stable_valid.any() and arr.yin_voiced.any()
     say(f"analysis: analyze_buffer_segmented 30 min ({n_total} pitch frames, "
         f"{n_on} onset frames): cold {cold:.2f} s, warm {warm:.2f} s = "
-        f"{n_total / warm:,.0f} pitch frames/s; launches K1/K10/K3/K4/K5 "
+        f"{n_total / warm:,.0f} pitch frames/s; launches K1/K10/K3/K4/K5/K2 "
         f"{launches}, plain onset and floor steps 0, plain extractions 0; "
         f"{len(arr.onsets)} "
         f"onsets, "

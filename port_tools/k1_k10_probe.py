@@ -1,30 +1,22 @@
 #!/usr/bin/env python3
 """K10 (the pitch extraction, csrc/extract.cu) and K1's split over the
-sample depth (csrc/stft.cu) on one GPU: bitwise checks, then times.
+sample depth (csrc/stft.cu) on one GPU: times.
 
     python3 port_tools/k1_k10_probe.py [--skip-sweep] [--out probe.jsonl]
 
 (`--skip-sweep` leaves out K1's sweep of frame counts.)
 
-Checks (each raises on a difference):
-  K10 against the plain `ops/pitch.py` `_extract` on the card, all three
-  outputs bit for bit: a 100 s mixed scene's K1 magnitudes and K5 floors
-  (8,192 frames, the main path's frames a call), its first 2 and 66 frames
-  (a live slot, a pool wave), the same at full width (1,025 bins, the debug
-  path), 119,424 frames (the full step's call), random magnitudes with
-  more than 32 candidates a frame, equal isolated peaks, NaN and +inf
-  magnitudes, all-zero frames, strided rows, N = 0;
-  K1 split against the unsplit launch (`hopper_stft._dft_mag(...,
-  splits=1)`), every frame bit for bit, banded and at full width, at n = 1,
-  2, 66, 127, 128, 129 frames and at the pool's [33, 2, 2048].
 Times (CUDA events around 10 back-to-back launches after a ~2 ms spin,
-median of 20 samples, as chip_smoke.py times): K1 unsplit, split
-(`fill_splits`) and cuBLAS FP32 (`torch.matmul` of the windowed frames by
-the table) at n from 1 to 1,024 banded and 1 to 256 at full width, the
-sweep that sets `hopper_stft.SPLIT_MAX_BLOCKS`; K10 and the plain `_extract`
-at 2, 66, 8,192 and 119,424 frames beside the bound (bytes: the band's
-magnitudes and floors read once, the [N, 8] outputs written once).  One
-JSON object a line.
+median of 20 samples, as chip_smoke.py times): K10 and the plain
+`ops/pitch.py` `_extract` at 2, 66, 8,192 and 119,424 frames of a 100 s
+mixed scene's K1 magnitudes and K5 floors (a live slot, a pool wave, the
+main path's call, the full step's call) beside the bound (bytes: the
+band's magnitudes and floors read once, the [N, 8] outputs written once);
+K1 unsplit, split (`fill_splits`) and cuBLAS FP32 (`torch.matmul` of the
+windowed frames by the table) at n from 1 to 1,024 banded and 1 to 256 at
+full width, the sweep that sets `hopper_stft.SPLIT_MAX_BLOCKS`.  One JSON
+object a line.  The bitwise checks of both kernels are the card tests'
+(tests/test_torch_kernels_cuda.py) and chip_smoke.py's phase 3.
 """
 
 from __future__ import annotations
@@ -48,34 +40,6 @@ def emit(out, **row):
     print(line, flush=True)
     if out is not None:
         out.write(line + "\n")
-
-
-def same_frames(a, b):
-    import torch
-    return (a.view(torch.int32) == b.view(torch.int32)).reshape(
-        a.shape[0], -1).all(1)
-
-
-def check_k10(case, mags, floor, bw, half, out):
-    import torch
-    from audio_analyzer_rs_tpu_torch.ops import hopper_extract, pitch
-    min_bin, max_bin = pitch._bins(bw, half, pitch.MIN_FREQ, pitch.MAX_FREQ)
-    args = (bw, min_bin, max_bin, pitch.MIN_FREQ, pitch.MAX_FREQ, half)
-    got = hopper_extract.extract(mags, floor, *args)
-    ref = pitch._extract(mags, floor, *args)
-    torch.cuda.synchronize()
-    for name, g, r in zip(("freqs", "scores", "valid"), got, ref):
-        if g.dtype == torch.float32:
-            ok = torch.equal(g.view(torch.int32), r.view(torch.int32))
-        else:
-            ok = torch.equal(g, r)
-        if not ok:
-            bad = (g != r).reshape(g.shape[0], -1).any(1).nonzero()[:4]
-            raise AssertionError(f"K10 {case}: {name} differs, frames "
-                                 f"{bad.flatten().tolist()}: {g[bad]} vs "
-                                 f"{r[bad]}")
-    emit(out, check="K10", case=case, frames=int(mags.shape[0]),
-         valid=int(ref.valid.sum()), bitwise=True)
 
 
 def main() -> int:
@@ -114,68 +78,14 @@ def main() -> int:
     audio = torch.from_numpy(gen.mixed_scene(100.0, SR, seed=0)).to(dev)
     frames = frame_signal(audio, W, HOP)[:8192]              # [8192, 2048]
 
-    # K1: split against unsplit, every frame bit for bit.
-    for label, tr in (("banded", trig), ("full", trig_full)):
-        for n in (1, 2, 66, 127, 128, 129):
-            f = frames[1000:1000 + n]
-            a = hopper_stft._dft_mag(f, tr, win)
-            b = hopper_stft._dft_mag(f, tr, win, splits=1)
-            c = hopper_stft._dft_mag(f, tr, win, splits=hopper_stft.fill_splits(
-                n, hopper_stft._cached_split(tr)[1], W, 132))
-            torch.cuda.synchronize()
-            assert bool(same_frames(a, b).all()), (label, n, "rule")
-            assert bool(same_frames(c, b).all()), (label, n, "forced")
-            emit(out, check="K1 split", table=label, frames=n, bitwise=True,
-                 splits=hopper_stft.split_count(
-                     n, hopper_stft._cached_split(tr)[1], W, 132))
-        pool = torch.stack([audio[i * 9000:i * 9000 + HOP + W]
-                            for i in range(33)])
-        pf = frame_signal(pool, W, HOP)                      # [33, 2, 2048]
-        a = hopper_stft._dft_mag(pf, tr, win)
-        b = hopper_stft._dft_mag(pf, tr, win, splits=1)
-        torch.cuda.synchronize()
-        assert bool(same_frames(a.reshape(66, -1), b.reshape(66, -1)).all())
-        emit(out, check="K1 split", table=label, frames="[33, 2]",
-             bitwise=True)
-
-    # K10 against the plain extraction.
     mags = hopper_stft.dft_mag(frames, trig, win)            # [8192, 465]
     gf = torch.full((1, 8192), float(noisefloor.global_floor_linear(
         -96.0, HALF)), device=dev)
     _, eff = noisefloor.noise_floor_scan(
         noisefloor.init_state(HALF, dev, (1,)), mags[None], gf, kc)
     eff = eff[0]
-    check_k10("main 8192", mags, eff, bw, HALF, out)
-    check_k10("live 2", mags[3000:3002], eff[3000:3002], bw, HALF, out)
-    check_k10("pool 66", mags[5000:5066], eff[5000:5066], bw, HALF, out)
-    check_k10("N=0", mags[:0], eff[:0], bw, HALF, out)
-    mags_full = hopper_stft.dft_mag(frames[:512], trig_full, win)
-    _, eff_full = noisefloor.noise_floor_scan(
-        noisefloor.init_state(HALF, dev, (1,)), mags_full[None], gf[:, :512],
-        None)
-    check_k10("full width 512", mags_full, eff_full[0], bw, HALF, out)
-    wide = torch.zeros((64, 600), device=dev)
-    wide[:, :kc + 1] = mags[:64]
-    check_k10("strided rows", wide[:, :kc + 1], eff[:64], bw, HALF, out)
-    rng = np.random.default_rng(0)
-    rnd = torch.from_numpy(rng.exponential(1.0, (256, kc + 1)).astype(
-        np.float32)).to(dev)
-    flat = torch.full((256, kc), 0.3, device=dev)
-    check_k10("random, > 32 candidates", rnd, flat, bw, HALF, out)
-    ties = torch.full((64, kc + 1), 1e-3, device=dev)
-    for k in range(40, 460, 9):
-        ties[:, k] = 1.0
-    check_k10("ties", ties, torch.full((64, kc), 1e-4, device=dev), bw, HALF,
-              out)
-    odd = rnd[:64].clone()
-    odd[::3, 100] = float("nan")
-    odd[1::3, 200] = float("inf")
-    odd[2::3, 50:60] = 0.0
-    odd[5] = 0.0
-    check_k10("NaN, +inf and zeros", odd, flat[:64], bw, HALF, out)
     big = mags.repeat(15, 1)[:119424]
     bigf = eff.repeat(15, 1)[:119424]
-    check_k10("full step 119424", big, bigf, bw, HALF, out)
 
     # Times: K10 and the plain extraction.
     min_bin, max_bin = pitch._bins(bw, HALF, pitch.MIN_FREQ, pitch.MAX_FREQ)

@@ -816,7 +816,7 @@ def _pool_lanes(dev, c):
 
 @pytest.mark.parametrize("c", [33, 129])
 def test_kernels_are_batch_independent_at_pool_shapes(dev, c):
-    """Each kernel, and the plain extraction around K2, on C lanes at the
+    """Each kernel, and the extraction (K10), on C lanes at the
     pool's shapes (48 kHz, 1,024-sample slots): every lane bit for bit
     what the same lane gives alone (S = 1).  An inert lane cannot reach a
     live one, and a pooled engine equals a solo one."""
@@ -829,7 +829,7 @@ def test_kernels_are_batch_independent_at_pool_shapes(dev, c):
     nf, eff = noisefloor.noise_floor_scan(nf0, mags, gf, KC48)    # K5
     pf = pitch.extract_pitches(mags.reshape(2 * c, -1),
                                eff.reshape(2 * c, -1), BIN_W48,
-                               true_half=HALF)                    # K2
+                               true_half=HALF)                    # K10
     raws = (pf.freqs.reshape(c, 2, 8), pf.scores.reshape(c, 2, 8),
             pf.valid.reshape(c, 2, 8),
             torch.rand((c, 2), device=dev) < 0.3)

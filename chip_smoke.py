@@ -21,7 +21,8 @@ Phases, one line each on standard output:
        K10 extract [8192, 465] magnitudes and [8192, 464] floors (the step's
             K1 and K5 outputs) -> [8192, 8], bitwise (freqs, scores,
             valid) to the plain extraction `ops/pitch.py` `_extract`;
-            yardstick: that plain extraction, in turns;
+            yardstick: that plain extraction, in turns; achieved GB/s
+            beside the bound;
        K1 at the latency shapes ([1, 2, 2048] and [33, 2, 2048] at the
             48 kHz band, [1, 2, 2048] at full width), split over the sample
             depth: bitwise to the unsplit launch (`_dft_mag(...,
@@ -109,7 +110,8 @@ Phases, one line each on standard output:
      second, K3-K7 and K10 launched once a step each (asserted), no plain scan
      step, a profiled step (CUDA kernels, card-busy ms, idle share); K10
      at the step's call (119,424 frames) bitwise to the plain extraction
-     and timed beside its bound, the plain extraction's card time by
+     and timed beside its bound (and achieved GB/s), the plain
+     extraction's card time by
      torch.profiler, and that of the path K10 took over (the same torch
      ops around K2, K2 by CUDA events); the
      gates: one stream's bits equal at B = 1, 33 and 128, hist against
@@ -1529,7 +1531,9 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         f"{tuple(x_mags.shape)}, floors {tuple(x_floor.shape)}): bitwise "
         f"equal to the plain extraction ({int(ref.valid.sum())} notes); "
         f"{x_ms:.4f} ms, bound {x_bound:.4f} ms ({x_by}: "
-        f"{x_bytes / 1e6:.1f} MB); the plain extraction's card time "
+        f"{x_bytes / 1e6:.1f} MB), achieved {x_bytes / x_ms / 1e6:.0f} "
+        f"GB/s against {HBM_BYTES_PER_S / 1e9:.0f} ({x_bound / x_ms:.1%} "
+        f"of the bound); the plain extraction's card time "
         f"{x_plain_ms:.3f} ms (torch.profiler, {x_plain_n} torch kernels); "
         f"the path K10 took over (the same torch ops around K2) "
         f"{x_torch_ms + x_comb_ms:.3f} ms ({sum(ev.count for ev in kern)} "
@@ -1537,7 +1541,8 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         f"events)")
     row_of(rows, "K10").update(
         full_step_frames=n_x, full_step_ms=x_ms, full_step_bound_ms=x_bound,
-        full_step_bound_by=x_by, full_step_plain_card_ms=x_plain_ms,
+        full_step_bound_by=x_by, full_step_gb_per_s=x_bytes / x_ms / 1e6,
+        full_step_plain_card_ms=x_plain_ms,
         full_step_plain_kernels=x_plain_n,
         full_step_replaced_card_ms=x_torch_ms + x_comb_ms,
         full_step_replaced_kernels=sum(ev.count for ev in kern) + 1,
@@ -2387,7 +2392,10 @@ def main() -> int:
         f"the plain extraction (freqs, scores, valid); {k10_ms:.4f} ms vs "
         f"plain {k10_plain_ms:.3f} ms (turns kernel/plain/kernel/plain "
         f"{'/'.join(f'{t:.4f}' for t in k10_turns)}); bound "
-        f"{k10_bound * 1e3:.2f} us ({k10_by}: {k10_bytes / 1e6:.1f} MB)")
+        f"{k10_bound * 1e3:.2f} us ({k10_by}: {k10_bytes / 1e6:.1f} MB); "
+        f"achieved {k10_bytes / k10_ms / 1e6:.0f} GB/s against "
+        f"{HBM_BYTES_PER_S / 1e9:.0f} ({k10_bound / k10_ms:.1%} of the "
+        f"bound)")
     rows.append(dict(name="K10 extract (the pitch extraction: peaks, comb, "
                      "gates, top-32, ghosts, dedup, first 8)", route="cuda",
                      source=f"{PKG}/csrc/extract.cu",
@@ -2395,7 +2403,8 @@ def main() -> int:
                      note="port-only kernel: no Pallas twin (XLA fused "
                      "_extract_single on the TPU)",
                      max_abs_err=k10_err, ms=k10_ms, plain_ms=k10_plain_ms,
-                     bound_ms=k10_bound, bound_by=k10_by, library_ms=None))
+                     bound_ms=k10_bound, bound_by=k10_by, library_ms=None,
+                     gb_per_s=k10_bytes / k10_ms / 1e6))
     del got10, ref10
 
     # K1 at the latency shapes (the live slot's [1, 2, 2048] and the pool

@@ -13,12 +13,18 @@ package, on the CPU.
   the parabola's interpolation can amplify that); scores within 2 ulp and
   bitwise on >= 90% of valid notes (the same log differences, through
   log2(0.5 + score)).
-- K10's algorithm, transcribed to numpy (peaks compacted in bin order,
-  ranks counted instead of a sort, the ghost test over valid pairs only,
-  the dedup as 32 any-steps), bitwise to the plain `_extract`.
+- K10's algorithm, transcribed to numpy step for step (one-warp blocks
+  taking frames by ticket through a double buffer, the peak scan's pm row
+  and bin-ordered list, a lane a peak for the comb, scores over the
+  floors, candidates compacted in place, ranks counted instead of a sort,
+  the ghost test's pre-check, the dedup as 32 any-steps), bitwise to the
+  plain `_extract` on a scene, NaN/+inf, a plateau at kc (every in-band
+  bin a peak), noise, silence and NaN frames by turns, a ragged N and rows
+  at an odd stride.
 - The wrapper's checks, and K1's split rule (`hopper_stft.split_count`).
 """
 
+import math
 import re
 from pathlib import Path
 
@@ -213,10 +219,62 @@ def test_full_width_debug_layout_matches_jax():
 
 # ── K10's algorithm against the plain extraction ─────────────────────────
 
+def _bits_equal(a, b):
+    return np.array_equal(np.asarray(a, np.float32).view(np.uint32),
+                          np.asarray(b, np.float32).view(np.uint32))
+
+
+def _interpolate(m, y, k, staged):
+    """csrc/extract.cu `interpolate`: peak k's fractional bin and whether
+    it is degenerate.  `y` holds the staged row's logs (torch.log over the
+    row, as the plain version takes them); the three magnitudes it reads
+    must still be the staged ones."""
+    f32 = np.float32
+    assert _bits_equal(m[k - 1:k + 2], staged[k - 1:k + 2]), k
+    denom = (y[k - 1] - f32(2) * y[k]) + y[k + 1]
+    q = (f32(0.5) * (y[k - 1] - y[k + 1])) / denom
+    q = q if np.isnan(q) else min(max(q, f32(-1)), f32(1))
+    delta = f32(0) if abs(denom) < f32(1e-30) else q
+    degenerate = not np.isfinite(delta)
+    return f32(k) + (f32(0) if degenerate else delta), degenerate
+
+
+def _comb_row(pm, fr, fund, k, half, max_bin):
+    """comb.cuh `comb_candidate` in float32 numpy: the clipped window of at
+    most 4 bins, scanned ascending with a strict `>`."""
+    f32 = np.float32
+    score, last, longest, current, total = fund, k, 0, 0, 0
+    for h in range(2, tpitch.MAX_HARMONICS + 1):
+        e = fr * f32(h)
+        if not e < f32(half) or h * (k - 1) > max_bin:
+            break
+        lo = max(int(np.floor(e + f32(-1))), last + 1, h * k - h - 1, 0)
+        hi = min(int(np.ceil(e + f32(1))), h * k + h + 1, max_bin - 1)
+        best, best_pos = f32(0), 0
+        for p in range(lo, lo + 4):
+            if p <= hi and pm[p] > best:
+                best, best_pos = pm[p], p
+        if best > 0:
+            score, last = score + best, best_pos
+            current, total = current + 1, total + 1
+        else:
+            longest, current = max(longest, current), 0
+    return score, max(longest, current), total
+
+
 def _k10_numpy(mags, floor, bin_width=BIN_W, half=HALF,
-               min_freq=tpitch.MIN_FREQ, max_freq=tpitch.MAX_FREQ):
-    """csrc/extract.cu step for step in float32 numpy (the logs from
-    torch.log on a whole row, the comb from the plain `_comb`)."""
+               min_freq=tpitch.MIN_FREQ, max_freq=tpitch.MAX_FREQ, grid=3):
+    """csrc/extract.cu step for step in float32 numpy: `grid` persistent
+    one-warp blocks taking frames by ticket (ticket j is frame j * stride
+    % n), each through a double buffer (the next frame staged while the
+    current one is finished); a frame's pm row and bin-ordered peak list
+    (a lane a bin, a ballot a word), then a lane a peak (peak p on lane
+    p % 32) for the gates, the logs and the comb over pm, the score
+    written over the peak's floor; then the max, the candidates compacted
+    in place (scores over the floors, fractional bins over the magnitudes,
+    32 at a time, each chunk read before it is written), the counted
+    ranks, the ghosts, the dedup and the outputs.  The blocks run in a
+    seeded random interleaving."""
     f32 = np.float32
     min_bin, max_bin = tpitch._bins(bin_width, half, min_freq, max_freq)
     kc = min(half - 1, max(max_bin, tpitch.TOP_K))
@@ -224,94 +282,184 @@ def _k10_numpy(mags, floor, bin_width=BIN_W, half=HALF,
     out_f = np.zeros((n, 8), f32)
     out_s = np.zeros((n, 8), f32)
     out_v = np.zeros((n, 8), bool)
+
+    def stage(f):
+        return f, np.array(mags[f, :kc + 1], f32), np.array(floor[f, :kc],
+                                                            f32)
+
+    def work(f, m, fl, stage_next):
+        staged = m.copy()
+        logs = torch.log(torch.from_numpy(staged)).numpy()
+        # Peaks: a lane a bin, a ballot a word; pm and the list.
+        pm = np.zeros(kc, f32)
+        pk = []
+        for base in range(0, kc, 32):
+            for lane in range(32):
+                k = base + lane
+                if (min_bin + 1 <= k < max_bin and m[k] > fl[k]
+                        and m[k] >= m[max(k - 1, 0)] and m[k] >= m[k + 1]):
+                    pm[k] = m[k]
+                    pk.append(k)
+        # A lane a peak: lane l takes peaks l, l + 32, ...
+        for lane in range(32):
+            for p in range(lane, len(pk), 32):
+                k = pk[p]
+                fund, nf = m[k], fl[k]
+                s = f32(0)
+                # Under 5x its floor a peak scores 0: no logs.
+                fr, degenerate = (
+                    (f32(0), True) if fund < nf * f32(5)
+                    else _interpolate(m, logs, k, staged))
+                if not degenerate:
+                    sc, run, tot = _comb_row(pm, fr, fund, k, half, max_bin)
+                    if not (run < 3 and fund < f32(15) * nf):
+                        log_score = (torch.log(torch.from_numpy(
+                            np.array([f32(0.5) + sc]))).numpy()[0]
+                            * f32(tpitch.LOG2_E))
+                        sm = ((f32(1) + f32(run)) + f32(tot) * f32(0.5)) \
+                            * f32(tpitch.RECIP_HARMONICS)
+                        s = log_score * sm
+                fl[k] = s
+        stage_next()
+        # The max, the candidates, the ranks, the ghosts and the dedup.
+        ps = np.array([fl[k] for k in pk], f32)
+        mx = f32(0) if not len(ps) else (
+            f32(np.nan) if np.isnan(ps).any() else max(f32(0), ps.max()))
+        cutoff = mx * f32(0.5)
+        nc = 0
+        for base in range(0, len(pk), 32):
+            chunk = []
+            for p in range(base, min(base + 32, len(pk))):
+                k = pk[p]
+                s = fl[k]
+                if mx > 0 and s >= cutoff:
+                    chunk.append((s, _interpolate(m, logs, k, staged)[0]))
+            for s, fr in chunk:                 # written after the reads
+                fl[nc], m[nc] = s, fr
+                nc += 1
+        cs, cf = fl[:nc].copy(), m[:nc].copy()
+        idx = np.arange(nc)
+        rank = ((cs[None, :] > cs[:, None]).sum(1)
+                + ((cs[None, :] == cs[:, None])
+                   & (idx[None, :] < idx[:, None])).sum(1))
+        top_s = np.zeros(32, f32)
+        top_f = np.zeros(32, f32)
+        for c in range(nc):
+            if rank[c] < 32:
+                top_s[rank[c]], top_f[rank[c]] = cs[c], cf[c]
+        ntop = min(nc, 32)
+        cfreq = top_f * f32(bin_width)
+        cvalid = np.zeros(32, bool)
+        for a in range(ntop):
+            ghost = False
+            for b in range(ntop):
+                den = max(cfreq[b], f32(1e-30))
+                # The kernel's pre-check: outside (1.9, 5.2) x den the
+                # ratio cannot pass, and the divisions are skipped.
+                if (a == b or not top_s[a] < top_s[b] * f32(1.05)
+                        or not den * f32(1.9) < cfreq[a] < den * f32(5.2)):
+                    continue
+                ratio = cfreq[a] / den
+                near = np.rint(ratio)
+                if (2 <= near <= 5
+                        and abs(ratio / max(near, f32(1e-30)) - f32(1))
+                        < f32(0.03)):
+                    ghost = True
+            cvalid[a] = not ghost
+        kept = np.zeros(32, bool)
+        for a in range(ntop):
+            kept[a] = cvalid[a] and not any(
+                kept[b] and abs(top_f[b] - top_f[a]) < f32(2)
+                for b in range(32))
+        slots = np.flatnonzero(kept)[:8]
+        out_f[f, :len(slots)] = cfreq[slots]
+        out_s[f, :len(slots)] = top_s[slots]
+        out_v[f, :len(slots)] = ((cfreq[slots] >= f32(min_freq))
+                                 & (cfreq[slots] <= f32(max_freq)))
+
+    stride = int(n * 0.6180339887) | 1
+    while math.gcd(stride, n) != 1:
+        stride += 2
+    ticket = (j * stride % n if j < n else n for j in range(1 << 30))
+    blocks = []
+    for _ in range(min(n, grid)):
+        f = next(ticket)
+        blocks.append([f, 0, [stage(f) if f < n else None, None]])
+    order = np.random.default_rng(grid)
+    active = [b for b in blocks if b[0] < n]
+    seen = []
     with np.errstate(all="ignore"):
-        for i in range(n):
-            m = mags[i, :kc + 1]
-            nf = floor[i, :kc]
-            y = torch.log(torch.from_numpy(np.ascontiguousarray(m))).numpy()
-            peaks = [k for k in range(kc) if min_bin + 1 <= k < max_bin
-                     and m[k] > nf[k] and m[k] >= m[max(k - 1, 0)]
-                     and m[k] >= m[k + 1]]
-            pm = np.zeros(kc, f32)
-            pm[peaks] = m[peaks]
-            frac = np.zeros(kc, f32)
-            deg = np.zeros(kc, bool)
-            for k in peaks:
-                denom = (y[k - 1] - f32(2) * y[k]) + y[k + 1]
-                q = (f32(0.5) * (y[k - 1] - y[k + 1])) / denom
-                q = q if np.isnan(q) else min(max(q, f32(-1)), f32(1))
-                delta = f32(0) if abs(denom) < f32(1e-30) else q
-                deg[k] = not np.isfinite(delta)
-                frac[k] = f32(k) + (f32(0) if deg[k] else delta)
-            score, run, tot = (a[0].numpy() for a in tpitch._comb(
-                torch.from_numpy(pm[None]), torch.from_numpy(frac[None]),
-                torch.from_numpy(np.ascontiguousarray(m[None, :kc])), half,
-                max_bin))
-            ls = (torch.log(torch.from_numpy(f32(0.5) + score)).numpy()
-                  * f32(tpitch.LOG2_E))
-            ps = []
-            for k in peaks:
-                ok = not (m[k] < nf[k] * f32(5) or deg[k] or (
-                    run[k] < 3 and m[k] < f32(15) * nf[k]))
-                sm = (f32(1) + f32(run[k]) + f32(tot[k]) * f32(0.5)) \
-                    * f32(tpitch.RECIP_HARMONICS)
-                ps.append(ls[k] * sm if ok else f32(0))
-            ps = np.array(ps, f32)
-            mx = f32(0) if not len(ps) else (
-                f32(np.nan) if np.isnan(ps).any() else max(f32(0), ps.max()))
-            cand = [j for j in range(len(peaks))
-                    if mx > 0 and ps[j] >= mx * f32(0.5)]
-            cs = ps[cand]
-            top_s = np.zeros(32, f32)
-            top_f = np.zeros(32, f32)
-            for c in range(len(cand)):
-                rank = sum(cs[j] > cs[c] or (cs[j] == cs[c] and j < c)
-                           for j in range(len(cand)))
-                if rank < 32:
-                    top_s[rank] = cs[c]
-                    top_f[rank] = frac[peaks[cand[c]]]
-            ntop = min(len(cand), 32)
-            cfreq = top_f * f32(bin_width)
-            cvalid = np.zeros(32, bool)
-            for a in range(ntop):
-                ghost = False
-                for b in range(ntop):
-                    if a == b:
-                        continue
-                    ratio = cfreq[a] / max(cfreq[b], f32(1e-30))
-                    near = np.rint(ratio)
-                    if (2 <= near <= 5
-                            and abs(ratio / max(near, f32(1e-30)) - f32(1))
-                            < f32(0.03)
-                            and top_s[a] < top_s[b] * f32(1.05)):
-                        ghost = True
-                cvalid[a] = not ghost
-            kept = np.zeros(32, bool)
-            for a in range(ntop):
-                kept[a] = cvalid[a] and not any(
-                    kept[b] and abs(top_f[b] - top_f[a]) < f32(2)
-                    for b in range(32))
-            slots = np.flatnonzero(kept)[:8]
-            out_f[i, :len(slots)] = cfreq[slots]
-            out_s[i, :len(slots)] = top_s[slots]
-            out_v[i, :len(slots)] = ((cfreq[slots] >= f32(min_freq))
-                                     & (cfreq[slots] <= f32(max_freq)))
+        while active:
+            b = active[order.integers(len(active))]
+            f, it, buffers = b
+            cur = buffers[it & 1]
+            assert cur[0] == f
+            nxt = next(ticket)      # lane 31's, after its own peaks
+
+            def stage_next():
+                if nxt < n:
+                    buffers[(it + 1) & 1] = stage(nxt)
+            work(f, cur[1], cur[2], stage_next)
+            seen.append(f)
+            b[0], b[1] = nxt, it + 1
+            if nxt >= n:
+                active.remove(b)
+    assert sorted(seen) == list(range(n))
     return out_f, out_s, out_v
 
 
-def test_k10_algorithm_is_bitwise_the_plain_extraction(scene):
+def _k10_case(scene, case):
+    """(mags, floors, grid) of a case the streamed design could get
+    wrong."""
     mags, floor = _random_frames(6, 12)
-    mags[0, 100] = np.nan
-    mags[1, 200] = np.inf
-    for m, f in ((scene[0][::5], scene[1][::5]), (mags, floor)):
-        ref = hopper_extract.extract(
-            torch.from_numpy(m), torch.from_numpy(f), BIN_W, MIN_BIN,
-            MAX_BIN, tpitch.MIN_FREQ, tpitch.MAX_FREQ, HALF)
-        got = _k10_numpy(m, f)
-        for g, r in zip(got, ref):
-            np.testing.assert_array_equal(g.view(np.uint8),
-                                          r.numpy().view(np.uint8))
-        assert ref.valid.any()
+    if case == "scene":
+        return scene[0][::5], scene[1][::5], 3
+    if case == "nan and inf":
+        mags[0, 100] = np.nan
+        mags[1, 200] = np.inf
+        return mags, floor, 4
+    if case == "plateau at kc":                    # every in-band bin a peak
+        return (np.ones((2, KC + 1), np.float32),
+                np.full((2, KC), 0.1, np.float32), 2)
+    if case == "mixed frames":     # noise, silence, NaN and voiced frames
+        m = np.concatenate([mags[:3], np.zeros((2, KC + 1), np.float32),
+                            mags[3:5], scene[0][40:41], mags[5:8]])
+        f = np.concatenate([floor[:3], floor[:2], floor[3:5],
+                            scene[1][40:41], floor[5:8]])
+        m[5, 77] = np.nan
+        m[6, 300:302] = np.nan
+        return m, f, 2
+    if case == "ragged n":     # 19 frames over 2 warps
+        m = np.concatenate([scene[0][::9][:16], mags[:3]])
+        f = np.concatenate([scene[1][::9][:16], floor[:3]])
+        return m, f, 2
+    if case == "odd stride":   # rows 2 kc + 3 floats apart, 4 bytes in
+        wide = np.random.default_rng(6).exponential(
+            0.01, (9, 2 * KC + 3)).astype(np.float32)
+        wide[:, 1:KC + 2] = scene[0][20:29]
+        return wide[:, 1:KC + 2], scene[1][20:29], 3
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["scene", "nan and inf", "plateau at kc",
+                                  "mixed frames", "ragged n", "odd stride"])
+def test_k10_algorithm_is_bitwise_the_plain_extraction(scene, case):
+    m, f, grid = _k10_case(scene, case)
+    ref = hopper_extract.extract(
+        torch.from_numpy(m), torch.from_numpy(f), BIN_W, MIN_BIN, MAX_BIN,
+        tpitch.MIN_FREQ, tpitch.MAX_FREQ, HALF)
+    got = _k10_numpy(m, f, grid=grid)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.view(np.uint8),
+                                      r.numpy().view(np.uint8))
+    assert ref.valid.any()
+    if case == "plateau at kc":
+        peak = tpitch._pre_comb(torch.from_numpy(m), torch.from_numpy(f),
+                                MIN_BIN, MAX_BIN, KC)[3]
+        assert int(peak.sum(1).min()) == MAX_BIN - MIN_BIN - 1
+    if case == "odd stride":
+        assert m.strides[0] == 4 * (2 * KC + 3)
+        assert m.__array_interface__["data"][0] % 8 == 4
 
 
 # ── The wrapper ──────────────────────────────────────────────────────────
@@ -349,6 +497,14 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
     # Rows are read through their stride: a wider tensor's band is taken.
     wide = torch.ones((4, 600))
     hopper_extract.extract(wide[:, :KC + 1], floor, *args)
+
+
+def test_tickets_are_one_zeroed_pair_a_stream():
+    cpu = torch.device("cpu")
+    a = hopper_extract.tickets(cpu, 11)
+    assert a.dtype == torch.int32 and a.tolist() == [0, 0]
+    assert hopper_extract.tickets(cpu, 11) is a
+    assert hopper_extract.tickets(cpu, 12) is not a
 
 
 def test_library_hash_covers_the_headers(tmp_path, monkeypatch):

@@ -10,7 +10,10 @@ Small shapes of the main path's kinds; chip_smoke.py repeats the checks at
 the full main-path shapes and times them.  K10 (the pitch extraction) is
 bitwise to the plain `_extract` on the card at the main (8,192 frames),
 live (2), pool (66), full-width and full-step (119,424) shapes and on
-ties, NaN, +inf, silence and more than 32 candidates; `extract_pitches`
+ties, NaN, +inf, silence, more than 32 candidates, a plateau making every
+in-band bin a peak, noise, silence, NaN and voiced frames by turns, a
+prime N and rows at an odd stride (its stream's frame tickets zero after
+every launch); `extract_pitches`
 on CUDA tensors never runs the plain extraction.  K1 split over the
 sample depth (1-256 frames banded, 1-128 at full width) is bitwise the
 unsplit launch for every frame.  K6 (the reducer scan) and K7
@@ -237,12 +240,35 @@ def _k10_case(dev, case):
         odd[2::4, 50:60] = 0.0
         odd[3::4] = 0.0
         return odd, flat[:48]
+    if case == "plateau at kc":     # every in-band bin a peak
+        return (torch.ones((4000, KC + 1), device=dev),
+                torch.full((4000, KC), 0.1, device=dev))
+    if case == "mixed frames":
+        # Noise, silence, NaN and voiced frames by turns, 26,000 of them:
+        # each warp streams ~10 of every kind.
+        n = 26000
+        rows = [rnd[:3], torch.zeros((2, KC + 1), device=dev), rnd[3:5],
+                mags[voiced[:1]]]
+        mixed = torch.cat(rows * (n // 8 + 1))[:n]
+        mixed[5::8, 77] = float("nan")
+        mixed[6::8, 300:302] = float("nan")
+        fl = torch.cat([flat[:7], eff[voiced[:1]]] * (n // 8 + 1))[:n]
+        return mixed, fl
+    if case == "ragged n":          # a prime count of frames
+        return mags[:4099], eff[:4099]
+    if case == "odd stride":    # rows 2 kc + 3 floats apart, 4 bytes in
+        wide = torch.zeros((64, 2 * KC + 3), device=dev)
+        wide[:, 1:KC + 2] = mags[voiced[:64]]
+        wide_f = torch.zeros((64, KC + 7), device=dev)
+        wide_f[:, 3:KC + 3] = eff[voiced[:64]]
+        return wide[:, 1:KC + 2], wide_f[:, 3:KC + 3]
     raise ValueError(case)
 
 
 @pytest.mark.parametrize("case", [
     "main", "live", "pool", "full width", "full step", "empty", "strided",
-    "more than 32 candidates", "ties", "nan, inf and silence"])
+    "more than 32 candidates", "ties", "nan, inf and silence",
+    "plateau at kc", "mixed frames", "ragged n", "odd stride"])
 def test_k10_matches_plain_bitwise(dev, case):
     """K10 against the plain `_extract` on the same inputs: freqs, scores
     (as bit patterns) and valid flags, every frame."""
@@ -253,12 +279,19 @@ def test_k10_matches_plain_bitwise(dev, case):
     ref = pitch._extract(mags, floor, *args)
     torch.cuda.synchronize()
     assert hopper_extract.LAUNCHES == before + (mags.shape[0] > 0)
+    # The launch leaves its stream's frame tickets zero for the next one.
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert not hopper_extract.tickets(dev, stream).any()
     for name, g, r in zip(("freqs", "scores", "valid"), got, ref):
         assert g.shape == r.shape == (mags.shape[0], 8), name
         assert_same_bits(g, r, f"K10 {case} {name}")
     if case in ("main", "live", "pool", "full step",
-                "more than 32 candidates", "ties", "nan, inf and silence"):
+                "more than 32 candidates", "ties", "nan, inf and silence",
+                "plateau at kc", "mixed frames", "ragged n",
+                "odd stride"):
         assert bool(ref.valid.any())
+    if case == "odd stride":
+        assert mags.stride(0) % 4 == 3 and mags.data_ptr() % 16 == 4
 
 
 def test_extract_pitches_on_cuda_runs_no_plain_extraction(dev, monkeypatch):

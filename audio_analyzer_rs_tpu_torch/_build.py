@@ -46,10 +46,10 @@ _SIGNATURES = {
     # stream
     "aat_comb": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # mags and its row stride, floor and its row stride, freq, score,
-    # valid, tickets, n, kc, half, min_bin, max_bin, bin width, min and max
-    # freq, stream
+    # valid, n, kc, half, min_bin, max_bin, bin width, min and max freq,
+    # stream
     "aat_extract": (_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, _P, _P,
-                    _P, _I, _I, _I, _I, _I) + (ctypes.c_float,) * 3 + (_P,),
+                    _I, _I, _I, _I, _I) + (ctypes.c_float,) * 3 + (_P,),
     # raw freq/score/valid, onsets, state in (6), stable freq/score/valid,
     # state out (6), streams, frames, stream
     "aat_tracker_select": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

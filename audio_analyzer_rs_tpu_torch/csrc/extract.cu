@@ -15,20 +15,19 @@
 // holds it back below the bytes is issue and latency: the per-peak comb
 // chains, the peak scan and the per-frame tail (PERF.md).
 //
-// Design: persistent blocks of one warp, each streaming frames through
-// shared memory, about 20 an SM.
-// - Tickets: a frame at a time from a per-stream pair of counters
-//   (`tickets`, zeroed by the last block of each launch).  A warp holds one
-//   frame ahead: lane 31 takes the next ticket once its own peaks are done,
-//   so a warp held up by a noise frame takes fewer frames.  Ticket j is
-//   frame j * stride % n (stride prime to n), so that the last frames
-//   handed out are a mix of the call's sections, not one noise bed.
-// - Staging: the next frame's magnitude and floor rows go into the other
-//   half of a double buffer by `cp.async` while the warp finishes the
-//   current one.  A row starts in its slot at its global address's 16-byte
-//   phase (strides such as 465 or 1,025 floats keep rows off alignment):
-//   4-byte copies to the first 16-byte boundary and after the last, 16-byte
-//   copies between; each input byte is read from device memory once.
+// Design: persistent blocks of one warp, as many as the card holds at once
+// (about 30 an SM), each streaming its frames through shared memory.
+// - Frames: block b takes frames b, b + grid, b + 2 * grid, ...  Sections
+//   of a call (a noise bed, silence) are consecutive frames, so each block
+//   gets a mix of them.
+// - Staging: the next frame's magnitude and floor rows go into the frame
+//   buffer by `cp.async` as soon as the candidates' ranks are counted (the
+//   ghosts, the dedup and the outputs run on registers), behind the frame's
+//   tail; the other warps of the SM hide the rest of the latency.  A row
+//   starts in its slot at its global address's 16-byte phase (strides such
+//   as 465 or 1,025 floats keep rows off alignment): 4-byte copies to the
+//   first 16-byte boundary and after the last, 16-byte copies between; each
+//   input byte is read from device memory once.
 // - Peaks (a lane a bin, branch-free): the comb's row pm (zero off the
 //   peaks) and the peaks in bin order (16-bit bins, `__ballot_sync`).
 // - A lane a peak: the gate at 5x the floor (a peak under it scores 0, so
@@ -45,7 +44,7 @@
 //   keep the ratio outside (1.9, 5.2) skips the IEEE divisions, which could
 //   only pass in (1.94, 5.15)); the dedup as 32 warp-wide `__any_sync`
 //   steps in score order; `__popc` gives the kept entries' slots.
-// Shared memory a warp at kc = 464: the double buffer 7.5 KB, pm, the peak
+// Shared memory a warp at kc = 464: the frame buffer 3.7 KB, pm, the peak
 // list and the top 32 3.0 KB.
 // Every rounding is the plain version's: products, sums and differences
 // are `__fmul_rn` / `__fadd_rn` / `__fsub_rn` (nvcc would contract them),
@@ -76,22 +75,20 @@ constexpr float LOG2_E = 0x1.715476p+0f;  // float32(1 / float32(ln 2))
 constexpr float RECIP_15 = 0x1.111112p-4f;  // float32(1) / float32(15)
 constexpr float TINY = 1e-30f;
 
-// Shared memory, in 4-byte words: the double buffer (a frame's magnitude
-// slot, then its floor slot, each a row's length plus 3 words so that the
-// row can start at its global address's 16-byte phase), pm [kc], the top
-// 32's scores and fractional bins [2 * TOP_K], the next frame's ticket, the
-// peak list [kc] (16-bit bins).
+// Shared memory, in 4-byte words: the frame buffer (the magnitude slot,
+// then the floor slot, each a row's length plus 3 words so that the row can
+// start at its global address's 16-byte phase), pm [kc], the top 32's
+// scores and fractional bins [2 * TOP_K], the peak list [kc] (16-bit bins).
 struct Layout {
-  int kc, mslot, buffer, pm, tops, ticket, list, total;
+  int kc, mslot, pm, tops, list, total;
   __host__ __device__ explicit Layout(int kc_)
       : kc(kc_), mslot((kc_ + 4 + 3) & ~3),
-        buffer(mslot + ((kc_ + 3 + 3) & ~3)), pm(2 * buffer),
-        tops(pm + kc_), ticket(tops + 2 * TOP_K), list(ticket + 1),
-        total(list + (kc_ + 1) / 2) {}
+        pm(mslot + ((kc_ + 3 + 3) & ~3)), tops(pm + kc_),
+        list(tops + 2 * TOP_K), total(list + (kc_ + 1) / 2) {}
 };
 
 #ifdef K10_PHASE_CYCLES
-// staging wait, peaks, per peak, staging issue, per frame; the frames; the
+// staging wait, peaks, per peak, staging issue, tail; the frames; the
 // grid; the sum and the max of the blocks' cycles; the first block's start
 // and the last block's end (global timer, ns); the most peaks and
 // candidates a frame, the candidates.
@@ -146,20 +143,13 @@ __device__ __forceinline__ void copy_row(float* dst, const float* row,
   if (lane < len - tail) cp_async4(dst + tail + lane, row + tail + lane);
 }
 
-// The copies of a frame's rows into a half of the double buffer.
+// The copies of a frame's rows into the frame buffer.
 __device__ __forceinline__ void stage(float* buf, const Layout& lay,
                                       const float* mrow, const float* frow,
                                       int lane) {
   copy_row(buf + phase_of(mrow), mrow, lay.kc + 1, lane);
   copy_row(buf + lay.mslot + phase_of(frow), frow, lay.kc, lane);
   cp_async_commit();
-}
-
-// The frame of ticket j: j * stride % n (stride prime to n), or n when none
-// is left.
-__device__ __forceinline__ int frame_of(int j, int n, int stride) {
-  return j < n ? static_cast<int>(static_cast<long long>(j) * stride % n)
-               : n;
 }
 
 struct Interp {
@@ -180,15 +170,13 @@ __device__ __forceinline__ Interp interpolate(const float* m, int k) {
   return Interp{__fadd_rn(static_cast<float>(k), delta), degenerate};
 }
 
-// tickets[0] hands out frames, tickets[1] counts the blocks done; the last
-// block done zeroes both for the stream's next launch.
 __global__ void __launch_bounds__(THREADS)
 extract_kernel(const float* __restrict__ mags, long long mag_stride,
                const float* __restrict__ floors, long long floor_stride,
                float* __restrict__ out_freq, float* __restrict__ out_score,
-               bool* __restrict__ out_valid, int* __restrict__ tickets,
-               int n, int stride, int kc, int half, int min_bin, int max_bin,
-               float bin_width, float min_freq, float max_freq) {
+               bool* __restrict__ out_valid, int n, int kc, int half,
+               int min_bin, int max_bin, float bin_width, float min_freq,
+               float max_freq) {
   extern __shared__ float smem[];
   const Layout lay(kc);
   const int lane = threadIdx.x;
@@ -196,7 +184,6 @@ extract_kernel(const float* __restrict__ mags, long long mag_stride,
   float* pm = smem + lay.pm;                  // [kc]: m at the peaks, else 0
   float* ts = smem + lay.tops;                // top 32: scores
   float* tf = ts + TOP_K;                     //         fractional bins
-  int* ticket = reinterpret_cast<int*>(smem + lay.ticket);
   uint16_t* pk = reinterpret_cast<uint16_t*>(smem + lay.list);
 #ifdef K10_PHASE_CYCLES
   unsigned long long spent[5] = {0, 0, 0, 0, 0};
@@ -205,19 +192,15 @@ extract_kernel(const float* __restrict__ mags, long long mag_stride,
   if (lane == 0) atomicMin(&phase_cycles[9], global_ns());
 #endif
 
-  // A warp holds one frame ahead: the ticket slot is written after the
-  // warp's per-peak work and read after the barrier that follows it.
-  if (lane == 0) *ticket = atomicAdd(&tickets[0], 1);
-  __syncwarp();
-  int f = frame_of(*ticket, n, stride);
+  int f = blockIdx.x;
   if (f < n) {
-    stage(smem, lay, mags + f * mag_stride, floors + f * floor_stride, lane);
+    stage(smem, lay, mags + static_cast<long long>(f) * mag_stride,
+          floors + static_cast<long long>(f) * floor_stride, lane);
   }
-  for (int it = 0; f < n; ++it) {
+  for (; f < n; f += gridDim.x) {
 #ifdef K10_PHASE_CYCLES
     const long long c0 = clock64();
 #endif
-    float* cur = smem + (it & 1) * lay.buffer;
     // This frame's copies have landed (each lane waits for its own, the
     // barrier for all).
     cp_async_wait_all();
@@ -227,8 +210,8 @@ extract_kernel(const float* __restrict__ mags, long long mag_stride,
 #endif
     const float* mrow = mags + static_cast<long long>(f) * mag_stride;
     const float* frow = floors + static_cast<long long>(f) * floor_stride;
-    float* m = cur + phase_of(mrow);                  // [kc + 1]
-    float* fl = cur + lay.mslot + phase_of(frow);     // [kc]: floor, score
+    float* m = smem + phase_of(mrow);                 // [kc + 1]
+    float* fl = smem + lay.mslot + phase_of(frow);    // [kc]: floor, score
 
     // Peaks (stft.rs:461-469), branch-free: the four reads at once
     // (clamped into the row), the tests joined with & (k < max_bin <= kc
@@ -276,23 +259,9 @@ extract_kernel(const float* __restrict__ mags, long long mag_stride,
       }
       fl[k] = s;
     }
-    // The next frame's ticket, once lane 31's own peaks are done: at once
-    // on a quiet frame, near the end on a noisy one.
-    if (lane == 31) *ticket = atomicAdd(&tickets[0], 1);
     __syncwarp();
 #ifdef K10_PHASE_CYCLES
     const long long c3 = clock64();
-#endif
-    // The next frame's copies, into the other half (free since this
-    // frame's wait), behind this frame's per-frame work.
-    const int next = frame_of(*ticket, n, stride);
-    if (next < n) {
-      stage(smem + ((it + 1) & 1) * lay.buffer, lay,
-            mags + static_cast<long long>(next) * mag_stride,
-            floors + static_cast<long long>(next) * floor_stride, lane);
-    }
-#ifdef K10_PHASE_CYCLES
-    const long long c3s = clock64();
 #endif
 
     // The frame's max score, NaN kept.
@@ -360,6 +329,17 @@ extract_kernel(const float* __restrict__ mags, long long mag_stride,
     }
     __syncwarp();
 #ifdef K10_PHASE_CYCLES
+    const long long c3t = clock64();
+#endif
+    // The frame buffer is read no more: the next frame's copies, behind
+    // this frame's ghosts, dedup and outputs.
+    const int next = f + gridDim.x;
+    if (next < n) {
+      stage(smem, lay, mags + static_cast<long long>(next) * mag_stride,
+            floors + static_cast<long long>(next) * floor_stride, lane);
+    }
+#ifdef K10_PHASE_CYCLES
+    const long long c3s = clock64();
     if (lane == 0) {
       atomicMax(&phase_cycles[12], static_cast<unsigned long long>(npk));
       atomicMax(&phase_cycles[13], static_cast<unsigned long long>(nc));
@@ -426,20 +406,10 @@ extract_kernel(const float* __restrict__ mags, long long mag_stride,
     spent[0] += c1 - c0;
     spent[1] += c2 - c1;
     spent[2] += c3 - c2;
-    spent[3] += c3s - c3;
-    spent[4] += c4 - c3s;
+    spent[3] += c3s - c3t;
+    spent[4] += (c3t - c3) + (c4 - c3s);
     ++frames_seen;
 #endif
-    f = next;
-  }
-  // Done: the last block zeroes the tickets (every block's last ticket
-  // taken before its count, by the fence).
-  if (lane == 0) {
-    __threadfence();
-    if (atomicAdd(&tickets[1], 1) == static_cast<int>(gridDim.x) - 1) {
-      tickets[0] = 0;
-      tickets[1] = 0;
-    }
   }
 #ifdef K10_PHASE_CYCLES
   if (lane == 0) {
@@ -453,15 +423,6 @@ extract_kernel(const float* __restrict__ mags, long long mag_stride,
     atomicMax(&phase_cycles[10], global_ns());
   }
 #endif
-}
-
-int gcd(int a, int b) {
-  while (b != 0) {
-    const int r = a % b;
-    a = b;
-    b = r;
-  }
-  return a;
 }
 
 // The grid: as many blocks as the card holds at once, cached for the last
@@ -510,13 +471,12 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success).  mags rows
 // hold >= kc + 1 magnitudes, floor rows >= kc floors, each with unit
-// stride; requires 0 < max_bin <= kc < half.  tickets: two ints, zero, used
-// by launches on this stream only (the kernel leaves them zero).
+// stride; requires 0 < max_bin <= kc < half.
 int aat_extract(const float* mags, long long mag_stride, const float* floors,
                 long long floor_stride, float* freq, float* score,
-                bool* valid, int* tickets, int n, int kc, int half,
-                int min_bin, int max_bin, float bin_width, float min_freq,
-                float max_freq, void* stream) {
+                bool* valid, int n, int kc, int half, int min_bin,
+                int max_bin, float bin_width, float min_freq, float max_freq,
+                void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   if (max_bin <= 0 || max_bin > kc || kc >= half || kc > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -525,13 +485,10 @@ int aat_extract(const float* mags, long long mag_stride, const float* floors,
   int cap = 0;
   const cudaError_t err = grid_cap(smem, &cap);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // About n / golden ratio, prime to n.
-  int stride = static_cast<int>(n * 0.6180339887) | 1;
-  while (gcd(stride, n) != 1) stride += 2;
   extract_kernel<<<min(n, cap), THREADS, smem,
                    static_cast<cudaStream_t>(stream)>>>(
-      mags, mag_stride, floors, floor_stride, freq, score, valid, tickets, n,
-      stride, kc, half, min_bin, max_bin, bin_width, min_freq, max_freq);
+      mags, mag_stride, floors, floor_stride, freq, score, valid, n, kc,
+      half, min_bin, max_bin, bin_width, min_freq, max_freq);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,14 +12,13 @@ at the main path's 8,192 frames a call (9.3 us at 3.35 TB/s), 0.124 ms at
 the full step's 119,424 frames.  Below the bytes, what holds it back is
 instruction issue and latency (the comb chains, the peak scan, the tail).
 
-Design: persistent one-warp blocks (about 20 an SM) take frames by ticket
-(a per-stream pair of counters, `tickets`), each streaming its frames
-through a shared-memory double buffer filled by `cp.async` while it
-finishes the current one; a lane a bin for the peaks (the comb's row pm
-and a bin-ordered peak list), a lane a peak for the gates, the logs, the
-interpolation and K2's comb (csrc/comb.cuh), then the max score, the
-candidates, the top 32 by counted ranks, the ghost test and the 32-step
-dedup.  Bitwise to the plain `_extract` (every rounding spelled as torch
+Design: persistent one-warp blocks (about 30 an SM), block b taking frames
+b, b + grid, ..., each streaming its frames through a shared-memory frame
+buffer that `cp.async` fills with the next frame behind the current one's
+tail; a lane a bin for the peaks (the comb's row pm and a bin-ordered peak
+list), a lane a peak for the gates, the logs, the interpolation and K2's
+comb (csrc/comb.cuh), then the max score, the candidates, the top 32 by
+counted ranks, the ghost test and the 32-step dedup.  Bitwise to the plain `_extract` (every rounding spelled as torch
 rounds it on the card).
 
 `extract` is the wrapper: the plain version for CPU tensors, the kernel for
@@ -36,18 +35,6 @@ from .. import _build
 
 LAUNCHES = 0
 MAX_NOTES = 8
-# (device index, stream) -> the kernel's two counters on that stream (frame
-# tickets, blocks done): zeroed once here, left zero by every launch.
-_TICKETS: dict = {}
-
-
-def tickets(device: torch.device, stream: int) -> torch.Tensor:
-    """The two int32 counters K10's launches on `stream` share."""
-    key = (device.index, stream)
-    buf = _TICKETS.get(key)
-    if buf is None:
-        buf = _TICKETS[key] = torch.zeros(2, dtype=torch.int32, device=device)
-    return buf
 
 
 def extract(mags: torch.Tensor, noise_floor: torch.Tensor, bin_width: float,
@@ -87,13 +74,11 @@ def extract(mags: torch.Tensor, noise_floor: torch.Tensor, bin_width: float,
     valid = torch.empty(shape, dtype=torch.bool, device=mags.device)
     if n == 0:
         return PitchFrame(freq, score, valid)
-    stream = _build.stream_ptr(mags)
     code = _build.lib().aat_extract(
         mags.data_ptr(), mags.stride(0), noise_floor.data_ptr(),
         noise_floor.stride(0), freq.data_ptr(), score.data_ptr(),
-        valid.data_ptr(), tickets(mags.device, stream).data_ptr(), n, kc,
-        half, min_bin, max_bin, bin_width, min_freq, max_freq,
-        ctypes.c_void_p(stream))
+        valid.data_ptr(), n, kc, half, min_bin, max_bin, bin_width,
+        min_freq, max_freq, ctypes.c_void_p(_build.stream_ptr(mags)))
     _build.check(code, "aat_extract")
     global LAUNCHES
     LAUNCHES += 1

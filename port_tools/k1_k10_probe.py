@@ -3,9 +3,9 @@
 sample depth (csrc/stft.cu) on one GPU: times.
 
     python3 port_tools/k1_k10_probe.py [times] [--skip-sweep] [--out F]
-    python3 port_tools/k1_k10_probe.py turns [--parent DIR]
-                                       [--variant LABEL=FLAGS ...] [--out F]
+    python3 port_tools/k1_k10_probe.py turns [--parent DIR] [--out F]
     python3 port_tools/k1_k10_probe.py path [--parent DIR] [--rounds R]
+    python3 port_tools/k1_k10_probe.py pool [--parent DIR] [--rounds R]
 
 `times` (the default; `--skip-sweep` leaves out K1's sweep): K10 through
 its wrapper and the plain `ops/pitch.py` `_extract` at the shapes below,
@@ -28,11 +28,9 @@ wait (the warp waiting for its frame's copies), the peaks, the per-peak
 work (logs, interpolation, comb, gates), the staging issue (starting the
 next frame's copies) and the tail (max, candidates, top 32, ghosts, dedup,
 outputs), with the grid, the blocks' mean and largest cycles, the launch's
-span on the global timer and the candidate counts.  `--variant
-LABEL=FLAGS` builds the package's source again with extra nvcc FLAGS and
-times it in turns with the package build at each shape, after the same
-bitwise check.  Last, the launch floor: an empty kernel (one block of 32
-threads) launched through ctypes, timed the same way.
+span on the global timer and the candidate counts.  Last, the launch
+floor: an empty kernel (one block of 32 threads) launched through ctypes,
+timed the same way.
 
 `path`: the 30-minute pitch path (`segmented_pitch_analysis` over
 `mixed_scene(1800, seed=0)` at 44.1 kHz, warm, host clock around the
@@ -40,6 +38,13 @@ call) with DIR's K10 and the package's swapped in for
 `hopper_extract.extract`, in turns (parent, package, package, parent) for
 `--rounds` rounds: the end-to-end wall of one kernel against the other in
 one process, everything else the same code.
+
+`pool`: chip_smoke.py phase 11's classroom (32 students and one joining at
+5 s, capacity 33, depth 1, 20 s) `--rounds` times, its waves taking DIR's
+K10 and the package's by turns (parent, package, package, parent, wave by
+wave; each round starts one step further into that order): the host ms a
+wave of each kernel's waves (p50, p99, waves over the slot's budget), with
+each round's onset events and tuner readings.
 
 The shapes: the main path's call (8,192 frames of a 100 s
 `mixed_scene(seed=0)` at 44.1 kHz, K1's banded magnitudes [8192, 465] and
@@ -247,15 +252,12 @@ def build(jobs: dict) -> dict:
     return libs
 
 
-def caller(lib, ticketed: bool):
-    """K10 through a library's C entry: (mags, floors, args) -> outputs.
-    `ticketed`: the entry takes the frame tickets (PR 12's did not)."""
+def caller(lib):
+    """K10 through a library's C entry: (mags, floors, args) -> outputs."""
     import torch
     from audio_analyzer_rs_tpu_torch import _build
-    from audio_analyzer_rs_tpu_torch.ops import hopper_extract
     fn = lib.aat_extract
-    sig = _build._SIGNATURES["aat_extract"]
-    fn.argtypes = sig if ticketed else sig[:7] + sig[8:]
+    fn.argtypes = _build._SIGNATURES["aat_extract"]
     fn.restype = ctypes.c_int
 
     def run(m, fl, args):
@@ -267,12 +269,9 @@ def caller(lib, ticketed: bool):
         score = torch.empty((n, 8), device=m.device)
         valid = torch.empty((n, 8), dtype=torch.bool, device=m.device)
         stream = torch.cuda.current_stream().cuda_stream
-        own = ((hopper_extract.tickets(m.device, stream).data_ptr(),)
-               if ticketed else ())
         code = fn(m.data_ptr(), m.stride(0), fl.data_ptr(), fl.stride(0),
-                  freq.data_ptr(), score.data_ptr(), valid.data_ptr(), *own,
-                  n, kc, half, lo, hi, bw, fmin, fmax,
-                  ctypes.c_void_p(stream))
+                  freq.data_ptr(), score.data_ptr(), valid.data_ptr(), n, kc,
+                  half, lo, hi, bw, fmin, fmax, ctypes.c_void_p(stream))
         if code != 0:
             raise RuntimeError(f"aat_extract: CUDA error {code}")
         return freq, score, valid
@@ -286,17 +285,13 @@ def turns(opts, out) -> None:
     empty = OUT / "empty.cu"
     OUT.mkdir(parents=True, exist_ok=True)
     empty.write_text(EMPTY_CU)
-    variants = dict(v.split("=", 1) for v in opts.variant)
     libs = build({"parent": (parent / "extract.cu", ()),
                   "package": (CSRC / "extract.cu", ()),
                   "phases": (CSRC / "extract.cu", ("-DK10_PHASE_CYCLES",)),
-                  "empty": (empty, ()),
-                  **{k: (CSRC / "extract.cu", tuple(v.split()))
-                     for k, v in variants.items()}})
+                  "empty": (empty, ())})
     emit(out, card=card())
     dev = torch.device("cuda")
-    run = {k: caller(libs[k], k != "parent")
-           for k in ("parent", "package", "phases", *variants)}
+    run = {k: caller(libs[k]) for k in ("parent", "package", "phases")}
     cases = shapes(dev)
     for label, m, fl, args in cases:
         ref = pitch._extract(m, fl, *args)
@@ -318,13 +313,6 @@ def turns(opts, out) -> None:
              parent_gb_per_s=nb / t_parent / 1e6,
              package_gb_per_s=nb / t_package / 1e6,
              bitwise_to_plain=True)
-        for v in variants:
-            t_pkg, t_var, four = cs.in_turns(
-                lambda: run["package"](m, fl, args),
-                lambda v=v: run[v](m, fl, args), cs.KERNEL_REPS)
-            emit(out, variant=v, flags=variants[v], shape=label,
-                 package_ms=t_pkg, variant_ms=t_var, turn_ms=four,
-                 variant_share=b_ms / t_var)
 
     cycles = libs["phases"].aat_extract_phase_cycles
     cycles.argtypes = (ctypes.c_void_p, ctypes.c_int)
@@ -365,6 +353,27 @@ def turns(opts, out) -> None:
          "median of 20 samples")
 
 
+TURNS = ("parent", "package", "package", "parent")
+
+
+def swapped(opts, out) -> dict:
+    """{"parent", "package"} -> a stand-in for `hopper_extract.extract`
+    that launches DIR's K10 or the package's through its C entry (both
+    the same way, counted as the wrapper counts)."""
+    from audio_analyzer_rs_tpu_torch.ops import hopper_extract, pitch
+    libs = build({"parent": (Path(opts.parent) / "extract.cu", ()),
+                  "package": (CSRC / "extract.cu", ())})
+    emit(out, card=card())
+
+    def kernel(run):
+        def extract(mags, floor, bw, lo, hi, fmin, fmax, half):
+            hopper_extract.LAUNCHES += 1
+            return pitch.PitchFrame(*run(mags, floor,
+                                         (bw, lo, hi, fmin, fmax, half)))
+        return extract
+    return {who: kernel(caller(lib)) for who, lib in libs.items()}
+
+
 def path(opts, out) -> None:
     import statistics
     import time
@@ -373,24 +382,14 @@ def path(opts, out) -> None:
     import torch
     from audio_analyzer_rs_tpu_torch.models import generators as gen
     from audio_analyzer_rs_tpu_torch.models import segmented
-    from audio_analyzer_rs_tpu_torch.ops import hopper_extract, pitch
-    libs = build({"parent": (Path(opts.parent) / "extract.cu", ()),
-                  "package": (CSRC / "extract.cu", ())})
-    emit(out, card=card())
-    run = {k: caller(libs[k], k != "parent") for k in libs}
-
-    def kernel(who):
-        def extract(mags, floor, bw, lo, hi, fmin, fmax, half):
-            hopper_extract.LAUNCHES += 1
-            return pitch.PitchFrame(*run[who](mags, floor,
-                                              (bw, lo, hi, fmin, fmax, half)))
-        return extract
+    from audio_analyzer_rs_tpu_torch.ops import hopper_extract
+    kernel = swapped(opts, out)
     audio = gen.mixed_scene(1800.0, SR, seed=0)
     walls = {"parent": [], "package": []}
     ref = None
     for r in range(opts.rounds + 1):
-        for who in ("parent", "package", "package", "parent"):
-            hopper_extract.extract = kernel(who)
+        for who in TURNS:
+            hopper_extract.extract = kernel[who]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got = segmented.segmented_pitch_analysis(audio, SR)
@@ -407,15 +406,63 @@ def path(opts, out) -> None:
          outputs_equal=True)
 
 
+def pool(opts, out) -> None:
+    import time
+
+    from audio_analyzer_rs_tpu_torch import EnginePool
+    from audio_analyzer_rs_tpu_torch.ops import hopper_extract
+    kernel = swapped(opts, out)
+    slot_s = cs.LIVE_SLOT / cs.LIVE_SR
+    n_waves = int(cs.CLASS_SECONDS / slot_s)
+    join_at = int(cs.CLASS_JOIN_S / slot_s)
+    ms = {"parent": [], "package": []}
+    tallies = []
+    for r in range(opts.rounds):
+        members = [cs.class_member(100 + k, cs.CLASS_SECONDS)
+                   for k in range(cs.CLASS_K)]
+        pool = EnginePool([m[0] for m in members], pipeline_depth=1,
+                          aggregate_slots=1, capacity=cs.CLASS_CAPACITY)
+        pool.prepare()
+        events, readings = [0] * cs.CLASS_CAPACITY, [0] * cs.CLASS_CAPACITY
+        for i in range(n_waves):
+            if i == join_at:
+                members.append(cs.class_member(
+                    100 + cs.CLASS_K, cs.CLASS_SECONDS - cs.CLASS_JOIN_S))
+                pool.add(members[-1][0])
+            who = TURNS[(i + r) % 4]
+            hopper_extract.extract = kernel[who]
+            t0 = time.perf_counter()
+            pool.step_wave()
+            ms[who].append((time.perf_counter() - t0) * 1e3)
+            for k, (_, tuner, det) in enumerate(members):
+                events[k] += len(json.loads(det.poll_onsets()))
+                readings[k] += bool(json.loads(tuner.poll_output())["notes"])
+        pool.flush()
+        for k, (_, _, det) in enumerate(members):
+            events[k] += len(json.loads(det.poll_onsets()))
+        tallies.append((sum(events), sum(r > 0 for r in readings)))
+        del members, pool
+
+    def stats(v):
+        v = sorted(v)
+        return dict(waves=len(v), p50_ms=v[len(v) // 2],
+                    p99_ms=v[int(0.99 * (len(v) - 1))], max_ms=v[-1],
+                    over_budget=sum(t > cs.LIVE_BUDGET_MS for t in v))
+    emit(out, pool="classroom", rounds=opts.rounds, waves=n_waves,
+         budget_ms=cs.LIVE_BUDGET_MS, parent=stats(ms["parent"]),
+         package=stats(ms["package"]),
+         events_and_students_with_readings=tallies)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("mode", nargs="?", choices=("times", "turns", "path"),
+    ap.add_argument("mode", nargs="?",
+                    choices=("times", "turns", "path", "pool"),
                     default="times")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--skip-sweep", action="store_true")
     ap.add_argument("--parent", default=str(
         REPO / "_proof" / "parent" / "audio_analyzer_rs_tpu_torch" / "csrc"))
-    ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--out", default=None)
     opts = ap.parse_args()
     import torch
@@ -424,7 +471,8 @@ def main() -> int:
         return 1
     out = open(opts.out, "w") if opts.out else None
     try:
-        {"times": times, "turns": turns, "path": path}[opts.mode](opts, out)
+        {"times": times, "turns": turns, "path": path,
+         "pool": pool}[opts.mode](opts, out)
     finally:
         if out is not None:
             out.close()

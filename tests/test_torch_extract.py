@@ -14,7 +14,7 @@ package, on the CPU.
   bitwise on >= 90% of valid notes (the same log differences, through
   log2(0.5 + score)).
 - K10's algorithm, transcribed to numpy step for step (one-warp blocks
-  taking frames by ticket through a double buffer, the peak scan's pm row
+  taking every grid-th frame through one frame buffer, the peak scan's pm row
   and bin-ordered list, a lane a peak for the comb, scores over the
   floors, candidates compacted in place, ranks counted instead of a sort,
   the ghost test's pre-check, the dedup as 32 any-steps), bitwise to the
@@ -24,7 +24,6 @@ package, on the CPU.
 - The wrapper's checks, and K1's split rule (`hopper_stft.split_count`).
 """
 
-import math
 import re
 from pathlib import Path
 
@@ -265,16 +264,15 @@ def _comb_row(pm, fr, fund, k, half, max_bin):
 def _k10_numpy(mags, floor, bin_width=BIN_W, half=HALF,
                min_freq=tpitch.MIN_FREQ, max_freq=tpitch.MAX_FREQ, grid=3):
     """csrc/extract.cu step for step in float32 numpy: `grid` persistent
-    one-warp blocks taking frames by ticket (ticket j is frame j * stride
-    % n), each through a double buffer (the next frame staged while the
-    current one is finished); a frame's pm row and bin-ordered peak list
-    (a lane a bin, a ballot a word), then a lane a peak (peak p on lane
-    p % 32) for the gates, the logs and the comb over pm, the score
-    written over the peak's floor; then the max, the candidates compacted
-    in place (scores over the floors, fractional bins over the magnitudes,
-    32 at a time, each chunk read before it is written), the counted
-    ranks, the ghosts, the dedup and the outputs.  The blocks run in a
-    seeded random interleaving."""
+    one-warp blocks, block b taking frames b, b + grid, ..., each through
+    one frame buffer; a frame's pm row and bin-ordered peak list (a lane a
+    bin, a ballot a word), then a lane a peak (peak p on lane p % 32) for
+    the gates, the logs and the comb over pm, the score written over the
+    peak's floor; then the max, the candidates compacted in place (scores
+    over the floors, fractional bins over the magnitudes, 32 at a time,
+    each chunk read before it is written), the counted ranks, the next
+    frame's rows copied over the buffer, and the ghosts, the dedup and the
+    outputs from the top 32 alone."""
     f32 = np.float32
     min_bin, max_bin = tpitch._bins(bin_width, half, min_freq, max_freq)
     kc = min(half - 1, max(max_bin, tpitch.TOP_K))
@@ -283,9 +281,9 @@ def _k10_numpy(mags, floor, bin_width=BIN_W, half=HALF,
     out_s = np.zeros((n, 8), f32)
     out_v = np.zeros((n, 8), bool)
 
-    def stage(f):
-        return f, np.array(mags[f, :kc + 1], f32), np.array(floor[f, :kc],
-                                                            f32)
+    def stage(f, m, fl):
+        m[:] = mags[f, :kc + 1]
+        fl[:] = floor[f, :kc]
 
     def work(f, m, fl, stage_next):
         staged = m.copy()
@@ -320,8 +318,7 @@ def _k10_numpy(mags, floor, bin_width=BIN_W, half=HALF,
                             * f32(tpitch.RECIP_HARMONICS)
                         s = log_score * sm
                 fl[k] = s
-        stage_next()
-        # The max, the candidates, the ranks, the ghosts and the dedup.
+        # The max, the candidates and the ranks.
         ps = np.array([fl[k] for k in pk], f32)
         mx = f32(0) if not len(ps) else (
             f32(np.nan) if np.isnan(ps).any() else max(f32(0), ps.max()))
@@ -347,6 +344,9 @@ def _k10_numpy(mags, floor, bin_width=BIN_W, half=HALF,
         for c in range(nc):
             if rank[c] < 32:
                 top_s[rank[c]], top_f[rank[c]] = cs[c], cf[c]
+        # The buffer is read no more: the next frame's rows over it, then
+        # the ghosts, the dedup and the outputs from the top 32.
+        stage_next()
         ntop = min(nc, 32)
         cfreq = top_f * f32(bin_width)
         cvalid = np.zeros(32, bool)
@@ -377,33 +377,20 @@ def _k10_numpy(mags, floor, bin_width=BIN_W, half=HALF,
         out_v[f, :len(slots)] = ((cfreq[slots] >= f32(min_freq))
                                  & (cfreq[slots] <= f32(max_freq)))
 
-    stride = int(n * 0.6180339887) | 1
-    while math.gcd(stride, n) != 1:
-        stride += 2
-    ticket = (j * stride % n if j < n else n for j in range(1 << 30))
-    blocks = []
-    for _ in range(min(n, grid)):
-        f = next(ticket)
-        blocks.append([f, 0, [stage(f) if f < n else None, None]])
-    order = np.random.default_rng(grid)
-    active = [b for b in blocks if b[0] < n]
+    g = min(n, grid)
     seen = []
     with np.errstate(all="ignore"):
-        while active:
-            b = active[order.integers(len(active))]
-            f, it, buffers = b
-            cur = buffers[it & 1]
-            assert cur[0] == f
-            nxt = next(ticket)      # lane 31's, after its own peaks
+        for b in range(g):
+            m, fl = np.empty(kc + 1, f32), np.empty(kc, f32)
+            stage(b, m, fl)
+            for f in range(b, n, g):
+                nxt = f + g
 
-            def stage_next():
-                if nxt < n:
-                    buffers[(it + 1) & 1] = stage(nxt)
-            work(f, cur[1], cur[2], stage_next)
-            seen.append(f)
-            b[0], b[1] = nxt, it + 1
-            if nxt >= n:
-                active.remove(b)
+                def stage_next():
+                    if nxt < n:
+                        stage(nxt, m, fl)
+                work(f, m, fl, stage_next)
+                seen.append(f)
     assert sorted(seen) == list(range(n))
     return out_f, out_s, out_v
 
@@ -429,6 +416,8 @@ def _k10_case(scene, case):
         m[5, 77] = np.nan
         m[6, 300:302] = np.nan
         return m, f, 2
+    if case == "more blocks than frames":      # a live slot's two frames
+        return scene[0][10:12], scene[1][10:12], 3
     if case == "ragged n":     # 19 frames over 2 warps
         m = np.concatenate([scene[0][::9][:16], mags[:3]])
         f = np.concatenate([scene[1][::9][:16], floor[:3]])
@@ -442,7 +431,8 @@ def _k10_case(scene, case):
 
 
 @pytest.mark.parametrize("case", ["scene", "nan and inf", "plateau at kc",
-                                  "mixed frames", "ragged n", "odd stride"])
+                                  "mixed frames", "more blocks than frames",
+                                  "ragged n", "odd stride"])
 def test_k10_algorithm_is_bitwise_the_plain_extraction(scene, case):
     m, f, grid = _k10_case(scene, case)
     ref = hopper_extract.extract(
@@ -497,14 +487,6 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
     # Rows are read through their stride: a wider tensor's band is taken.
     wide = torch.ones((4, 600))
     hopper_extract.extract(wide[:, :KC + 1], floor, *args)
-
-
-def test_tickets_are_one_zeroed_pair_a_stream():
-    cpu = torch.device("cpu")
-    a = hopper_extract.tickets(cpu, 11)
-    assert a.dtype == torch.int32 and a.tolist() == [0, 0]
-    assert hopper_extract.tickets(cpu, 11) is a
-    assert hopper_extract.tickets(cpu, 12) is not a
 
 
 def test_library_hash_covers_the_headers(tmp_path, monkeypatch):

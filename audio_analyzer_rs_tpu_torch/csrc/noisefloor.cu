@@ -3,38 +3,50 @@
 // audio_analyzer_rs_tpu/ops/noisefloor.py `noise_floor_scan` (:98 full
 // width, :107 banded; the step is `_step`, :42-64), which XLA compiles to
 // one device loop; it has no Pallas twin.  Bitwise equal to
-// `noise_floor_scan_plain` (ops/noisefloor.py).
+// `noise_floor_scan_plain` (ops/noisefloor.py), tail included.
 //
-// What bounds it on an H100: bytes.  At the segmented step (S = 128 streams
-// x N = 64 frames x B = 464 bins) it reads 15.2 MB of magnitudes and writes
-// 15.2 MB of effective floors, ~9.5 us at 3.35 TB/s; per frame and bin it
-// does ~30 operations, two of them IEEE divisions.  Every bin is its own
-// recurrence, so the design is a thread a (stream, bin):
-//  - the four state values stay in registers for all N frames;
-//  - consecutive threads are consecutive bins of one frame row, so each
-//    frame's loads and stores are coalesced;
-//  - the next AHEAD frames' magnitudes and global floors are loaded while
-//    this AHEAD's recurrence runs (they do not depend on it), so the chain
-//    does not wait on device memory;
-//  - the effective floor is stored as each frame finishes.
-// The sequential analyzer (S = 1, N <= 4,096) is bound by the per-frame
-// chain instead: two divisions, two fmaf and a few selects a frame.
+// What bounds it on an H100: bytes wherever S is large.  At the full step's
+// call (S = 128 streams x N = 933 frames, band B = 426 of 1,025-float rows)
+// it reads 203.5 MB of magnitudes and writes 203.5 MB of effective floors,
+// ~0.123 ms at 3.35 TB/s; at the segmented step (S = 128 x N = 64 x B =
+// 464) 15.2 MB each way, ~9.5 us.  The sequential analyzer (S = 1, N <=
+// 4,096) is bound by each bin's per-frame chain instead.  Every bin is its
+// own recurrence, so the design is a lane a (stream, bin):
+//  - Warps of 32 bins, ceil(B / 32) a stream, flattened over the streams
+//    and packed WARPS to a block: B = 426, 464 and 1,025 leave 22, 16 and
+//    31 lanes of a stream idle.
+//  - The four state values stay in registers for all N frames; the loads
+//    of the next AHEAD frames are issued before this AHEAD's recurrence
+//    (a second register group), AHEAD chosen from the warps an SM:
+//    deep where few warps must keep the memory busy (the sequential
+//    analyzer), shallow where many do (deep_ahead).  A frame's global
+//    floor is one lane's load, shuffled to the warp.  Whole groups test
+//    no frame against N, and the loads and stores walk pointers: at the
+//    segmented step ~3.6 warps share a scheduler, so the instructions a
+//    frame (~50 from one frame's shuffle to the next) set its pace.
+//  - No division for `above` (the residual m - 1.5 d rounded once decides
+//    it, exactly), and vn's only where it can change the result
+//    (floor_step below): on the steps whose magnitude is above the floor,
+//    6-10% of a scene's, never with the zero or subnormal numerators of
+//    near silence (16-23% of a scene's volatilities are subnormal), which
+//    take the division's slow path.
+//  - The state above the band is written by the kernel (copied, or seeded
+//    from a full-width first frame), so the wrapper runs no torch op
+//    after the launch.
 //
 // Rounding, as the plain version does it: XLA:CPU contracts the alpha blend
 // and the floor update into fused multiply-adds (fmaf here, rounded once);
 // it does not contract the volatility EMA, so that line spells out
-// __fmul_rn/__fadd_rn (nvcc would otherwise contract it); the two divisions
-// are IEEE (__fdiv_rn, with a zero numerator kept off its slow path:
-// `div_guarded`).  Every constant is the float32 value the plain
-// version uses, as a hex float (tests/test_torch_noisefloor_kernel.py reads
-// them from this file): float literals, never double ones, so that no
-// compare is promoted to double.
+// __fmul_rn/__fadd_rn (nvcc would otherwise contract it); every quotient
+// still computed is IEEE (__fdiv_rn).  Every constant is the float32 value
+// the plain version uses, or a bound derived from them, as a hex float
+// (tests/test_torch_noisefloor_kernel.py reads them from this file): float
+// literals, never double ones, so that no compare is promoted to double.
 //
 // NaN, as the plain version does it: torch.maximum, torch.minimum and
 // torch.clamp keep a NaN operand, where fmaxf and fminf drop it, so the
 // kernel takes its max and min through max_nan / min_nan; a comparison
-// with a NaN is false on both sides; and div_guarded divides whenever the
-// divisor is NaN (0 / NaN is NaN).  The NaN's bits may differ from the
+// with a NaN is false on both sides.  The NaN's bits may differ from the
 // plain version's; where a NaN stands is the same.  A NaN magnitude makes
 // its bin's floor NaN from then on, in both.
 
@@ -43,8 +55,9 @@
 
 namespace {
 
-constexpr int BLOCK = 128;           // bins a block
-constexpr int AHEAD = 8;             // frames loaded ahead of the recurrence
+constexpr int WARPS = 4;             // warps a block
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int TAIL = 4;              // columns above the band a lane takes
 
 // The float32 constants of ops/noisefloor.py.
 constexpr float VOL_MEMORY = 0x1.8p-1f;              // 0.75
@@ -58,15 +71,9 @@ constexpr float FAST_MINUS_BASE = 0x1.3d70a4p-2f;    // float32(0.35 - 0.04)
 constexpr float RELEASE = 0x1.47ae14p-6f;            // 0.02
 constexpr float INIT_SCALE = 0x1.4p+2f;              // 5.0
 constexpr float EFFECTIVE_SCALE = 0x1.4p+1f;         // 2.5
-
-// n / d, IEEE, for d >= 0.01 or NaN: the slow path of the division's
-// check (FCHK) takes n == 0, which digital silence gives on ~40% of the
-// scene's frames; 0 / d is n itself for such a d, so the division sees 1
-// there instead (and 1 / NaN is the NaN that 0 / NaN is).
-__device__ __forceinline__ float div_guarded(float n, float d) {
-  const float q = __fdiv_rn(n == 0.0f ? 1.0f : n, d);
-  return n == 0.0f && d == d ? n : q;
-}
+// What decides a compare without its quotient (floor_step).
+constexpr float RATIO_MIDPOINT = 0x1p-24f;           // 1.5 + this: a midpoint
+constexpr float VN_NEGLIGIBLE = 0x1p-28f;
 
 // The larger / smaller of a and b, NaN if either is NaN (torch.maximum,
 // torch.minimum): PTX max.NaN / min.NaN (sm_80 and later), one instruction
@@ -83,7 +90,140 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return r;
 }
 
-__global__ void __launch_bounds__(BLOCK)
+#ifdef K5_COUNTS
+// A probe build's step counts (port_tools/kernel_turns.py --probe
+// label:counts), read and zeroed by aat_noise_floor_counts: steps, rising
+// steps, IEEE divisions (__fdiv_rn), rising steps whose vn is not
+// negligible (those whose quotient counts), vn's shortcuts, steps whose v
+// is subnormal (a division by them would take its slow path),
+// warp-frames, warp-frames with a rising lane, warp-frames with an IEEE
+// division, IEEE divisions whose numerator is zero or subnormal.
+constexpr int N_COUNTS = 10;
+__device__ unsigned long long k5_counts[N_COUNTS];
+
+__device__ __forceinline__ void count_step(bool live, bool rising,
+                                           bool ieee, bool negligible,
+                                           float v) {
+  const unsigned act = __activemask();
+  const bool tiny_v = fabsf(v) < 0x1p-126f;
+  const bool lane_counts[6] = {live, live && rising, live && ieee,
+                               live && rising && !negligible,
+                               live && rising && negligible,
+                               live && tiny_v && v != 0.0f};
+  unsigned long long add[N_COUNTS];
+  for (int i = 0; i < 6; ++i)
+    add[i] = __popc(__ballot_sync(act, lane_counts[i]));
+  add[6] = 1;
+  add[7] = __ballot_sync(act, live && rising) != 0;
+  add[8] = __ballot_sync(act, live && ieee) != 0;
+  add[9] = __popc(__ballot_sync(act, live && ieee && tiny_v));
+  if ((threadIdx.x & 31) == __ffs(act) - 1)
+    for (int i = 0; i < N_COUNTS; ++i)
+      if (add[i]) atomicAdd(&k5_counts[i], add[i]);
+}
+#else
+__device__ __forceinline__ void count_step(bool, bool, bool, bool, float) {}
+#endif
+
+// One frame of an initialized bin: the plain `_step` with
+//   above = m / max(floor, 0.01),  vn = clamp(v / max(m, 0.05), 0, 1),
+//   sustained = above > 1.5 && vn < 0.15,
+//   alpha = m > floor ? fmaf(vn, 0.31, 0.04) : 0.02,
+//   floor = sustained ? floor : fmaf(alpha, m - floor, floor),
+// with no division for `above` and vn's only where it can change the
+// result.  Exact for every float32 input (NaN, +-inf, +-0, subnormals,
+// negative floors; tests/test_torch_noisefloor_kernel.py holds each case):
+//  1. m > floor false (a NaN m or floor included): alpha is 0.02, and
+//     above > 1.5 is false (m <= floor gives m / floor <= 1 for floor >=
+//     0.01, m / 0.01 < 1 below it, a negative quotient below 0, and a NaN
+//     operand a NaN quotient), so `sustained` is false; neither quotient is
+//     read.  Digital silence (m = 0 over a floor decayed to the least
+//     subnormal) takes this path.
+//  2. m > floor, so m and floor are not NaN and d = max(floor, 0.01) is
+//     finite and >= 0.01, 2^E <= d < 2^(E+1).  RN(m / d) > 1.5 exactly
+//     when m / d > 1.5 + 2^-24 (the midpoint above 1.5; a tie rounds to
+//     the even 1.5), that is when m - 1.5 d > d 2^-24 (d 2^-24 is exact).
+//     fmaf(-1.5, d, m) is m - 1.5 d rounded once, and exact wherever
+//     |m - 1.5 d| <= d / 2: there m and 1.5 d are multiples of 2^(E-24)
+//     and so is their difference, below 2^E in size, so within 24 bits.
+//     Further out the rounded difference keeps its side of d 2^-24 (it is
+//     >= d / 2 or <= -d / 2; RN is monotone); +inf - 1.5 d is +inf, and a
+//     difference below -FLT_MAX rounds to -inf, both on the right side.
+//  3. m > floor and |v| < RN(mm * 2^-28), mm = max(m, 0.05) (exact: mm >=
+//     0.05, no underflow): |v / mm| < 2^-28, so the clamped quotient vn is
+//     in [0, 2^-28] (or -0), vn < 0.15, and vn * 0.31 < 2^-29, half an ulp
+//     of 0.04, so fmaf(vn, 0.31, 0.04) = 0.04 = fmaf(0, 0.31, 0.04).  It
+//     keeps every zero and subnormal v (the volatility of a bin leaving
+//     silence) off the division's slow path.  |v| = inf or NaN never
+//     passes the compare; mm = inf with v finite gives v / inf = +-0.
+// The state is (floor, prev, vol); vol takes v and prev takes m.
+__device__ __forceinline__ void floor_step(float m, float& floor,
+                                           float& prev, float& vol,
+                                           bool live) {
+  const float delta = fabsf(__fsub_rn(m, prev));
+  const float v = __fadd_rn(__fmul_rn(vol, VOL_MEMORY),
+                            __fmul_rn(delta, VOL_NEW));
+  const bool rising = m > floor;
+  const float d = max_nan(floor, FLOOR_EPS);
+  const bool above =
+      fmaf(-NOTE_RATIO, d, m) > __fmul_rn(d, RATIO_MIDPOINT);
+  const float mm = max_nan(m, MAG_EPS);
+  const bool negligible = fabsf(v) < __fmul_rn(mm, VN_NEGLIGIBLE);
+  const bool ieee = rising && !negligible;
+  float q = 0.0f;
+  if (ieee) q = __fdiv_rn(v, mm);
+  const float vn = negligible ? 0.0f : min_nan(max_nan(q, 0.0f), 1.0f);
+  count_step(live, rising, ieee, negligible, v);
+  const bool sustained = rising && above && vn < NOTE_VOL_MAX;
+  const float alpha =
+      rising ? fmaf(vn, FAST_MINUS_BASE, BASE_ALPHA) : RELEASE;
+  if (!sustained) floor = fmaf(alpha, __fsub_rn(m, floor), floor);
+  vol = v;
+  prev = m;
+}
+
+// The magnitudes of frames f0 .. f0 + AHEAD - 1 of this lane's bin (m_f0
+// points at frame f0's; only frames below N are read when !WHOLE), and
+// lane u's global floor of frame f0 + u.
+template <int AHEAD, bool WHOLE>
+__device__ __forceinline__ void load_group(float (&m)[AHEAD], float& g,
+                                           const float* __restrict__ m_f0,
+                                           long long ms_n,
+                                           const float* __restrict__ g_in,
+                                           int f0, int N, int lane) {
+#pragma unroll
+  for (int u = 0; u < AHEAD; ++u)
+    m[u] = WHOLE || f0 + u < N ? m_f0[u * ms_n] : 0.0f;
+  g = lane < AHEAD && f0 + lane < N ? g_in[f0 + lane] : 0.0f;
+}
+
+// Frames f0 .. f0 + AHEAD - 1 (those below N when !WHOLE): the recurrence
+// and the effective floors (e_f0 points at frame f0's).  `fresh`: frame f0
+// is a fresh stream's first, which takes the first-frame rule (its vol
+// stays).  `fresh` and `f0 + u < N` are the same on every lane.
+template <int AHEAD, bool WHOLE>
+__device__ __forceinline__ void run_group(const float (&m)[AHEAD],
+                                          float g_lane, int f0, int N,
+                                          bool fresh, bool live,
+                                          float& floor, float& prev,
+                                          float& vol, float* e_f0, int B) {
+#pragma unroll
+  for (int u = 0; u < AHEAD; ++u) {
+    const float g = __shfl_sync(FULL, g_lane, u);
+    if (WHOLE || f0 + u < N) {
+      if (u == 0 && fresh) {
+        floor = max_nan(m[0], __fmul_rn(g, INIT_SCALE));
+        prev = m[0];
+      } else {
+        floor_step(m[u], floor, prev, vol, live);
+      }
+      if (live) e_f0[u * B] = min_nan(floor, __fmul_rn(g, EFFECTIVE_SCALE));
+    }
+  }
+}
+
+template <int AHEAD>
+__global__ void __launch_bounds__(WARPS * 32)
 noise_floor_kernel(const float* __restrict__ mags, long long ms_s,
                    long long ms_n, const float* __restrict__ gf,
                    const float* __restrict__ floor0,
@@ -92,65 +232,155 @@ noise_floor_kernel(const float* __restrict__ mags, long long ms_s,
                    const uint8_t* __restrict__ init0,
                    float* __restrict__ eff, float* __restrict__ floor1,
                    float* __restrict__ prev1, float* __restrict__ vol1,
-                   uint8_t* __restrict__ init1, int N, int B, int H) {
-  const int s = blockIdx.x;
-  const int b = blockIdx.y * BLOCK + threadIdx.x;
-  if (b == 0) init1[s] = 1;          // the wrapper launches only for N > 0
-  if (b >= B) return;
-  const long long st_in = (long long)s * H + b;
-  float floor = floor0[st_in], prev = prev0[st_in], vol = vol0[st_in];
-  bool init = init0[s] != 0;
-  const float* m_in = mags + s * ms_s + b;
+                   uint8_t* __restrict__ init1, int S, int N, int B, int H,
+                   int width, int W) {
+  const int lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (gw >= S * W) return;           // whole warps
+  const int s = gw / W, w = gw - s * W;
+  const int b = w * 32 + lane;
+  const bool live = b < B;      // lanes past B run on bin B - 1's frames
+  const float* m_row = mags + s * ms_s;
+  const float* m_col = m_row + min(b, B - 1);
   const float* g_in = gf + (long long)s * N;
-  float* e_out = eff + (long long)s * N * B + b;
+  float* e_col = eff + (long long)s * N * B + b;
+  const long long st = (long long)s * H;
 
-  float m_cur[AHEAD], g_cur[AHEAD];
-#pragma unroll
-  for (int u = 0; u < AHEAD; ++u) {
-    m_cur[u] = u < N ? m_in[u * ms_n] : 0.0f;
-    g_cur[u] = u < N ? g_in[u] : 0.0f;
+  // Every load that waits on no other goes out first: the stream's flag,
+  // the band's state and the first AHEAD frames.
+  const bool fresh = init0[s] == 0;
+  float floor = 0.0f, prev = 0.0f, vol = 0.0f;
+  if (live) {
+    floor = floor0[st + b];
+    prev = prev0[st + b];
+    vol = vol0[st + b];
   }
-  for (int f0 = 0; f0 < N; f0 += AHEAD) {
-    float m_nxt[AHEAD], g_nxt[AHEAD];
+  float cur[AHEAD], nxt[AHEAD], g_cur, g_nxt;
+  if (AHEAD <= N)
+    load_group<AHEAD, true>(cur, g_cur, m_col, ms_n, g_in, 0, N, lane);
+  else
+    load_group<AHEAD, false>(cur, g_cur, m_col, ms_n, g_in, 0, N, lane);
+
+  // The state above the band, spread over the stream's warps: frozen, or
+  // with full-width magnitudes on a fresh stream seeded by the first-frame
+  // rule (`noisefloor.with_tail`); its volatility stays.
+  // TAIL columns a lane at once, so that their loads go out together.
+  const bool full = width >= H;
+  const bool seed = fresh && full;
+  const int lanes = W * 32;
+  for (int c0 = B + w * 32 + lane; c0 < H; c0 += TAIL * lanes) {
+    float f_in[TAIL], p_in[TAIL], v_in[TAIL], first[TAIL];
 #pragma unroll
-    for (int u = 0; u < AHEAD; ++u) {
-      const int f = f0 + AHEAD + u;
-      m_nxt[u] = f < N ? m_in[f * ms_n] : 0.0f;
-      g_nxt[u] = f < N ? g_in[f] : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < AHEAD; ++u) {
-      if (f0 + u < N) {
-        const float m = m_cur[u], g = g_cur[u];
-        const float delta = fabsf(__fsub_rn(m, prev));
-        const float v = __fadd_rn(__fmul_rn(vol, VOL_MEMORY),
-                                  __fmul_rn(delta, VOL_NEW));
-        const float above = div_guarded(m, max_nan(floor, FLOOR_EPS));
-        const float vn = min_nan(
-            max_nan(div_guarded(v, max_nan(m, MAG_EPS)), 0.0f), 1.0f);
-        const bool sustained = above > NOTE_RATIO && vn < NOTE_VOL_MAX;
-        const float alpha =
-            m > floor ? fmaf(vn, FAST_MINUS_BASE, BASE_ALPHA) : RELEASE;
-        const float updated =
-            sustained ? floor : fmaf(alpha, __fsub_rn(m, floor), floor);
-        floor = init ? updated : max_nan(m, __fmul_rn(g, INIT_SCALE));
-        vol = init ? v : vol;
-        prev = m;
-        init = true;
-        e_out[(long long)(f0 + u) * B] =
-            min_nan(floor, __fmul_rn(g, EFFECTIVE_SCALE));
+    for (int k = 0; k < TAIL; ++k) {
+      const int c = c0 + k * lanes;
+      if (c < H) {
+        f_in[k] = floor0[st + c];
+        p_in[k] = prev0[st + c];
+        v_in[k] = vol0[st + c];
+        first[k] = full ? m_row[c] : 0.0f;
       }
     }
+    const float g0 = g_in[0];
 #pragma unroll
-    for (int u = 0; u < AHEAD; ++u) {
-      m_cur[u] = m_nxt[u];
-      g_cur[u] = g_nxt[u];
+    for (int k = 0; k < TAIL; ++k) {
+      const int c = c0 + k * lanes;
+      if (c < H) {
+        floor1[st + c] =
+            seed ? max_nan(first[k], __fmul_rn(g0, INIT_SCALE)) : f_in[k];
+        prev1[st + c] = seed ? first[k] : p_in[k];
+        vol1[st + c] = v_in[k];
+      }
     }
   }
-  const long long st_out = (long long)s * B + b;
-  floor1[st_out] = floor;
-  prev1[st_out] = prev;
-  vol1[st_out] = vol;
+  if (w == 0 && lane == 0) init1[s] = 1;   // the wrapper launches for N > 0
+
+  // The band: the next AHEAD frames' loads go out before this AHEAD's
+  // recurrence.  All lanes take part in the global floors' shuffles.
+  // Whole groups (all AHEAD frames below N) test no frame against N.
+  const long long group_stride = AHEAD * ms_n;
+  const float* m_next = m_col + group_stride;
+  float* e_f0 = e_col;
+  for (int f0 = 0; f0 < N; f0 += AHEAD) {
+    const int f1 = f0 + AHEAD;
+    if (f1 + AHEAD <= N)
+      load_group<AHEAD, true>(nxt, g_nxt, m_next, ms_n, g_in, f1, N, lane);
+    else if (f1 < N)
+      load_group<AHEAD, false>(nxt, g_nxt, m_next, ms_n, g_in, f1, N,
+                               lane);
+    if (f1 <= N)
+      run_group<AHEAD, true>(cur, g_cur, f0, N, fresh && f0 == 0, live,
+                             floor, prev, vol, e_f0, B);
+    else
+      run_group<AHEAD, false>(cur, g_cur, f0, N, fresh && f0 == 0, live,
+                              floor, prev, vol, e_f0, B);
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) cur[u] = nxt[u];
+    g_cur = g_nxt;
+    m_next += group_stride;
+    e_f0 += AHEAD * B;
+  }
+  if (live) {
+    floor1[st + b] = floor;
+    prev1[st + b] = prev;
+    vol1[st + b] = vol;
+  }
+}
+
+// Frames loaded ahead: 32 where few warps share an SM (each must keep many
+// loads in flight to cover the memory's latency), 8 where many do (and for
+// a few frames).  Measured on an H100 80GB HBM3 at 700 W
+// (port_tools/kernel_turns.py, probes ahead8/16/32): at
+// S = 1 x N = 4,096, 126 cycles a frame at 32 against 132 at 16 and 156 at
+// 8; at the full step's call 0.216 ms at 8 against 0.252 at 16 and 0.277
+// at 32; at the segmented step 13.9 us at 8 against 13.5 at 16.
+bool deep_ahead(long long warps, int N) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return N > 8 && warps <= 4LL * sms;
+}
+
+// The chain bound, a measurement (chip_smoke.py phase 3,
+// port_tools/kernel_turns.py): one warp a block, block j running bins
+// [32 j, 32 j + 32) of one stream over its N frames from shared memory,
+// CHAIN_TILE frames at a time, so that only the frame body's own latency
+// and issue are timed (clock64 around each tile's loop).  The state
+// starts initialized.
+constexpr int CHAIN_TILE = 256;
+
+__global__ void __launch_bounds__(32)
+noise_floor_chain_kernel(const float* __restrict__ mags, long long ms_n,
+                         const float* __restrict__ gf,
+                         const float* __restrict__ floor0,
+                         const float* __restrict__ prev0,
+                         const float* __restrict__ vol0,
+                         float* __restrict__ floor1,
+                         long long* __restrict__ cycles, int N, int B) {
+  __shared__ float sm[CHAIN_TILE][32];
+  __shared__ float sg[CHAIN_TILE];
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x * 32 + lane;
+  const bool live = b < B;
+  float floor = live ? floor0[b] : 0.0f, prev = live ? prev0[b] : 0.0f;
+  float vol = live ? vol0[b] : 0.0f;
+  long long total = 0;
+  for (int t0 = 0; t0 < N; t0 += CHAIN_TILE) {
+    const int n = min(CHAIN_TILE, N - t0);
+    for (int f = 0; f < n; ++f)
+      sm[f][lane] = live ? mags[(t0 + f) * ms_n + b] : 0.0f;
+    for (int f = lane; f < n; f += 32) sg[f] = gf[t0 + f];
+    __syncwarp();
+    const long long c0 = clock64();
+#pragma unroll 8
+    for (int f = 0; f < n; ++f) {
+      floor_step(sm[f][lane], floor, prev, vol, live);
+      sm[f][lane] = min_nan(floor, __fmul_rn(sg[f], EFFECTIVE_SCALE));
+    }
+    __syncwarp();
+    total += clock64() - c0;
+  }
+  if (live) floor1[b] = floor;
+  if (lane == 0) cycles[blockIdx.x] = total;
 }
 
 }  // namespace
@@ -158,24 +388,62 @@ noise_floor_kernel(const float* __restrict__ mags, long long ms_s,
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success).  mags [S, N,
-// >= B] with unit stride along the bins and strides ms_s, ms_n (in floats);
-// gf [S, N] and eff [S, N, B] contiguous; the state leaves in [S, H]
-// (H >= B) contiguous, of which the kernel reads the first B columns, the
-// state leaves out [S, B] contiguous, and init [S].  N >= 1.
+// width] (width >= B) with unit stride along the bins and strides ms_s,
+// ms_n (in floats); gf [S, N] and eff [S, N, B] contiguous; the state
+// leaves in and out [S, H] (H >= B) contiguous, init in and out [S].  The
+// kernel scans columns [0, B) and writes columns [B, H) of the state out
+// (the plain version's `with_tail`).  N >= 1.
 int aat_noise_floor_scan(const float* mags, long long ms_s, long long ms_n,
                          const float* gf, const float* floor0,
                          const float* prev0, const float* vol0,
                          const uint8_t* init0, float* eff, float* floor1,
                          float* prev1, float* vol1, uint8_t* init1, int S,
-                         int N, int B, int H, void* stream) {
+                         int N, int B, int H, int width, void* stream) {
   if (S <= 0) return static_cast<int>(cudaGetLastError());
-  if (N < 1 || B < 1 || H < B)
+  if (N < 1 || B < 1 || H < B || width < B)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(S, (B + BLOCK - 1) / BLOCK);
-  noise_floor_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      mags, ms_s, ms_n, gf, floor0, prev0, vol0, init0, eff, floor1, prev1,
-      vol1, init1, N, B, H);
+  const int W = (B + 31) / 32;
+  const long long warps = (long long)S * W;
+  const dim3 grid(static_cast<unsigned>((warps + WARPS - 1) / WARPS));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define K5_LAUNCH(A)                                                        \
+  noise_floor_kernel<A><<<grid, WARPS * 32, 0, st>>>(                       \
+      mags, ms_s, ms_n, gf, floor0, prev0, vol0, init0, eff, floor1, prev1, \
+      vol1, init1, S, N, B, H, width, W)
+#ifdef K5_AHEAD                      // a probe build's
+  K5_LAUNCH(K5_AHEAD);
+#else
+  if (deep_ahead(warps, N))
+    K5_LAUNCH(32);
+  else
+    K5_LAUNCH(8);
+#endif
+#undef K5_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
+
+// The chain bound's measurement: mags [N, >= B] at row stride ms_n, gf
+// [N], the state [B]; cycles [ceil(B / 32)] (each warp's clock64 cycles
+// over all N frames), floor1 [B].
+int aat_noise_floor_chain(const float* mags, long long ms_n, const float* gf,
+                          const float* floor0, const float* prev0,
+                          const float* vol0, float* floor1,
+                          long long* cycles, int N, int B, void* stream) {
+  noise_floor_chain_kernel<<<(B + 31) / 32, 32, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      mags, ms_n, gf, floor0, prev0, vol0, floor1, cycles, N, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#ifdef K5_COUNTS
+// The counts since the last call (N_COUNTS of them, into host memory),
+// then zeroed.
+int aat_noise_floor_counts(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, k5_counts, sizeof(k5_counts));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[N_COUNTS] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(k5_counts, zero, sizeof(zero)));
+}
+#endif
 
 }  // extern "C"

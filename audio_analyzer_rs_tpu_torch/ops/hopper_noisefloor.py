@@ -6,17 +6,20 @@ Replaces: the `lax.scan` of audio_analyzer_rs_tpu/ops/noisefloor.py
 device loop.  It has no Pallas twin; as plain PyTorch each frame is ~30
 small launches on [S, B] tensors, so the scan is a kernel here.
 
-What bounds it on an H100: bytes at the segmented step (S = 128 streams x
-N = 64 frames x B = 464 bins: 15.2 MB of magnitudes read, 15.2 MB of
-effective floors written, ~9.5 us at 3.35 TB/s), and the per-frame chain of
-each bin wherever S is small (the sequential `PitchAnalyzer`, S = 1).
+What bounds it on an H100: bytes wherever S is large (the full step's
+call, S = 128 streams x N = 933 frames x B = 426 of 1,025-float rows:
+203.5 MB of magnitudes read, 203.5 MB of effective floors written, ~0.123
+ms at 3.35 TB/s; the segmented step, S = 128 x N = 64 x B = 464: ~9.5 us),
+and the per-frame chain of each bin wherever S is small (the sequential
+`PitchAnalyzer`, S = 1).
 
-Design (the source note in csrc/noisefloor.cu has the detail): a thread a
-(stream, bin) with the state in registers, a loop over frames with the
-next frames' loads issued ahead, coalesced along the bins.  The kernel
-scans the first B columns; the state above B (frozen, or seeded once from
-full-width magnitudes) is joined in torch by `noisefloor.with_tail`, a few
-launches a call.
+Design (the source note in csrc/noisefloor.cu has the detail): a lane a
+(stream, bin), warps of 32 bins flattened over the streams, the state in
+registers, the next frames' loads issued ahead, coalesced along the bins;
+the two quotients of the step computed only where they can change the
+result.  The kernel writes the whole [S, H] state: the band it scans and
+the state above it (frozen, or seeded once from full-width magnitudes, as
+`noisefloor.with_tail` does), so no torch op runs after the launch.
 
 `noise_floor_scan` is the wrapper: on CPU tensors the plain scan, on CUDA
 tensors the kernel (or it raises).
@@ -85,22 +88,47 @@ def noise_floor_scan(state, mags, global_floor, band: int):
         raise ValueError(f"noise_floor_scan: unsupported device "
                          f"{mags.device}")
     m3 = check_args(state, mags, global_floor, band)
-    s, n = m3.shape[:2]
+    s, n, width = m3.shape
     lead = tuple(state.initialized.shape)
+    half = state.floor.shape[-1]
     dev = mags.device
     eff = torch.empty(lead + (n, band), dtype=torch.float32, device=dev)
     if n == 0 or s == 0:
         return state, eff
-    sub = noisefloor.NoiseFloorState(
-        *(torch.empty(lead + (band,), dtype=torch.float32, device=dev)
+    out = noisefloor.NoiseFloorState(
+        *(torch.empty(lead + (half,), dtype=torch.float32, device=dev)
           for _ in range(3)),
         torch.empty_like(state.initialized))
     code = _build.lib().aat_noise_floor_scan(
         m3.data_ptr(), m3.stride(0), m3.stride(1), global_floor.data_ptr(),
         *(t.data_ptr() for t in state), eff.data_ptr(),
-        *(t.data_ptr() for t in sub), s, n, band, state.floor.shape[-1],
+        *(t.data_ptr() for t in out), s, n, band, half, width,
         ctypes.c_void_p(_build.stream_ptr(mags)))
     _build.check(code, "aat_noise_floor_scan")
     global LAUNCHES
     LAUNCHES += 1
-    return noisefloor.with_tail(state, sub, mags, global_floor), eff
+    return out, eff
+
+
+def chain_cycles(mags, gf, band: int, fn=None) -> list:
+    """K5's chain bound on one stream, a measurement: mags [N, >= band] and
+    gf [N] on the card; frames 1 .. N-1 from the state the first-frame
+    rule leaves, each warp of 32 bins alone on its SM with its frames in
+    shared memory (`aat_noise_floor_chain`, or `fn`, another build's) →
+    each warp's clock64 cycles a frame, of the second of two runs."""
+    fn = fn or _build.lib().aat_noise_floor_chain
+    dev = mags.device
+    floor = torch.maximum(mags[0, :band], gf[0] * 5.0).contiguous()
+    prev = mags[0, :band].contiguous()
+    vol = torch.zeros(band, device=dev)
+    out = torch.empty(band, device=dev)
+    cycles = torch.zeros((band + 31) // 32, dtype=torch.int64, device=dev)
+    n = mags.shape[0] - 1
+    for _ in range(2):
+        _build.check(fn(mags[1:].data_ptr(), mags.stride(0),
+                        gf[1:].data_ptr(), floor.data_ptr(), prev.data_ptr(),
+                        vol.data_ptr(), out.data_ptr(), cycles.data_ptr(), n,
+                        band, ctypes.c_void_p(_build.stream_ptr(mags))),
+                     "aat_noise_floor_chain")
+        torch.cuda.synchronize()
+    return [c / n for c in cycles.tolist()]

@@ -50,8 +50,12 @@ Phases, one line each on standard output:
             (S=128 x N=64, band 464) from fresh and carried states, at S=1 x
             N=4096 with a full-width state (the sequential analyzer's call)
             and at full width (band=None); timed at S=128 x N=64 alone and
-            through the wrapper with the 1,025-wide state, and at S=1 x
-            N=4096; the plain scan timed once at S=128 x N=64;
+            through the wrapper with the 1,025-wide state (the kernel
+            writes the state above the band), and at S=1 x N=4096, with
+            its share of the byte bound and at S=1 of its chain bound (one
+            warp of 32 bins alone, its frames in shared memory:
+            `hopper_noisefloor.chain_cycles`); the plain scan timed once at
+            S=128 x N=64;
   4. the main path: `segmented_pitch_analysis` over a 30-minute mixed scene at
      the default geometry (128 segments x 64-frame chunks), cold then warm, with
      the launch counts of K1, K10, K3 and K5 over the warm run (and no plain
@@ -113,7 +117,10 @@ Phases, one line each on standard output:
      and timed beside its bound (and achieved GB/s), the plain
      extraction's card time by
      torch.profiler, and that of the path K10 took over (the same torch
-     ops around K2, K2 by CUDA events); the
+     ops around K2, K2 by CUDA events); K5 at the step's call (128 x 933
+     frames of 1,025-float rows, band 426) from the first step's fresh
+     state and from the state it leaves, bitwise to the plain scan, timed
+     beside its bound and the profiled step's K5 events; the
      gates: one stream's bits equal at B = 1, 33 and 128, hist against
      exact AGC on the 25 s scene (>= 99.9% of pitch frames, fired
      identical), card against CPU (2 streams x 2 s), each of 8 streams
@@ -1464,17 +1471,24 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
     # timed; the plain extraction's card time from torch.profiler, and
     # that of the path K10 took over: the same torch ops around K2 (K2 by
     # CUDA events).
-    seen = []
+    seen, seen_k5 = [], []
     extract_pitches = pitch.extract_pitches
+    floor_scan = noisefloor.noise_floor_scan
 
     def capture(*args, **kwargs):
         seen.append((args, kwargs))
         return extract_pitches(*args, **kwargs)
+
+    def capture_k5(*args):
+        seen_k5.append(args)
+        return floor_scan(*args)
     pitch.extract_pitches = capture
+    noisefloor.noise_floor_scan = capture_k5
     try:
         step(sharding.init_stream_states(FULL_B), chunks[0])
     finally:
         pitch.extract_pitches = extract_pitches
+        noisefloor.noise_floor_scan = floor_scan
     (x_mags, x_floor, x_bw), x_kw = seen[0]
     n_x = x_mags.shape[0]
     half_x = x_kw.get("true_half") or x_mags.shape[-1]
@@ -1549,6 +1563,52 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         launches_full_step=launches[0])
     row_of(rows, "K2")["launches_full_step"] = launches[-1]
     del prof, kern, got, ref, seen, x_mags, x_floor
+
+    # K5 at the step's call (128 streams x 933 frames of 1,025-float rows,
+    # band 426, the 1,025-wide state): the first step's call (a fresh
+    # state: the tail seeded) and the next one's (its state carried: the
+    # tail frozen, as in every later step), each bitwise to the plain scan
+    # on the card, then timed alone beside the call's byte bound.
+    (f_st, f_mags, f_gf, f_band), = seen_k5
+    c_st, _ = hopper_noisefloor.noise_floor_scan(f_st, f_mags, f_gf, f_band)
+    k5_calls = {"fresh": f_st, "carried": c_st}
+    k5_step_ms = {}
+    for label, st5 in k5_calls.items():
+        got5 = hopper_noisefloor.noise_floor_scan(st5, f_mags, f_gf, f_band)
+        ref5 = noisefloor.noise_floor_scan_plain(st5, f_mags, f_gf, f_band)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("effective",) + noisefloor.NoiseFloorState
+                              ._fields, (got5[1], *got5[0]),
+                              (ref5[1], *ref5[0])):
+            assert same_bits(g, r), f"K5 at the full step ({label}): {name}"
+        k5_step_ms[label] = cuda_ms(
+            lambda: hopper_noisefloor.noise_floor_scan(st5, f_mags, f_gf,
+                                                       f_band), KERNEL_REPS)
+    del got5, ref5
+    s_5, n_5, w_5 = f_mags.shape
+    h_5 = f_st.floor.shape[-1]
+    k5_step_bytes = (2 * s_5 * n_5 * f_band * 4 + nbytes(f_gf)
+                     + 2 * (3 * s_5 * h_5 * 4 + s_5))
+    k5_step_bound, k5_step_by = bound(k5_step_bytes,
+                                      30 * s_5 * n_5 * f_band, FP32_FLOPS)
+    k5_events = port_ms["noise floor"]
+    say(f"fullstep: K5 at the step's call (magnitudes {tuple(f_mags.shape)}"
+        f", band {f_band}, a {h_5}-wide state): bitwise equal to the plain "
+        f"scan from the first step's fresh state (the tail seeded) and "
+        f"from the state it leaves (carried); carried "
+        f"{k5_step_ms['carried']:.4f} ms, fresh {k5_step_ms['fresh']:.4f} "
+        f"ms; bound {k5_step_bound:.4f} ms ({k5_step_by}: "
+        f"{k5_step_bytes / 1e6:.1f} MB), achieved "
+        f"{k5_step_bytes / k5_step_ms['carried'] / 1e6:.0f} GB/s "
+        f"({k5_step_bound / k5_step_ms['carried']:.1%} of the bound); the "
+        f"profiled step's K5 {k5_events:.4f} ms by its events")
+    row_of(rows, "K5").update(
+        full_step_ms=k5_step_ms["carried"],
+        full_step_fresh_ms=k5_step_ms["fresh"],
+        full_step_bound_ms=k5_step_bound, full_step_bound_by=k5_step_by,
+        full_step_gb_per_s=k5_step_bytes / k5_step_ms["carried"] / 1e6,
+        full_step_profiled_ms=k5_events, launches_full_step=launches[3])
+    del seen_k5, f_st, f_mags, f_gf, c_st, k5_calls
 
     # 3a. One stream's bits do not depend on B: stream 0's first step at
     # B = 1, 33 and 128.  cuFFT's 2,048-point magnitudes depend on the
@@ -2572,9 +2632,8 @@ def main() -> int:
                               st_p):
             assert same_bits(g, r), f"K5 {label} final {name} differs"
         k5_err = max(k5_err, float((eff_k - eff_p).abs().max()))
-    # Timed alone at a state as wide as the band (no tail to join), and
-    # through the wrapper with the path's 1,025-wide state (the tail's
-    # torch ops included).
+    # Timed alone at a state as wide as the band (no tail), and through
+    # the wrapper with the path's 1,025-wide state (K5 writes the tail).
     st_band = noisefloor.init_state(kc, dev, (128,))
     st_band1 = noisefloor.init_state(kc, dev, (1,))
     k5_ms = cuda_ms(lambda: hopper_noisefloor.noise_floor_scan(
@@ -2598,14 +2657,23 @@ def main() -> int:
     k5_bytes = (2 * s5 * n5f * kc * 4 + nbytes(gf)
                 + 2 * (3 * s5 * kc * 4 + s5))
     k5_bound, k5_by = bound(k5_bytes, 30 * s5 * n5f * kc, FP32_FLOPS)
+    # At S=1 the bound is each bin's chain: one warp of 32 bins alone on
+    # its SM, its frames in shared memory (the slowest warp sets the time).
+    chain = hopper_noisefloor.chain_cycles(mags_seq5[0], gf_seq5[0], kc)
+    k5_cycles_seq = k5_ms_seq / n_seq5 * 1e6 * k5_clock.mhz / 1e3
     say(f"K5 noise floor: bitwise equal to the plain scan (effective floors "
         f"and the final state) on the step's K1 magnitudes "
-        f"{tuple(mags.shape)} at band {kc} from fresh and carried states, at S=1 N={n_seq5} "
-        f"with a {half}-wide state, and at full width (band=None); S=128 "
-        f"N=64 {k5_ms * 1e3:.2f} us alone, {k5_wrapper_ms * 1e3:.2f} us "
-        f"through the wrapper with the {half}-wide state; S=1 N={n_seq5} "
-        f"{k5_ms_seq:.4f} ms, a frame "
-        f"{k5_clock.cycles(k5_ms_seq / n_seq5 * 1e6)}; "
+        f"{tuple(mags.shape)} at band {kc} from fresh and carried states, "
+        f"at S=1 N={n_seq5} with a {half}-wide state, and at full width "
+        f"(band=None); S=128 N=64 {k5_ms * 1e3:.2f} us alone "
+        f"({k5_bound / k5_ms:.1%} of the bound), "
+        f"{k5_wrapper_ms * 1e3:.2f} us through the wrapper with the "
+        f"{half}-wide state (the tail written by the kernel); S=1 "
+        f"N={n_seq5} {k5_ms_seq:.4f} ms, a frame "
+        f"{k5_clock.cycles(k5_ms_seq / n_seq5 * 1e6)}, chain bound "
+        f"{max(chain):.1f} cycles a frame (slowest of {len(chain)} warps; "
+        f"mean {statistics.mean(chain):.1f}), "
+        f"{max(chain) / k5_cycles_seq:.1%} of it; "
         f"plain {k5_plain_ms:.1f} ms at S=128 N=64 (one sample, ~30 "
         f"launches a frame); bound {k5_bound * 1e3:.2f} us ({k5_by}: "
         f"{k5_bytes / 1e6:.1f} MB)")
@@ -2615,8 +2683,11 @@ def main() -> int:
                   max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain_ms,
                   plain_samples=1, bound_ms=k5_bound, bound_by=k5_by,
                   library_ms=None, wrapper_ms=k5_wrapper_ms,
-                  ms_s1_n4096=k5_ms_seq, sm_mhz=k5_clock.mhz,
-                  sm_clock=k5_clock.source)
+                  share_of_bound=k5_bound / k5_ms,
+                  ms_s1_n4096=k5_ms_seq, cycles_a_frame_s1=k5_cycles_seq,
+                  chain_cycles_a_frame_s1=max(chain),
+                  share_of_chain_bound_s1=max(chain) / k5_cycles_seq,
+                  sm_mhz=k5_clock.mhz, sm_clock=k5_clock.source)
     del mags_prev, mags_seq5, mags_full
     del streams, chunk, frames, audio_dev
 

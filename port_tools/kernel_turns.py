@@ -11,8 +11,11 @@ floor, csrc/noisefloor.cu) against each other on one GPU, in turns.
 Each `--source label=path` is built alone by nvcc (sm_90a, the port's
 flags) into its own library under `_proof/kernel_turns/` and called through
 the port's wrapper (`ops/hopper_onset.py`, `ops/hopper_noisefloor.py`), so
-every version sees the same arguments.  Every source is first held bitwise
-to the plain version on the card.  `--probe label:name` adds a probe build
+every version sees the same arguments.  A K5 source with the C entry of
+the previous design (no `width` argument; the state out only as wide
+as the band) is called as that build's wrapper called it: its launch, then
+`noisefloor.with_tail`'s torch ops.  Every source is first held bitwise to
+the plain version on the card.  `--probe label:name` adds a probe build
 of a source, which is only timed (a probe need not be right):
   nodiv    K4's frame-at-a-time design (shuffle trees a frame): the burst
            ratio's IEEE division made a product;
@@ -22,8 +25,14 @@ of a source, which is only timed (a probe need not be right):
   nophase1 K4's tiled design: the bin lanes skip their per-bin work (phase
            1: the floor recurrence and the flux contributions);
   nophase2 the tiled design: the bin warps skip the frame reductions;
-  noguard  K4, K5: `div_guarded` is the bare IEEE division again (zero
-           numerators take the division's slow path).
+  noguard  K4: `div_guarded` is the bare IEEE division again (zero
+           numerators take the division's slow path);
+  ahead8, ahead16, ahead32
+           K5 with the frames loaded ahead fixed (`-DK5_AHEAD`);
+  counts   K5's step counts (`-DK5_COUNTS`) at every case: steps, rising
+           steps, IEEE divisions, the rising steps whose `vn` counts, vn's
+           shortcuts, subnormal volatilities, warp-frames with a rising
+           lane or a division (not timed).
 Probes join with "+" (`new:nophase1+nophase2`: the chain warp alone).  A
 probe whose text does not fit the source stops the script.
 
@@ -33,13 +42,28 @@ launches after a ~2 ms spin, median of 20 samples; the versions in turns,
 median printed.  K4's shapes: the segmented onset step S=128 x N=4,096 and
 its first 1,024 frames, and the sequential analyzer's chunk S=1 x
 N=131,072; its per-frame cost is the slope between N=1,024 and N=4,096.
-K5's: the segmented pitch step S=128 x N=64 x band 464 and the sequential
-analyzer's chunk S=1 x N=4,096, with a state as wide as the band (the
-kernel alone); its per-frame cost at S=1.  `--data scene` (the default)
-takes chip_smoke.py's inputs from the 30-minute `mixed_scene(seed=0)` (about
-40% of it digital silence, so zero magnitudes); `--data random` nonzero
-random magnitudes.  Cycles at the SM clock nvidia-smi reads.  One JSON
-object a line.
+`--data scene` (the default) takes chip_smoke.py's inputs from the
+30-minute `mixed_scene(seed=0)` (about 40% of it digital silence, so zero
+magnitudes); `--data random` nonzero random magnitudes.
+K5's cases (the scene's data, whatever `--data` says): the segmented pitch
+step S=128 x N=64 x band 464 with the path's 1,025-wide carried state
+(`main`) and with a state as wide as the band (`main_alone`, the kernel
+alone, as chip_smoke.py phase 3 times it); the sequential analyzer's chunk
+S=1 x N=4,096 from a fresh 1,025-wide state on the scene (`s1_scene`) and
+on random nonzero magnitudes (`s1_random`); the full step's call as
+`make_batched_full_step` makes it (128 streams x 933 frames of 1,025-float
+rows, band 426, the 1,025-wide state carried from the first step:
+`fullstep`; the first step's own call, `fullstep_fresh`, is checked, not
+timed); the live slot [1, 2, 426] and the pool wave [33, 2, 426], states
+carried.  Each is timed through the call (`ms`) and as the C launch alone
+with its outputs allocated once (`kernel_ms`), with its byte bound and
+achieved GB/s, and at S=1 cycles a frame.  Then each source that has
+K5's chain entry (`aat_noise_floor_chain`: one warp a block of 32 bins
+runs the S=1 chunk's frames from shared memory, clock64 around the frame
+loop) gives its chain bound: cycles a frame, mean and largest over the
+warps, on the scene and on random magnitudes.  Cycles at the SM clock
+nvidia-smi samples while the launches run (chip_smoke.py `SmClock`).  One
+JSON object a line.
 """
 
 from __future__ import annotations
@@ -73,7 +97,9 @@ PROBES = {
                  r"\s*return n == 0\.0f \? n : q;",
                  "return __fdiv_rn(n, d);")],
 }
-ENTRY = {"k4": "aat_onset_scan", "k5": "aat_noise_floor_scan"}
+# Probes made by a compiler definition the source reads.
+DEFINES = {"counts": "K5_COUNTS", "ahead8": "K5_AHEAD 8",
+           "ahead16": "K5_AHEAD 16", "ahead32": "K5_AHEAD 32"}
 
 
 def probe_source(text: str, names: str) -> str:
@@ -83,6 +109,11 @@ def probe_source(text: str, names: str) -> str:
 
 
 def _probe(text: str, name: str) -> str:
+    if name in DEFINES:
+        macro = DEFINES[name].split()[0]
+        if f"#ifdef {macro}" not in text and f"#ifndef {macro}" not in text:
+            sys.exit(f"kernel_turns: probe {name} does not fit its source")
+        return f"#define {DEFINES[name]}\n{text}"
     for pat, rep in PROBES[name]:
         text, n = re.subn(pat, rep, text, flags=re.S)
         if n == 0:
@@ -175,9 +206,53 @@ def k4_cases(dev, data: str) -> dict:
             "check": (st128, tuple(x[:, :256].contiguous() for x in big))}
 
 
-def k5_cases(dev, data: str) -> dict:
-    """name → (state, (mags, global floor, band)); the state as wide as the
-    band, so the wrapper adds no tail."""
+def k5_new_api(text: str) -> bool:
+    """Whether a K5 source's C entry takes the magnitudes' width (and
+    writes the whole state), as the package's does."""
+    return re.search(r"int H, int width, void\* stream", text) is not None
+
+
+def k5_argtypes(new_api: bool):
+    from audio_analyzer_rs_tpu_torch import _build
+    sig = _build._SIGNATURES["aat_noise_floor_scan"]
+    return sig if new_api else sig[:-2] + sig[-1:]
+
+
+def k5_fullstep_calls(dev):
+    """The K5 calls of `make_batched_full_step`'s first two steps over
+    chip_smoke.py phase 12's fleet (128 streams of the 30-minute scene as
+    48 kHz audio, 468-slot chunks) → [(state, mags, global floor, band)]
+    of step 1 (a fresh state) and step 2 (carried)."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    from audio_analyzer_rs_tpu_torch.models import generators as gen
+    from audio_analyzer_rs_tpu_torch.ops import noisefloor
+    from audio_analyzer_rs_tpu_torch.parallel import sharding
+    audio = gen.mixed_scene(1800.0, SR, seed=0)
+    t_chunk = chip_smoke.FULL_SLOTS * 1024
+    fleet = np.stack([audio[k * 600_000:k * 600_000 + 2 * t_chunk]
+                      for k in range(chip_smoke.FULL_B)])
+    step = sharding.make_batched_full_step(None, chip_smoke.FULL_SR)
+    seen, scan = [], noisefloor.noise_floor_scan
+
+    def capture(*args):
+        seen.append(args)
+        return scan(*args)
+    noisefloor.noise_floor_scan = capture
+    try:
+        st = sharding.init_stream_states(chip_smoke.FULL_B)
+        for k in range(2):
+            st, _ = step(st, torch.from_numpy(
+                fleet[:, k * t_chunk:(k + 1) * t_chunk].copy()).to(dev))
+    finally:
+        noisefloor.noise_floor_scan = scan
+    torch.cuda.synchronize()
+    return seen
+
+
+def k5_cases(dev) -> dict:
+    """name → (state, mags, global floor, band)."""
     import numpy as np
     import torch
     from audio_analyzer_rs_tpu_torch.ops import noisefloor, pitch
@@ -187,28 +262,224 @@ def k5_cases(dev, data: str) -> dict:
     window, hop, half = 2048, 512, 1025
     kc = pitch.candidate_band(float(np.float32(SR) / np.float32(window)),
                               half)
+    kc48 = pitch.candidate_band(float(np.float32(48000.0)
+                                      / np.float32(window)), half)
     g = float(noisefloor.global_floor_linear(-96.0, half))
-    if data == "scene":
-        audio, streams, plan = scene_streams(dev, window, hop, 64, 128)
-        trig = rdft_trig(window, dev)[:, :2 * (kc + 1)]
-        win = hann(window, dev)
-        step = streams[:, 2 * 64 * hop:2 * 64 * hop + plan.chunk_samples]
-        big = dft_mag(frame_signal(step, window, hop), trig, win)
-        seq = dft_mag(frame_signal(audio[:4095 * hop + window], window,
-                                   hop)[None], trig, win)
-    else:
-        rng = np.random.default_rng(3)
-        big, seq = (torch.from_numpy(rng.exponential(
-            0.5, (s, n, kc + 1)).astype(np.float32)).to(dev)
-            for s, n in ((128, 64), (1, 4096)))
-    cases = {}
-    for name, mags in (("s128_n64", big), ("s1_n4096", seq)):
-        s = mags.shape[0]
-        cases[name] = (noisefloor.init_state(kc, dev, (s,)),
-                       (mags, torch.full(mags.shape[:2], g, device=dev), kc))
-    cases["check"] = (noisefloor.init_state(half, dev, (128,)),
-                      cases["s128_n64"][1])
-    return cases
+    audio, streams, plan = scene_streams(dev, window, hop, 64, 128)
+    trig = rdft_trig(window, dev)[:, :2 * (kc + 1)]
+    win = hann(window, dev)
+
+    def k1(lo):
+        return dft_mag(frame_signal(
+            streams[:, lo * hop:lo * hop + plan.chunk_samples], window, hop),
+            trig, win)
+
+    def gf_of(mags):
+        return torch.full(mags.shape[:2], g, device=dev)
+
+    prev, big = k1(64), k1(2 * 64)
+    seq = dft_mag(frame_signal(audio[:4095 * hop + window], window,
+                               hop)[None], trig, win)
+    rng = np.random.default_rng(3)
+    rand = torch.from_numpy(rng.exponential(
+        0.5, (1, 4096, kc + 1)).astype(np.float32)).to(dev)
+    carried, _ = noisefloor.noise_floor_scan_plain(
+        noisefloor.init_state(half, dev, (128,)), prev, gf_of(prev), kc)
+    live = seq[:, 1000:1002, :kc48 + 1].contiguous()
+    pool = big[:33, 10:12, :kc48 + 1].contiguous()
+    live_st, _ = noisefloor.noise_floor_scan_plain(
+        noisefloor.init_state(half, dev, (1,)), seq[:, 900:1000],
+        gf_of(seq[:, 900:1000]), kc48)
+    pool_st, _ = noisefloor.noise_floor_scan_plain(
+        noisefloor.init_state(half, dev, (33,)), big[:33, :10],
+        gf_of(big[:33, :10]), kc48)
+    fresh1 = noisefloor.init_state(half, dev, (1,))
+    (fs_fresh, fs) = k5_fullstep_calls(dev)
+    return {
+        "main": (carried, big, gf_of(big), kc),
+        "main_alone": (noisefloor.init_state(kc, dev, (128,)), big,
+                       gf_of(big), kc),
+        "s1_scene": (fresh1, seq, gf_of(seq), kc),
+        "s1_random": (fresh1, rand, gf_of(rand), kc),
+        "fullstep": fs,
+        "fullstep_fresh": fs_fresh,
+        "live": (live_st, live, gf_of(live), kc48),
+        "pool": (pool_st, pool, gf_of(pool), kc48),
+    }
+
+
+def k5_bytes(st, mags, gf, band) -> int:
+    """What a K5 call must move: the band of the magnitudes read and the
+    effective floors written, the global floors, the state in and out
+    across its width (and the first frame's tail where a fresh stream's
+    tail is seeded from full-width magnitudes)."""
+    s, n = mags.shape[0], mags.shape[-2]
+    half = st.floor.shape[-1]
+    seeded = int((~st.initialized).sum()) if mags.shape[-1] >= half else 0
+    return (2 * s * n * band * 4 + gf.numel() * 4 + 2 * (3 * s * half * 4 + s)
+            + seeded * (half - band) * 4)
+
+
+def k5_main(args, texts: dict) -> int:
+    """K5's turns, chain and counts (see the module's note)."""
+    import torch
+    import chip_smoke
+    from audio_analyzer_rs_tpu_torch import _build
+    from audio_analyzer_rs_tpu_torch.ops import hopper_noisefloor, noisefloor
+    dev = torch.device("cuda")
+    cases = k5_cases(dev)          # the package's library runs the step
+    torch.cuda.synchronize()
+    with ThreadPoolExecutor(len(texts)) as pool:
+        built = dict(zip(texts, pool.map(lambda kv: build(*kv),
+                                         texts.items())))
+    libs, apis = {}, {}
+    for label, (path, _) in built.items():
+        apis[label] = k5_new_api(texts[label])
+        lib = ctypes.CDLL(str(path))
+        lib.aat_noise_floor_scan.argtypes = k5_argtypes(apis[label])
+        lib.aat_noise_floor_scan.restype = ctypes.c_int
+        libs[label] = lib
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    lines = [{"card": card, "kernel": "k5"}]
+    lines += [info for _, info in built.values()]
+
+    def emit(line):
+        lines.append(line)
+        print(json.dumps(line), flush=True)
+
+    def scan(label, st, mags, gf, band):
+        """The call: the package's wrapper, or for a source with the
+        previous entry that design's (its launch, then with_tail)."""
+        if apis[label]:
+            _build._lib = libs[label]
+            try:
+                return hopper_noisefloor.noise_floor_scan(st, mags, gf, band)
+            finally:
+                _build._lib = None
+        m3 = hopper_noisefloor.check_args(st, mags, gf, band)
+        s, n = m3.shape[:2]
+        lead = tuple(st.initialized.shape)
+        eff = torch.empty(lead + (n, band), device=dev)
+        sub = noisefloor.NoiseFloorState(
+            *(torch.empty(lead + (band,), device=dev) for _ in range(3)),
+            torch.empty_like(st.initialized))
+        _build.check(libs[label].aat_noise_floor_scan(
+            m3.data_ptr(), m3.stride(0), m3.stride(1), gf.data_ptr(),
+            *(x.data_ptr() for x in st), eff.data_ptr(),
+            *(x.data_ptr() for x in sub), s, n, band, st.floor.shape[-1],
+            ctypes.c_void_p(_build.stream_ptr(mags))), "old K5")
+        return noisefloor.with_tail(st, sub, mags, gf), eff
+
+    def launch_only(label, st, mags, gf, band):
+        """The C launch alone, outputs allocated once."""
+        m3 = hopper_noisefloor.check_args(st, mags, gf, band)
+        s, n, width = m3.shape
+        half = st.floor.shape[-1]
+        lead = tuple(st.initialized.shape)
+        eff = torch.empty(lead + (n, band), device=dev)
+        out_w = half if apis[label] else band
+        out = [torch.empty(lead + (out_w,), device=dev) for _ in range(3)]
+        init = torch.empty_like(st.initialized)
+        ptrs = ([m3.data_ptr(), m3.stride(0), m3.stride(1), gf.data_ptr()]
+                + [x.data_ptr() for x in st] + [eff.data_ptr()]
+                + [x.data_ptr() for x in out] + [init.data_ptr(), s, n, band,
+                                                  half])
+        if apis[label]:
+            ptrs.append(width)
+        fn = libs[label].aat_noise_floor_scan
+        stream = ctypes.c_void_p(_build.stream_ptr(mags))
+        return lambda: fn(*ptrs, stream)
+
+    # Every build but the count probes is checked, then timed.
+    timed_labels = [k for k in texts if not k.endswith("-counts")]
+    for label in timed_labels:
+        for name, (st, mags, gf, band) in cases.items():
+            got = scan(label, st, mags, gf, band)
+            want = noisefloor.noise_floor_scan_plain(st, mags, gf, band)
+            torch.cuda.synchronize()
+            same = all(chip_smoke.same_bits_nan(a, b) for a, b in
+                       zip((got[1], *got[0]), (want[1], *want[0])))
+            emit({"check": label, "case": name, "bitwise_to_plain": same})
+            if not same:
+                return 1
+
+    timed = [k for k in cases if k != "fullstep_fresh"]
+    times = {k: {c: {"ms": [], "kernel_ms": []} for c in timed}
+             for k in timed_labels}
+    clock = chip_smoke.SmClock()
+    with clock:
+        for r in range(args.rounds):
+            order = timed_labels if r % 2 == 0 else timed_labels[::-1]
+            for label in order:
+                for name in timed:
+                    st, mags, gf, band = cases[name]
+                    t_call = chip_smoke.cuda_times(
+                        lambda: scan(label, st, mags, gf, band),
+                        chip_smoke.KERNEL_REPS)
+                    t_kern = chip_smoke.cuda_times(
+                        launch_only(label, st, mags, gf, band),
+                        chip_smoke.KERNEL_REPS)
+                    times[label][name]["ms"].extend(t_call)
+                    times[label][name]["kernel_ms"].extend(t_kern)
+                    emit({"turn": r, "label": label, "case": name,
+                          "ms": statistics.median(t_call),
+                          "kernel_ms": statistics.median(t_kern)})
+    for label, by_case in times.items():
+        for name, t in by_case.items():
+            st, mags, gf, band = cases[name]
+            nbytes = k5_bytes(st, mags, gf, band)
+            bound_ms = nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3
+            ms, kern = (statistics.median(t[k]) for k in ("ms", "kernel_ms"))
+            row = {"label": label, "case": name, "ms": ms, "kernel_ms": kern,
+                   "bound_ms": bound_ms, "share_of_bound": bound_ms / kern,
+                   "gb_per_s": nbytes / kern / 1e6, "mb": nbytes / 1e6}
+            if mags.shape[0] == 1 and mags.shape[-2] >= 1024:
+                row["cycles_a_frame"] = (kern / mags.shape[-2] * 1e6
+                                         * clock.mhz / 1e3)
+            emit({**row, "sm_mhz": clock.mhz, "sm_clock": clock.source,
+                  "card": card})
+
+    for label in (k for k in timed_labels if apis[k]):
+        fn = libs[label].aat_noise_floor_chain
+        fn.argtypes = _build._SIGNATURES["aat_noise_floor_chain"]
+        fn.restype = ctypes.c_int
+        for name in ("s1_scene", "s1_random"):
+            _, mags, gf, band = cases[name]
+            cyc = hopper_noisefloor.chain_cycles(mags[0], gf[0], band, fn)
+            emit({"chain": label, "case": name,
+                  "frames": mags.shape[1] - 1, "warps": len(cyc),
+                  "cycles_a_frame_mean": sum(cyc) / len(cyc),
+                  "cycles_a_frame_max": max(cyc),
+                  "cycles_a_frame_min": min(cyc)})
+
+    names = ("steps", "rising", "ieee_divisions", "vn_needed",
+             "vn_shortcut", "subnormal_v", "warp_frames",
+             "warp_frames_rising", "warp_frames_dividing",
+             "div_tiny_numerator")
+    for label in (k for k in texts if k.endswith("-counts")):
+        lib = libs[label]
+        lib.aat_noise_floor_counts.argtypes = (ctypes.c_void_p,)
+        lib.aat_noise_floor_counts.restype = ctypes.c_int
+        buf = (ctypes.c_ulonglong * len(names))()
+        _build.check(lib.aat_noise_floor_counts(buf), "K5 counts")
+        for name, (st, mags, gf, band) in cases.items():
+            got = scan(label, st, mags, gf, band)
+            torch.cuda.synchronize()
+            _build.check(lib.aat_noise_floor_counts(buf), "K5 counts")
+            want = noisefloor.noise_floor_scan_plain(st, mags, gf, band)
+            same = all(chip_smoke.same_bits_nan(a, b) for a, b in
+                       zip((got[1], *got[0]), (want[1], *want[0])))
+            counts = dict(zip(names, (int(x) for x in buf)))
+            emit({"counts": label, "case": name, "bitwise_to_plain": same,
+                  **counts,
+                  "dividing_share": counts["ieee_divisions"]
+                  / max(1, counts["steps"])})
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("\n".join(json.dumps(x) for x in lines) + "\n")
+    return 0
 
 
 def main() -> int:
@@ -228,9 +499,7 @@ def main() -> int:
         sys.exit("kernel_turns: no CUDA device")
     import chip_smoke
     from audio_analyzer_rs_tpu_torch import _build
-    from audio_analyzer_rs_tpu_torch.ops import (hopper_noisefloor,
-                                                 hopper_onset, noisefloor,
-                                                 onset)
+    from audio_analyzer_rs_tpu_torch.ops import hopper_onset, onset
 
     texts = {k: (REPO / v).read_text()
              for k, v in (s.split("=", 1) for s in args.source)}
@@ -238,28 +507,21 @@ def main() -> int:
     for spec in args.probe:
         label, name = spec.split(":")
         texts[f"{label}-{name}"] = probe_source(texts[label], name)
+    if args.kernel == "k5":
+        return k5_main(args, texts)
     dev = torch.device("cuda")
-    if args.kernel == "k4":
-        cases = k4_cases(dev, args.data)
+    cases = k4_cases(dev, args.data)
 
-        def call(st, x):
-            return hopper_onset.onset_scan(st, *x)
+    def call(st, x):
+        return hopper_onset.onset_scan(st, *x)
 
-        def plain(st, x):
-            return onset.onset_scan_plain(st, *x)
-    else:
-        cases = k5_cases(dev, args.data)
-
-        def call(st, x):
-            return hopper_noisefloor.noise_floor_scan(st, *x)
-
-        def plain(st, x):
-            return noisefloor.noise_floor_scan_plain(st, *x)
+    def plain(st, x):
+        return onset.onset_scan_plain(st, *x)
     torch.cuda.synchronize()
     with ThreadPoolExecutor(len(texts)) as pool:
         built = dict(zip(texts, pool.map(lambda kv: build(*kv),
                                          texts.items())))
-    libs = {k: load(path, ENTRY[args.kernel])
+    libs = {k: load(path, "aat_onset_scan")
             for k, (path, _) in built.items()}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -305,14 +567,10 @@ def main() -> int:
     for label, by_shape in times.items():
         ms = {k: statistics.median(v) for k, v in by_shape.items()}
         row = {"label": label, **{f"ms_{k}": v for k, v in ms.items()}}
-        if args.kernel == "k4":
-            slope = (ms["s128_n4096"] - ms["s128_n1024"]) / 3072 * 1e6
-            row["per_frame_cycles_s128"] = slope * sm_mhz / 1e3
-            row["per_frame_cycles_s1"] = (ms["s1_n131072"] / 131072 * 1e6
-                                          * sm_mhz / 1e3)
-        else:
-            row["per_frame_cycles_s1"] = (ms["s1_n4096"] / 4096 * 1e6
-                                          * sm_mhz / 1e3)
+        slope = (ms["s128_n4096"] - ms["s128_n1024"]) / 3072 * 1e6
+        row["per_frame_cycles_s128"] = slope * sm_mhz / 1e3
+        row["per_frame_cycles_s1"] = (ms["s1_n131072"] / 131072 * 1e6
+                                      * sm_mhz / 1e3)
         lines.append({**row, "sm_mhz": sm_mhz, "card": card})
     text = "\n".join(json.dumps(x) for x in lines)
     print(text, flush=True)

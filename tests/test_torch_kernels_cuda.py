@@ -20,7 +20,13 @@ unsplit launch for every frame.  K6 (the reducer scan) and K7
 and 129, from fresh and carried states, with NaN samples and digital
 silence, K6 over T shorter than a tile and not a multiple of 4 and a hold
 across tiles, K7 over one slot and 480-sample slots;
-the full step launches K2-K7 once each and agrees with the CPU.  Tolerances: K1 max |Δ| <= 1e-5 ·
+the full step launches K2-K7 once each and agrees with the CPU.  K5 (the
+noise-floor scan) is bitwise to its plain version on every output and
+every state leaf across the full width, tail included: at bands 426, 464
+and 1,025 for S = 1, 33 and 128, at the full step's call (128 x 933
+frames of 1,025-float rows, band 426, fresh and carried), and on the cases
+its division shortcuts could break (tests/test_torch_noisefloor_kernel.py
+`edge_cases`); no torch op runs after its launch.  Tolerances: K1 max |Δ| <= 1e-5 ·
 max (3xTF32 on the tensor cores against cuBLAS FP32), and bitwise across
 batch geometries; K2, K3, K4 and K5 bitwise (K3's, K4's and K5's floats as
 bit patterns, so -0.0 and +0.0 differ).
@@ -603,8 +609,8 @@ def test_k5_state_carry_and_unbatched(dev):
 
 
 def test_noise_floor_scan_cuda_runs_no_plain_step(dev, monkeypatch):
-    """On CUDA tensors noise_floor_scan is the one kernel launch (and the
-    tail's few torch ops)."""
+    """On CUDA tensors noise_floor_scan is the one kernel launch (the
+    state above the band written by the kernel)."""
     mags, gf = _k5_inputs(dev, 4, 100, HALF, seed=9)
     st0 = noisefloor.init_state(HALF, dev, (4,))
     want = noisefloor.noise_floor_scan_plain(st0, mags, gf, KC)
@@ -619,6 +625,102 @@ def test_noise_floor_scan_cuda_runs_no_plain_step(dev, monkeypatch):
     assert hopper_noisefloor.LAUNCHES == launches + 1
     for a, b in zip((got[1], *got[0]), (want[1], *want[0])):
         assert_same_bits(a, b)
+
+
+def test_noise_floor_scan_cuda_runs_no_torch_op_after_the_launch(
+        dev, monkeypatch):
+    """On CUDA tensors no torch op follows K5's launch: `with_tail` does
+    not run, and a dispatch mode sees nothing after the library call (the
+    outputs are allocated before it).  Full-width magnitudes at band 426
+    on fresh and initialized streams (the tail seeded and frozen)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from audio_analyzer_rs_tpu_torch import _build
+    mags, gf = _k5_inputs(dev, 4, 50, HALF, seed=41)
+    st0 = _k5_state(dev, 4, seed=42)
+    want = noisefloor.noise_floor_scan_plain(st0, mags, gf, KC48)
+    lib = _build.lib()
+    launch = lib.aat_noise_floor_scan
+    seen, after = [], []
+
+    def record(*args):
+        code = launch(*args)
+        after.append(True)
+        return code
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if after:
+                seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    def refuse(*args):
+        raise AssertionError("with_tail ran on the CUDA path")
+
+    monkeypatch.setattr(noisefloor, "with_tail", refuse)
+    monkeypatch.setattr(lib, "aat_noise_floor_scan", record)
+    with Ops():
+        got = noisefloor.noise_floor_scan(st0, mags, gf, KC48)
+    torch.cuda.synchronize()
+    assert after and not seen, seen
+    for a, b in zip((got[1], *got[0]), (want[1], *want[0])):
+        assert_same_bits(a, b)
+
+
+@pytest.mark.parametrize("band", [KC48, KC, None])
+@pytest.mark.parametrize("s", [1, 33, 128])
+def test_k5_matches_plain_at_band_widths(dev, s, band):
+    """B = 426 (48 kHz), 464 (44.1 kHz) and 1,025 (the full width) at S =
+    1, 33 and 128, full-width magnitudes, from fresh states and from a
+    state handed in (every other stream fresh): the effective floors and
+    every state leaf across the full width, bitwise."""
+    mags, gf = _k5_inputs(dev, s, 40, HALF, seed=s + (band or 0))
+    _assert_k5_matches_plain(noisefloor.init_state(HALF, dev, (s,)), mags,
+                             gf, band)
+    _assert_k5_matches_plain(_k5_state(dev, s, seed=s), mags, gf, band)
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+def test_k5_matches_plain_at_the_full_steps_call(dev, fresh):
+    """The full step's call (parallel/sharding.py): 128 streams x 933
+    frames of 1,025-float rows, band 426, a 1,025-wide state, fresh (its
+    first step: the tail seeded) or carried (the tail frozen)."""
+    mags, gf = _k5_inputs(dev, 128, 933, HALF, seed=43)
+    mags[:, 300:700] = 0.0                      # digital silence
+    st0 = (noisefloor.init_state(HALF, dev, (128,)) if fresh
+           else _k5_state(dev, 128, seed=44)._replace(
+               initialized=torch.ones(128, dtype=torch.bool, device=dev)))
+    _assert_k5_matches_plain(st0, mags, gf, KC48)
+
+
+def _edge_case(dev, name):
+    from test_torch_noisefloor_kernel import EDGE
+    st, mags, gf, band = EDGE[name]
+    state = noisefloor.NoiseFloorState(
+        *(torch.from_numpy(np.array(a)).to(dev) for a in st))
+    return (state, torch.from_numpy(mags).to(dev),
+            torch.from_numpy(gf).to(dev), band)
+
+
+@pytest.mark.parametrize("name", [
+    "full_width_scan", "full_width_tail", "near_one_and_a_half_floors",
+    "odd_states", "rising_with_subnormal_v", "silence_after_loud"])
+def test_k5_edge_cases_match_plain(dev, name):
+    """The cases K5's shortcuts could break (tests/
+    test_torch_noisefloor_kernel.py `edge_cases`: > 400 frames of silence
+    after a loud section, magnitudes within ulps of 1.5x the floor, odd
+    handed-in states with NaN, +-inf, negative and subnormal values, m
+    above the floor with a subnormal v, full-width magnitudes on fresh and
+    initialized streams): every output and state leaf, NaNs by position,
+    bitwise elsewhere."""
+    st0, mags, gf, band = _edge_case(dev, name)
+    launches = hopper_noisefloor.LAUNCHES
+    st_k, eff_k = noisefloor.noise_floor_scan(st0, mags, gf, band)
+    st_p, eff_p = noisefloor.noise_floor_scan_plain(st0, mags, gf, band)
+    torch.cuda.synchronize()
+    assert hopper_noisefloor.LAUNCHES == launches + 1
+    assert_same_bits_nan(eff_k, eff_p, "effective")
+    for field, a, b in zip(noisefloor.NoiseFloorState._fields, st_k, st_p):
+        assert_same_bits_nan(a, b, field)
 
 
 # ── NaN input and the live engine's shapes ───────────────────────────────

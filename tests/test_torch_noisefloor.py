@@ -206,3 +206,74 @@ def test_plain_scan_bitwise_carried_and_handed_over(mags_gf, band, banded):
     np.testing.assert_array_equal(eff_h.numpy(), eff_b.numpy())
     for leaf_h, leaf_b in zip(st_h, st_b):
         assert torch.equal(leaf_h, leaf_b)
+
+
+def test_silence_after_loud_and_odd_states_against_jax():
+    """The cases the kernel's shortcuts could break (tests/
+    test_torch_noisefloor_kernel.py `edge_cases`), through the plain scan
+    and JAX's scan from the same state.  Magnitudes within ulps of 1.5x
+    the floor, odd floors (below 0.01, negative, -inf) and full-width
+    magnitudes on fresh and initialized streams: the effective floors and
+    every state leaf bitwise (NaNs by position), except that with
+    full-width magnitudes XLA:CPU rounds the volatility's EMA its own way
+    on some bins (within 1e-6, as the devtools tests compare it).  > 400
+    frames of digital silence after a loud section: bitwise to the FMA
+    oracle `noise_floor_np(fma=True)`, subnormals included, and within
+    1e-6 of JAX, whose decay through the silence is 1-2 ulps off the
+    oracle on a few frames and whose XLA:CPU flushes subnormal results to
+    zero (the port keeps them; the cases with subnormal inputs stay out
+    for that reason)."""
+    from test_torch_noisefloor_kernel import edge_cases
+
+    tiny = 2.0 ** -126
+    subnormal = 0
+
+    def bits_nan(got, want, msg):
+        nonlocal subnormal
+        got, want = np.asarray(got), np.asarray(want)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want), msg)
+        sub = (got != 0) & (np.abs(got) < tiny)
+        subnormal += int(sub.sum())
+        ok = ~np.isnan(want) & ~sub
+        np.testing.assert_array_equal(got[ok].view(np.uint32),
+                                      want[ok].view(np.uint32), msg)
+        assert (np.abs(want[sub]) < tiny).all(), msg
+
+    cases = edge_cases()
+    for name in ("silence_after_loud", "near_one_and_a_half_floors",
+                 "full_width_tail", "full_width_scan"):
+        st, mags, gf, band = cases[name]
+        state_t = tnf.NoiseFloorState(*(torch.from_numpy(np.array(a))
+                                        for a in st))
+        st_t, eff_t = tnf.noise_floor_scan_plain(
+            state_t, torch.from_numpy(mags), torch.from_numpy(gf), band)
+        full = mags.shape[-1] >= st[0].shape[-1]
+        for s in range(mags.shape[0]):
+            st_j, eff_j = jnf.noise_floor_scan(
+                jnf.NoiseFloorState(*(jnp.asarray(a[s]) for a in st)),
+                jnp.asarray(mags[s]), jnp.asarray(gf[s]), band)
+            if name == "silence_after_loud":
+                # XLA:CPU's decay of the floor through the silence is 1-2
+                # ulps off the FMA oracle on a few frames; the oracle holds
+                # the port bitwise instead.
+                np.testing.assert_array_equal(
+                    eff_t[s].numpy().view(np.uint32),
+                    jnf.noise_floor_np(mags[s], gf[s], fma=True)[:, :band]
+                    .view(np.uint32))
+                for a, b in zip((eff_t, *st_t[:3]), (eff_j, *st_j[:3])):
+                    np.testing.assert_allclose(a[s].numpy(), b, rtol=1e-6,
+                                               atol=tiny)
+                subnormal += int(((st_t.volatility[s] != 0)
+                                  & (st_t.volatility[s].abs() < tiny))
+                                 .sum())
+                continue
+            bits_nan(eff_t[s].numpy(), eff_j, f"{name} effective {s}")
+            for field, a, b in zip(("floor", "prev_mag"), st_t, st_j):
+                bits_nan(a[s].numpy(), b, f"{name} {field} {s}")
+            vol_t = st_t.volatility[s].numpy()
+            if full:
+                np.testing.assert_allclose(vol_t, st_j.volatility,
+                                           rtol=1e-6, atol=tiny)
+            else:
+                bits_nan(vol_t, st_j.volatility, f"{name} volatility {s}")
+    assert subnormal > 0

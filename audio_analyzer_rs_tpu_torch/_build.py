@@ -62,10 +62,6 @@ _SIGNATURES = {
     # mags width, stream
     "aat_noise_floor_scan": (_P, ctypes.c_longlong, ctypes.c_longlong)
     + (_P,) * 10 + (_I, _I, _I, _I, _I, _P),
-    # mags and its frame stride, global floor, state in (3), floor out,
-    # cycles a warp, frames, bins, stream (K5's chain bound)
-    "aat_noise_floor_chain": (_P, ctypes.c_longlong) + (_P,) * 6
-    + (_I, _I, _P),
     # x, y, state in [B, 9], hold in, state out, hold out, streams,
     # samples, gate only, the two biquads' b0 b1 b2 a1 a2, release,
     # 1 - release, hold samples, stream

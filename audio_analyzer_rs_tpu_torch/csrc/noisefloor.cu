@@ -25,11 +25,12 @@
 //    segmented step ~3.6 warps share a scheduler, so the instructions a
 //    frame (~50 from one frame's shuffle to the next) set its pace.
 //  - No division for `above` (the residual m - 1.5 d rounded once decides
-//    it, exactly), and vn's only where it can change the result
-//    (floor_step below): on the steps whose magnitude is above the floor,
-//    6-10% of a scene's, never with the zero or subnormal numerators of
-//    near silence (16-23% of a scene's volatilities are subnormal), which
-//    take the division's slow path.
+//    it, exactly), and vn's only where it is read (floor_step below): on
+//    the steps whose magnitude is above the floor, 6-10% of a scene's.
+//    The subnormal volatilities of near silence (16-23% of a scene's),
+//    which would take the division's slow path, fall on the others.
+//  - Lanes past B run bin B - 1's frames from bin B - 1's state, so they
+//    branch as lane B - 1 does and add no divergence; they store nothing.
 //  - The state above the band is written by the kernel (copied, or seeded
 //    from a full-width first frame), so the wrapper runs no torch op
 //    after the launch.
@@ -71,9 +72,8 @@ constexpr float FAST_MINUS_BASE = 0x1.3d70a4p-2f;    // float32(0.35 - 0.04)
 constexpr float RELEASE = 0x1.47ae14p-6f;            // 0.02
 constexpr float INIT_SCALE = 0x1.4p+2f;              // 5.0
 constexpr float EFFECTIVE_SCALE = 0x1.4p+1f;         // 2.5
-// What decides a compare without its quotient (floor_step).
+// What decides `above` without its quotient (floor_step).
 constexpr float RATIO_MIDPOINT = 0x1p-24f;           // 1.5 + this: a midpoint
-constexpr float VN_NEGLIGIBLE = 0x1p-28f;
 
 // The larger / smaller of a and b, NaN if either is NaN (torch.maximum,
 // torch.minimum): PTX max.NaN / min.NaN (sm_80 and later), one instruction
@@ -90,55 +90,20 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return r;
 }
 
-#ifdef K5_COUNTS
-// A probe build's step counts (port_tools/kernel_turns.py --probe
-// label:counts), read and zeroed by aat_noise_floor_counts: steps, rising
-// steps, IEEE divisions (__fdiv_rn), rising steps whose vn is not
-// negligible (those whose quotient counts), vn's shortcuts, steps whose v
-// is subnormal (a division by them would take its slow path),
-// warp-frames, warp-frames with a rising lane, warp-frames with an IEEE
-// division, IEEE divisions whose numerator is zero or subnormal.
-constexpr int N_COUNTS = 10;
-__device__ unsigned long long k5_counts[N_COUNTS];
-
-__device__ __forceinline__ void count_step(bool live, bool rising,
-                                           bool ieee, bool negligible,
-                                           float v) {
-  const unsigned act = __activemask();
-  const bool tiny_v = fabsf(v) < 0x1p-126f;
-  const bool lane_counts[6] = {live, live && rising, live && ieee,
-                               live && rising && !negligible,
-                               live && rising && negligible,
-                               live && tiny_v && v != 0.0f};
-  unsigned long long add[N_COUNTS];
-  for (int i = 0; i < 6; ++i)
-    add[i] = __popc(__ballot_sync(act, lane_counts[i]));
-  add[6] = 1;
-  add[7] = __ballot_sync(act, live && rising) != 0;
-  add[8] = __ballot_sync(act, live && ieee) != 0;
-  add[9] = __popc(__ballot_sync(act, live && ieee && tiny_v));
-  if ((threadIdx.x & 31) == __ffs(act) - 1)
-    for (int i = 0; i < N_COUNTS; ++i)
-      if (add[i]) atomicAdd(&k5_counts[i], add[i]);
-}
-#else
-__device__ __forceinline__ void count_step(bool, bool, bool, bool, float) {}
-#endif
-
 // One frame of an initialized bin: the plain `_step` with
 //   above = m / max(floor, 0.01),  vn = clamp(v / max(m, 0.05), 0, 1),
 //   sustained = above > 1.5 && vn < 0.15,
 //   alpha = m > floor ? fmaf(vn, 0.31, 0.04) : 0.02,
 //   floor = sustained ? floor : fmaf(alpha, m - floor, floor),
-// with no division for `above` and vn's only where it can change the
-// result.  Exact for every float32 input (NaN, +-inf, +-0, subnormals,
-// negative floors; tests/test_torch_noisefloor_kernel.py holds each case):
+// with no division for `above` and vn's only where it is read.  Exact for
+// every float32 input (NaN, +-inf, +-0, subnormals, negative floors;
+// tests/test_torch_noisefloor_kernel.py holds each case):
 //  1. m > floor false (a NaN m or floor included): alpha is 0.02, and
 //     above > 1.5 is false (m <= floor gives m / floor <= 1 for floor >=
 //     0.01, m / 0.01 < 1 below it, a negative quotient below 0, and a NaN
 //     operand a NaN quotient), so `sustained` is false; neither quotient is
 //     read.  Digital silence (m = 0 over a floor decayed to the least
-//     subnormal) takes this path.
+//     subnormal) takes this path, with its subnormal volatilities.
 //  2. m > floor, so m and floor are not NaN and d = max(floor, 0.01) is
 //     finite and >= 0.01, 2^E <= d < 2^(E+1).  RN(m / d) > 1.5 exactly
 //     when m / d > 1.5 + 2^-24 (the midpoint above 1.5; a tie rounds to
@@ -149,17 +114,9 @@ __device__ __forceinline__ void count_step(bool, bool, bool, bool, float) {}
 //     Further out the rounded difference keeps its side of d 2^-24 (it is
 //     >= d / 2 or <= -d / 2; RN is monotone); +inf - 1.5 d is +inf, and a
 //     difference below -FLT_MAX rounds to -inf, both on the right side.
-//  3. m > floor and |v| < RN(mm * 2^-28), mm = max(m, 0.05) (exact: mm >=
-//     0.05, no underflow): |v / mm| < 2^-28, so the clamped quotient vn is
-//     in [0, 2^-28] (or -0), vn < 0.15, and vn * 0.31 < 2^-29, half an ulp
-//     of 0.04, so fmaf(vn, 0.31, 0.04) = 0.04 = fmaf(0, 0.31, 0.04).  It
-//     keeps every zero and subnormal v (the volatility of a bin leaving
-//     silence) off the division's slow path.  |v| = inf or NaN never
-//     passes the compare; mm = inf with v finite gives v / inf = +-0.
 // The state is (floor, prev, vol); vol takes v and prev takes m.
 __device__ __forceinline__ void floor_step(float m, float& floor,
-                                           float& prev, float& vol,
-                                           bool live) {
+                                           float& prev, float& vol) {
   const float delta = fabsf(__fsub_rn(m, prev));
   const float v = __fadd_rn(__fmul_rn(vol, VOL_MEMORY),
                             __fmul_rn(delta, VOL_NEW));
@@ -167,13 +124,9 @@ __device__ __forceinline__ void floor_step(float m, float& floor,
   const float d = max_nan(floor, FLOOR_EPS);
   const bool above =
       fmaf(-NOTE_RATIO, d, m) > __fmul_rn(d, RATIO_MIDPOINT);
-  const float mm = max_nan(m, MAG_EPS);
-  const bool negligible = fabsf(v) < __fmul_rn(mm, VN_NEGLIGIBLE);
-  const bool ieee = rising && !negligible;
   float q = 0.0f;
-  if (ieee) q = __fdiv_rn(v, mm);
-  const float vn = negligible ? 0.0f : min_nan(max_nan(q, 0.0f), 1.0f);
-  count_step(live, rising, ieee, negligible, v);
+  if (rising) q = __fdiv_rn(v, max_nan(m, MAG_EPS));
+  const float vn = min_nan(max_nan(q, 0.0f), 1.0f);
   const bool sustained = rising && above && vn < NOTE_VOL_MAX;
   const float alpha =
       rising ? fmaf(vn, FAST_MINUS_BASE, BASE_ALPHA) : RELEASE;
@@ -215,7 +168,7 @@ __device__ __forceinline__ void run_group(const float (&m)[AHEAD],
         floor = max_nan(m[0], __fmul_rn(g, INIT_SCALE));
         prev = m[0];
       } else {
-        floor_step(m[u], floor, prev, vol, live);
+        floor_step(m[u], floor, prev, vol);
       }
       if (live) e_f0[u * B] = min_nan(floor, __fmul_rn(g, EFFECTIVE_SCALE));
     }
@@ -239,9 +192,10 @@ noise_floor_kernel(const float* __restrict__ mags, long long ms_s,
   if (gw >= S * W) return;           // whole warps
   const int s = gw / W, w = gw - s * W;
   const int b = w * 32 + lane;
-  const bool live = b < B;      // lanes past B run on bin B - 1's frames
+  const bool live = b < B;
+  const int bin = min(b, B - 1);     // lanes past B mirror bin B - 1
   const float* m_row = mags + s * ms_s;
-  const float* m_col = m_row + min(b, B - 1);
+  const float* m_col = m_row + bin;
   const float* g_in = gf + (long long)s * N;
   float* e_col = eff + (long long)s * N * B + b;
   const long long st = (long long)s * H;
@@ -249,12 +203,8 @@ noise_floor_kernel(const float* __restrict__ mags, long long ms_s,
   // Every load that waits on no other goes out first: the stream's flag,
   // the band's state and the first AHEAD frames.
   const bool fresh = init0[s] == 0;
-  float floor = 0.0f, prev = 0.0f, vol = 0.0f;
-  if (live) {
-    floor = floor0[st + b];
-    prev = prev0[st + b];
-    vol = vol0[st + b];
-  }
+  float floor = floor0[st + bin], prev = prev0[st + bin],
+        vol = vol0[st + bin];
   float cur[AHEAD], nxt[AHEAD], g_cur, g_nxt;
   if (AHEAD <= N)
     load_group<AHEAD, true>(cur, g_cur, m_col, ms_n, g_in, 0, N, lane);
@@ -329,58 +279,14 @@ noise_floor_kernel(const float* __restrict__ mags, long long ms_s,
 // Frames loaded ahead: 32 where few warps share an SM (each must keep many
 // loads in flight to cover the memory's latency), 8 where many do (and for
 // a few frames).  Measured on an H100 80GB HBM3 at 700 W
-// (port_tools/kernel_turns.py, probes ahead8/16/32): at
-// S = 1 x N = 4,096, 126 cycles a frame at 32 against 132 at 16 and 156 at
-// 8; at the full step's call 0.216 ms at 8 against 0.252 at 16 and 0.277
-// at 32; at the segmented step 13.9 us at 8 against 13.5 at 16.
+// (port_tools/kernel_turns.py, AHEAD fixed by its ahead8 / ahead32
+// probes): at S = 1 x N = 4,096, 126 cycles a frame at 32 against 156 at
+// 8; at the full step's call 0.216 ms at 8 against 0.277 at 32.
 bool deep_ahead(long long warps, int N) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return N > 8 && warps <= 4LL * sms;
-}
-
-// The chain bound, a measurement (chip_smoke.py phase 3,
-// port_tools/kernel_turns.py): one warp a block, block j running bins
-// [32 j, 32 j + 32) of one stream over its N frames from shared memory,
-// CHAIN_TILE frames at a time, so that only the frame body's own latency
-// and issue are timed (clock64 around each tile's loop).  The state
-// starts initialized.
-constexpr int CHAIN_TILE = 256;
-
-__global__ void __launch_bounds__(32)
-noise_floor_chain_kernel(const float* __restrict__ mags, long long ms_n,
-                         const float* __restrict__ gf,
-                         const float* __restrict__ floor0,
-                         const float* __restrict__ prev0,
-                         const float* __restrict__ vol0,
-                         float* __restrict__ floor1,
-                         long long* __restrict__ cycles, int N, int B) {
-  __shared__ float sm[CHAIN_TILE][32];
-  __shared__ float sg[CHAIN_TILE];
-  const int lane = threadIdx.x;
-  const int b = blockIdx.x * 32 + lane;
-  const bool live = b < B;
-  float floor = live ? floor0[b] : 0.0f, prev = live ? prev0[b] : 0.0f;
-  float vol = live ? vol0[b] : 0.0f;
-  long long total = 0;
-  for (int t0 = 0; t0 < N; t0 += CHAIN_TILE) {
-    const int n = min(CHAIN_TILE, N - t0);
-    for (int f = 0; f < n; ++f)
-      sm[f][lane] = live ? mags[(t0 + f) * ms_n + b] : 0.0f;
-    for (int f = lane; f < n; f += 32) sg[f] = gf[t0 + f];
-    __syncwarp();
-    const long long c0 = clock64();
-#pragma unroll 8
-    for (int f = 0; f < n; ++f) {
-      floor_step(sm[f][lane], floor, prev, vol, live);
-      sm[f][lane] = min_nan(floor, __fmul_rn(sg[f], EFFECTIVE_SCALE));
-    }
-    __syncwarp();
-    total += clock64() - c0;
-  }
-  if (live) floor1[b] = floor;
-  if (lane == 0) cycles[blockIdx.x] = total;
 }
 
 }  // namespace
@@ -410,40 +316,12 @@ int aat_noise_floor_scan(const float* mags, long long ms_s, long long ms_n,
   noise_floor_kernel<A><<<grid, WARPS * 32, 0, st>>>(                       \
       mags, ms_s, ms_n, gf, floor0, prev0, vol0, init0, eff, floor1, prev1, \
       vol1, init1, S, N, B, H, width, W)
-#ifdef K5_AHEAD                      // a probe build's
-  K5_LAUNCH(K5_AHEAD);
-#else
   if (deep_ahead(warps, N))
     K5_LAUNCH(32);
   else
     K5_LAUNCH(8);
-#endif
 #undef K5_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
-
-// The chain bound's measurement: mags [N, >= B] at row stride ms_n, gf
-// [N], the state [B]; cycles [ceil(B / 32)] (each warp's clock64 cycles
-// over all N frames), floor1 [B].
-int aat_noise_floor_chain(const float* mags, long long ms_n, const float* gf,
-                          const float* floor0, const float* prev0,
-                          const float* vol0, float* floor1,
-                          long long* cycles, int N, int B, void* stream) {
-  noise_floor_chain_kernel<<<(B + 31) / 32, 32, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      mags, ms_n, gf, floor0, prev0, vol0, floor1, cycles, N, B);
-  return static_cast<int>(cudaGetLastError());
-}
-
-#ifdef K5_COUNTS
-// The counts since the last call (N_COUNTS of them, into host memory),
-// then zeroed.
-int aat_noise_floor_counts(unsigned long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, k5_counts, sizeof(k5_counts));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned long long zero[N_COUNTS] = {};
-  return static_cast<int>(cudaMemcpyToSymbol(k5_counts, zero, sizeof(zero)));
-}
-#endif
 
 }  // extern "C"

@@ -109,26 +109,3 @@ def noise_floor_scan(state, mags, global_floor, band: int):
     LAUNCHES += 1
     return out, eff
 
-
-def chain_cycles(mags, gf, band: int, fn=None) -> list:
-    """K5's chain bound on one stream, a measurement: mags [N, >= band] and
-    gf [N] on the card; frames 1 .. N-1 from the state the first-frame
-    rule leaves, each warp of 32 bins alone on its SM with its frames in
-    shared memory (`aat_noise_floor_chain`, or `fn`, another build's) →
-    each warp's clock64 cycles a frame, of the second of two runs."""
-    fn = fn or _build.lib().aat_noise_floor_chain
-    dev = mags.device
-    floor = torch.maximum(mags[0, :band], gf[0] * 5.0).contiguous()
-    prev = mags[0, :band].contiguous()
-    vol = torch.zeros(band, device=dev)
-    out = torch.empty(band, device=dev)
-    cycles = torch.zeros((band + 31) // 32, dtype=torch.int64, device=dev)
-    n = mags.shape[0] - 1
-    for _ in range(2):
-        _build.check(fn(mags[1:].data_ptr(), mags.stride(0),
-                        gf[1:].data_ptr(), floor.data_ptr(), prev.data_ptr(),
-                        vol.data_ptr(), out.data_ptr(), cycles.data_ptr(), n,
-                        band, ctypes.c_void_p(_build.stream_ptr(mags))),
-                     "aat_noise_floor_chain")
-        torch.cuda.synchronize()
-    return [c / n for c in cycles.tolist()]

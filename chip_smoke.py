@@ -52,9 +52,10 @@ Phases, one line each on standard output:
             and at full width (band=None); timed at S=128 x N=64 alone and
             through the wrapper with the 1,025-wide state (the kernel
             writes the state above the band), and at S=1 x N=4096, with
-            its share of the byte bound and at S=1 of its chain bound (one
-            warp of 32 bins alone, its frames in shared memory:
-            `hopper_noisefloor.chain_cycles`); the plain scan timed once at
+            its share of the byte bound and at S=1 beside its chain bound
+            (port_tools/k5_chain.py, built beside the package: the floor
+            recurrence alone, one warp of 32 bins, its frames in shared
+            memory); the plain scan timed once at
             S=128 x N=64;
   4. the main path: `segmented_pitch_analysis` over a 30-minute mixed scene at
      the default geometry (128 segments x 64-frame chunks), cold then warm, with
@@ -112,7 +113,9 @@ Phases, one line each on standard output:
      quiet sections, each timed there beside its plain version and bound; `make_batched_full_step(None, 48000.0)` over 128 streams x 3
      chained chunks of 9.98 s: host ms a step, seconds of audio a wall
      second, K3-K7 and K10 launched once a step each (asserted), no plain scan
-     step, a profiled step (CUDA kernels, card-busy ms, idle share); K10
+     step, the port's kernels in a step by CUDA events, and the step's
+     CUDA kernels, card-busy ms and idle share under torch.profiler in a
+     process of its own (port_tools/fullstep_profile.py); K10
      at the step's call (119,424 frames) bitwise to the plain extraction
      and timed beside its bound (and achieved GB/s), the plain
      extraction's card time by
@@ -120,7 +123,7 @@ Phases, one line each on standard output:
      ops around K2, K2 by CUDA events); K5 at the step's call (128 x 933
      frames of 1,025-float rows, band 426) from the first step's fresh
      state and from the state it leaves, bitwise to the plain scan, timed
-     beside its bound and the profiled step's K5 events; the
+     beside its bound and its events in the step; the
      gates: one stream's bits equal at B = 1, 33 and 128, hist against
      exact AGC on the 25 s scene (>= 99.9% of pitch frames, fired
      identical), card against CPU (2 streams x 2 s), each of 8 streams
@@ -1401,12 +1404,12 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         f"step each, K2 0), plain scan steps 0, plain extractions 0; global floor "
         f"{float(last.global_noise_floor_db):.2f} dB, "
         f"{int(last.global_onset_count)} onsets in the last step")
-    # A profiled step.  torch.profiler does not always see the kernels
-    # launched from the port's own library (it missed them after phases
-    # 10-11 in one process), so each launch call into the library is
-    # bracketed by a pair of CUDA events (the wrappers' torch ops stay
-    # outside them), and the profiler's busy time counts every other kernel.
-    from torch.profiler import ProfilerActivity, profile
+    # The step's card time.  Each launch call into the port's library is
+    # bracketed by a pair of CUDA events over one step (the wrappers' torch
+    # ops stay outside them).  torch's kernels come from torch.profiler in
+    # a process of its own (port_tools/fullstep_profile.py, the same fleet
+    # and step): in this one, after phases 10-11's profiles, it saw only
+    # 22-28 of the step's 43-50 torch kernels.
     from audio_analyzer_rs_tpu_torch import _build
     lib = _build.lib()
     ours = {"aat_extract": "extraction", "aat_tracker_select": "tracker",
@@ -1427,50 +1430,49 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
     originals = {fn: getattr(lib, fn) for fn in ours}
     for fn, name in ours.items():
         setattr(lib, fn, timed(name, originals[fn]))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step(st, chunks[0])
-            torch.cuda.synchronize()
+        step(st, chunks[0])
+        torch.cuda.synchronize()
     finally:
         for fn in ours:
             setattr(lib, fn, originals[fn])
-    prof_s = time.perf_counter() - t0
     assert sorted(name for name, _, _ in spans) == sorted(ours.values())
     port_ms = {name: b.elapsed_time(e) for name, b, e in spans}
-    own = ("reducer_kernel", "dynamics_sums_kernel", "dynamics_hist_kernel",
-           "dynamics_exact_kernel", "dynamics_gain_kernel",
-           "noise_floor_kernel", "onset_kernel", "tracker_select_kernel",
-           "extract_kernel")
-    kern = [ev for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA
-            and not any(k in ev.key for k in own)]
-    torch_us = sum(getattr(ev, "self_device_time_total",
-                           getattr(ev, "self_cuda_time_total", 0))
-                   for ev in kern)
-    busy_ms = torch_us / 1e3 + sum(port_ms.values())
-    assert busy_ms <= med * 1e3, (busy_ms, med)
-    top = sorted(kern, key=lambda ev: -getattr(
-        ev, "self_device_time_total", 0))[:6]
-    say(f"fullstep: profiled step: {sum(ev.count for ev in kern)} torch CUDA "
-        f"kernels, busy {torch_us / 1e3:.2f} ms; the port's kernels (CUDA "
-        f"events around each library launch) "
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "port_tools" / "fullstep_profile.py"),
+         "--profiles", "3"], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    profs = fresh["profiles"]
+    n_torch = [p["torch_kernels"] for p in profs]
+    # A profile is taken whole where every one saw cuFFT's kernels and
+    # the same count, and its kernels fit inside the profiled step.
+    whole = (all(p["saw_fft"] for p in profs) and len(set(n_torch)) == 1
+             and all(p["card_busy_ms"] <= p["profiled_step_ms"]
+                     for p in profs))
+    busy = statistics.median(p["card_busy_ms"] for p in profs)
+    busy_text = (f"card busy {busy:.2f} ms against the step's "
+                 f"{fresh['step_ms']:.2f} ms by CUDA events "
+                 f"({1 - busy / fresh['step_ms']:.1%} idle)" if whole
+                 else f"card busy not measured (the profiles disagree: "
+                 f"torch kernels {n_torch})")
+    say(f"fullstep: the port's kernels in one step (CUDA events around "
+        f"each library launch) "
         + ", ".join(f"{k} {v:.3f}" for k, v in port_ms.items())
-        + f" ms; card busy {busy_ms:.2f} ms against the {med * 1e3:.1f} ms "
-        f"warm step ({1 - busy_ms / (med * 1e3):.1%} idle; "
-        f"{prof_s * 1e3:.0f} ms under the profiler); top torch kernels: "
-        + "; ".join(f"{ev.key[:40]} x{ev.count} "
-                    f"{getattr(ev, 'self_device_time_total', 0) / 1e3:.2f} ms"
-                    for ev in top))
-    del prof, kern
+        + f" ms; in a fresh process (port_tools/fullstep_profile.py, 3 "
+        f"profiles): {'/'.join(map(str, n_torch))} torch CUDA kernels, "
+        f"{statistics.median(p['torch_card_ms'] for p in profs):.2f} ms, "
+        f"the port's {profs[0]['port_kernels']}, "
+        f"{statistics.median(p['port_card_ms'] for p in profs):.2f} ms; "
+        f"{busy_text}, {med * 1e3:.1f} ms by this process's host clock; "
+        f"top torch kernels: " + "; ".join(profs[0]["top"]))
 
     # K10 at the full step's call (128 streams x 933 frames, full-width
     # magnitudes, banded floors), held against the plain extraction and
     # timed; the plain extraction's card time from torch.profiler, and
     # that of the path K10 took over: the same torch ops around K2 (K2 by
     # CUDA events).
+    from torch.profiler import ProfilerActivity, profile
     seen, seen_k5 = [], []
     extract_pitches = pitch.extract_pitches
     floor_scan = noisefloor.noise_floor_scan
@@ -1601,7 +1603,7 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         f"{k5_step_bytes / 1e6:.1f} MB), achieved "
         f"{k5_step_bytes / k5_step_ms['carried'] / 1e6:.0f} GB/s "
         f"({k5_step_bound / k5_step_ms['carried']:.1%} of the bound); the "
-        f"profiled step's K5 {k5_events:.4f} ms by its events")
+        f"step's K5 {k5_events:.4f} ms by its events")
     row_of(rows, "K5").update(
         full_step_ms=k5_step_ms["carried"],
         full_step_fresh_ms=k5_step_ms["fresh"],
@@ -2049,11 +2051,11 @@ TWO_RANK_SECONDS = 60.0           # the scene's first minute, segmented
 TWO_RANK_TIMEOUT_S = 300.0
 
 
-def _probe():
-    """port_tools/gather_probe.py, the probe's twin."""
+def _tool(name: str):
+    """port_tools/<name>.py as a module."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "gather_probe", REPO / "port_tools" / "gather_probe.py")
+        name, REPO / "port_tools" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2067,7 +2069,7 @@ def gather_phase(rows) -> None:
     import numpy as np
     import torch
     from audio_analyzer_rs_tpu_torch.ops import gather, hopper_gather
-    probe = _probe()
+    probe = _tool("gather_probe")    # the probe's twin
     hopper_gather.LAUNCHES_K8 = hopper_gather.LAUNCHES_K9 = 0
     res = probe.check_cases(say=lambda line: say(f"gather: {line}"))
     launches = (hopper_gather.LAUNCHES_K8, hopper_gather.LAUNCHES_K9)
@@ -2317,10 +2319,13 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     say(f"card: {card}")
 
-    # 2. Build every kernel from csrc/.
+    # 2. Build every kernel from csrc/, and K5's chain probe beside them.
     t0 = time.perf_counter()
+    k5_chain = _tool("k5_chain")
+    chain_build = k5_chain.start_build()
     lib_path, log = _build.build()
     _build.lib()
+    chain_lib = k5_chain.finish_build(chain_build)
     say(f"build: {time.perf_counter() - t0:.1f} s "
         f"({'nvcc ran' if log else 'cached'}) -> {lib_path.name}")
     for line in log.splitlines():
@@ -2657,9 +2662,10 @@ def main() -> int:
     k5_bytes = (2 * s5 * n5f * kc * 4 + nbytes(gf)
                 + 2 * (3 * s5 * kc * 4 + s5))
     k5_bound, k5_by = bound(k5_bytes, 30 * s5 * n5f * kc, FP32_FLOPS)
-    # At S=1 the bound is each bin's chain: one warp of 32 bins alone on
-    # its SM, its frames in shared memory (the slowest warp sets the time).
-    chain = hopper_noisefloor.chain_cycles(mags_seq5[0], gf_seq5[0], kc)
+    # At S=1 the bound is each bin's floor recurrence: one warp of 32 bins
+    # alone on its SM, its frames in shared memory (the slowest warp sets
+    # the time).
+    chain = k5_chain.chain_cycles(chain_lib, mags_seq5[0], gf_seq5[0], kc)
     k5_cycles_seq = k5_ms_seq / n_seq5 * 1e6 * k5_clock.mhz / 1e3
     say(f"K5 noise floor: bitwise equal to the plain scan (effective floors "
         f"and the final state) on the step's K1 magnitudes "
@@ -2670,10 +2676,10 @@ def main() -> int:
         f"{k5_wrapper_ms * 1e3:.2f} us through the wrapper with the "
         f"{half}-wide state (the tail written by the kernel); S=1 "
         f"N={n_seq5} {k5_ms_seq:.4f} ms, a frame "
-        f"{k5_clock.cycles(k5_ms_seq / n_seq5 * 1e6)}, chain bound "
-        f"{max(chain):.1f} cycles a frame (slowest of {len(chain)} warps; "
-        f"mean {statistics.mean(chain):.1f}), "
-        f"{max(chain) / k5_cycles_seq:.1%} of it; "
+        f"{k5_clock.cycles(k5_ms_seq / n_seq5 * 1e6)}; its chain bound (the "
+        f"floor recurrence alone) {max(chain):.1f} cycles a frame (slowest "
+        f"of {len(chain)} warps; mean {statistics.mean(chain):.1f}), "
+        f"{max(chain) / k5_cycles_seq:.1%} of the kernel's; "
         f"plain {k5_plain_ms:.1f} ms at S=128 N=64 (one sample, ~30 "
         f"launches a frame); bound {k5_bound * 1e3:.2f} us ({k5_by}: "
         f"{k5_bytes / 1e6:.1f} MB)")

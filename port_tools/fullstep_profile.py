@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""The full step's kernels and card time, profiled in a process of its own.
+
+    python3 port_tools/fullstep_profile.py [--profiles 3]
+
+`make_batched_full_step` over chip_smoke.py phase 12's fleet (128 streams
+of the 30-minute `mixed_scene(seed=0)` taken as 48 kHz audio, a stream
+every 600,000 samples, 468-slot chunks on the card): the first two steps
+from fresh states, then the second step again from the states the first
+leaves, timed by CUDA events around it (median of 20 steps) and run
+`--profiles` times under torch.profiler, each its own session, the step
+20 ms into it and bracketed by CUDA events.  Prints the card's name and
+power limit, then one JSON line: the step's ms, and for each profile
+torch's CUDA kernels and their card ms, the port's (csrc/*.cu) and theirs,
+K5's, the card's busy ms against the profiled step's ms, and the top
+torch kernels.  Exits 2 without a CUDA device.
+
+torch.profiler has lost kernels in a process that profiled before:
+chip_smoke.py's phase 12, after phases 10-11's profiles, saw 22-28 of
+the step's 43-50 torch kernels.  chip_smoke.py runs this script for the
+step's card time, and port_tools/kernel_turns.py --kernel k5 calls
+`profile_step` with each K5 build.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+SR44 = 44100.0
+# The port's own kernels among the profiler's (csrc/*.cu).
+OWN_KERNELS = ("reducer_kernel", "dynamics_", "noise_floor_kernel",
+               "onset_kernel", "tracker_select_kernel", "extract_kernel",
+               "stft_mag_kernel", "comb_kernel")
+
+
+def fleet_step(dev, capture=None):
+    """The step and chip_smoke.py phase 12's fleet; runs steps 1 and 2
+    (`capture`, a list, gets each K5 call's arguments) → (the step, the
+    states after step 1, step 2's chunk)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from audio_analyzer_rs_tpu_torch.models import generators as gen
+    from audio_analyzer_rs_tpu_torch.ops import noisefloor
+    from audio_analyzer_rs_tpu_torch.parallel import sharding
+    audio = gen.mixed_scene(1800.0, SR44, seed=0)
+    t_chunk = chip_smoke.FULL_SLOTS * 1024
+    fleet = np.stack([audio[k * 600_000:k * 600_000 + 2 * t_chunk]
+                      for k in range(chip_smoke.FULL_B)])
+    chunks = [torch.from_numpy(fleet[:, k * t_chunk:(k + 1) * t_chunk]
+                               .copy()).to(dev) for k in range(2)]
+    step = sharding.make_batched_full_step(None, chip_smoke.FULL_SR)
+    scan = noisefloor.noise_floor_scan
+
+    def record(*args):
+        capture.append(args)
+        return scan(*args)
+    if capture is not None:
+        noisefloor.noise_floor_scan = record
+    try:
+        st1, _ = step(sharding.init_stream_states(chip_smoke.FULL_B),
+                      chunks[0])
+        step(st1, chunks[1])
+    finally:
+        noisefloor.noise_floor_scan = scan
+    torch.cuda.synchronize()
+    return step, st1, chunks[1]
+
+
+def profile_step(step, st, chunk, call=None, profiles: int = 1) -> dict:
+    """step(st, chunk) timed by CUDA events, then under torch.profiler
+    `profiles` times; `call`, if given, is the step's K5 call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from audio_analyzer_rs_tpu_torch.ops import noisefloor
+    real = noisefloor.noise_floor_scan
+    if call is not None:
+        noisefloor.noise_floor_scan = call
+    runs = []
+    try:
+        step_ms = statistics.median(chip_smoke.cuda_times(
+            lambda: step(st, chunk)))
+        for _ in range(profiles):
+            torch.cuda.synchronize()
+            begin = torch.cuda.Event(enable_timing=True)
+            done = torch.cuda.Event(enable_timing=True)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.02)
+                begin.record()
+                step(st, chunk)
+                done.record()
+                torch.cuda.synchronize()
+            runs.append((prof.key_averages(), begin.elapsed_time(done)))
+    finally:
+        noisefloor.noise_floor_scan = real
+
+    def ms(group):
+        return sum(ev.self_device_time_total for ev in group) / 1e3
+    out = []
+    for averages, span_ms in runs:
+        evs = [ev for ev in averages
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        own = [ev for ev in evs if any(k in ev.key for k in OWN_KERNELS)]
+        torch_k = [ev for ev in evs if ev not in own]
+        top = sorted(torch_k, key=lambda ev: -ev.self_device_time_total)
+        out.append({
+            "saw_fft": any("fft" in ev.key.lower() for ev in evs),
+            "torch_kernels": sum(ev.count for ev in torch_k),
+            "torch_card_ms": ms(torch_k),
+            "port_kernels": sum(ev.count for ev in own),
+            "port_card_ms": ms(own),
+            "k5_card_ms": ms(ev for ev in own
+                             if "noise_floor_kernel" in ev.key),
+            "card_busy_ms": ms(evs), "profiled_step_ms": span_ms,
+            "top": [f"{ev.key[:48]} x{ev.count} "
+                    f"{ev.self_device_time_total / 1e3:.3f} ms"
+                    for ev in top[:6]]})
+    return {"step_ms": step_ms, "profiles": out}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profiles", type=int, default=3)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("fullstep_profile: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    step, st, chunk = fleet_step(torch.device("cuda"))
+    print(json.dumps(profile_step(step, st, chunk,
+                                  profiles=args.profiles)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

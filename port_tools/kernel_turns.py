@@ -27,12 +27,16 @@ of a source, which is only timed (a probe need not be right):
   nophase2 the tiled design: the bin warps skip the frame reductions;
   noguard  K4: `div_guarded` is the bare IEEE division again (zero
            numerators take the division's slow path);
-  ahead8, ahead16, ahead32
-           K5 with the frames loaded ahead fixed (`-DK5_AHEAD`);
-  counts   K5's step counts (`-DK5_COUNTS`) at every case: steps, rising
-           steps, IEEE divisions, the rising steps whose `vn` counts, vn's
-           shortcuts, subnormal volatilities, warp-frames with a rising
-           lane or a division (not timed).
+  nobranch K5: vn's division on every step, no branch (a numerator of 1
+           where the magnitude does not rise, whose quotient is not read);
+  ahead8, ahead32
+           K5 with the frames loaded ahead fixed at 8 or 32;
+  counts   K5's step counts at every case (not timed): steps, IEEE
+           divisions (on live lanes), those whose numerator is zero or
+           subnormal (the division's slow path), subnormal volatilities,
+           warp-frames, warp-frames where any lane divides (lanes past the
+           band included) and where a live lane does, and the divisions of
+           the lanes past the band.
 Probes join with "+" (`new:nophase1+nophase2`: the chain warp alone).  A
 probe whose text does not fit the source stops the script.
 
@@ -57,13 +61,16 @@ rows, band 426, the 1,025-wide state carried from the first step:
 timed); the live slot [1, 2, 426] and the pool wave [33, 2, 426], states
 carried.  Each is timed through the call (`ms`) and as the C launch alone
 with its outputs allocated once (`kernel_ms`), with its byte bound and
-achieved GB/s, and at S=1 cycles a frame.  Then each source that has
-K5's chain entry (`aat_noise_floor_chain`: one warp a block of 32 bins
-runs the S=1 chunk's frames from shared memory, clock64 around the frame
-loop) gives its chain bound: cycles a frame, mean and largest over the
-warps, on the scene and on random magnitudes.  Cycles at the SM clock
-nvidia-smi samples while the launches run (chip_smoke.py `SmClock`).  One
-JSON object a line.
+achieved GB/s, and at S=1 cycles a frame.  Then the full step itself
+with each build as its K5 call, in turns (port_tools/fullstep_profile.py
+`profile_step`): torch's and the port's CUDA kernels a step and their
+card ms under torch.profiler, K5's, and the step's ms by CUDA events.
+Then K5's chain bound
+(port_tools/k5_chain.py: the floor recurrence alone, one warp a block of 32
+bins running the S=1 chunk's frames from shared memory, clock64 around the
+frame loop): cycles a frame, mean and largest over the warps, on the scene
+and on random magnitudes.  Cycles at the SM clock nvidia-smi samples while
+the launches run (chip_smoke.py `SmClock`).  One JSON object a line.
 """
 
 from __future__ import annotations
@@ -79,6 +86,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO / "port_tools"))
 OUT_DIR = REPO / "_proof" / "kernel_turns"
 SR = 44100.0
 
@@ -96,10 +104,51 @@ PROBES = {
     "noguard": [(r"const float q = __fdiv_rn\(n == 0\.0f \? 1\.0f : n, d\);"
                  r"\s*return n == 0\.0f \? n : q;",
                  "return __fdiv_rn(n, d);")],
+    "nobranch": [(r"if \(rising\) q = __fdiv_rn\(v, ",
+                  "q = __fdiv_rn(rising ? v : 1.0f, ")],
+    "ahead8": [(r"if \(deep_ahead\(warps, N\)\)", "if (false)")],
+    "ahead32": [(r"if \(deep_ahead\(warps, N\)\)", "if (true)")],
 }
-# Probes made by a compiler definition the source reads.
-DEFINES = {"counts": "K5_COUNTS", "ahead8": "K5_AHEAD 8",
-           "ahead16": "K5_AHEAD 16", "ahead32": "K5_AHEAD 32"}
+# K5's counts probe: the counters and their C entry around the source, and
+# a count after each frame's division.
+K5_COUNT_NAMES = ("steps", "divisions", "div_tiny_numerator", "subnormal_v",
+                  "warp_frames", "warp_frames_dividing",
+                  "warp_frames_dividing_live", "dead_lane_divisions")
+K5_COUNTS_HEAD = """#include <cuda_runtime.h>
+__device__ unsigned long long k5_counts[8];
+__device__ __forceinline__ void k5_count(bool live, bool rising, float v) {
+  const unsigned act = __activemask();
+  const bool tiny = fabsf(v) < 0x1p-126f;
+  unsigned long long add[8];
+  add[0] = __popc(__ballot_sync(act, live));
+  add[1] = __popc(__ballot_sync(act, live && rising));
+  add[2] = __popc(__ballot_sync(act, live && rising && tiny));
+  add[3] = __popc(__ballot_sync(act, live && tiny && v != 0.0f));
+  add[4] = 1;
+  add[5] = __ballot_sync(act, rising) != 0;
+  add[6] = __ballot_sync(act, live && rising) != 0;
+  add[7] = __popc(__ballot_sync(act, !live && rising));
+  if ((threadIdx.x & 31) == __ffs(act) - 1)
+    for (int i = 0; i < 8; ++i)
+      if (add[i]) atomicAdd(&k5_counts[i], add[i]);
+}
+"""
+K5_COUNTS_TAIL = """
+extern "C" int aat_noise_floor_counts(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, k5_counts, sizeof(k5_counts));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[8] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(k5_counts, zero, sizeof(zero)));
+}
+"""
+PROBES["counts"] = [
+    (r"\A", K5_COUNTS_HEAD),
+    (r"float& vol\) \{", "float& vol, bool live) {"),
+    (r"floor_step\(m\[u\], floor, prev, vol\)",
+     "floor_step(m[u], floor, prev, vol, live)"),
+    (r"(\n\s*)(const bool sustained)", r"\1k5_count(live, rising, v);\1\2"),
+    (r"\Z", K5_COUNTS_TAIL),
+]
 
 
 def probe_source(text: str, names: str) -> str:
@@ -109,11 +158,6 @@ def probe_source(text: str, names: str) -> str:
 
 
 def _probe(text: str, name: str) -> str:
-    if name in DEFINES:
-        macro = DEFINES[name].split()[0]
-        if f"#ifdef {macro}" not in text and f"#ifndef {macro}" not in text:
-            sys.exit(f"kernel_turns: probe {name} does not fit its source")
-        return f"#define {DEFINES[name]}\n{text}"
     for pat, rep in PROBES[name]:
         text, n = re.subn(pat, rep, text, flags=re.S)
         if n == 0:
@@ -218,41 +262,10 @@ def k5_argtypes(new_api: bool):
     return sig if new_api else sig[:-2] + sig[-1:]
 
 
-def k5_fullstep_calls(dev):
-    """The K5 calls of `make_batched_full_step`'s first two steps over
-    chip_smoke.py phase 12's fleet (128 streams of the 30-minute scene as
-    48 kHz audio, 468-slot chunks) → [(state, mags, global floor, band)]
-    of step 1 (a fresh state) and step 2 (carried)."""
-    import numpy as np
-    import torch
-    import chip_smoke
-    from audio_analyzer_rs_tpu_torch.models import generators as gen
-    from audio_analyzer_rs_tpu_torch.ops import noisefloor
-    from audio_analyzer_rs_tpu_torch.parallel import sharding
-    audio = gen.mixed_scene(1800.0, SR, seed=0)
-    t_chunk = chip_smoke.FULL_SLOTS * 1024
-    fleet = np.stack([audio[k * 600_000:k * 600_000 + 2 * t_chunk]
-                      for k in range(chip_smoke.FULL_B)])
-    step = sharding.make_batched_full_step(None, chip_smoke.FULL_SR)
-    seen, scan = [], noisefloor.noise_floor_scan
-
-    def capture(*args):
-        seen.append(args)
-        return scan(*args)
-    noisefloor.noise_floor_scan = capture
-    try:
-        st = sharding.init_stream_states(chip_smoke.FULL_B)
-        for k in range(2):
-            st, _ = step(st, torch.from_numpy(
-                fleet[:, k * t_chunk:(k + 1) * t_chunk].copy()).to(dev))
-    finally:
-        noisefloor.noise_floor_scan = scan
-    torch.cuda.synchronize()
-    return seen
-
-
-def k5_cases(dev) -> dict:
-    """name → (state, mags, global floor, band)."""
+def k5_cases(dev) -> tuple:
+    """(the full step, its states after step 1, step 2's chunk), {name →
+    (state, mags, global floor, band)}."""
+    import fullstep_profile
     import numpy as np
     import torch
     from audio_analyzer_rs_tpu_torch.ops import noisefloor, pitch
@@ -294,8 +307,10 @@ def k5_cases(dev) -> dict:
         noisefloor.init_state(half, dev, (33,)), big[:33, :10],
         gf_of(big[:33, :10]), kc48)
     fresh1 = noisefloor.init_state(half, dev, (1,))
-    (fs_fresh, fs) = k5_fullstep_calls(dev)
-    return {
+    seen = []
+    step_ctx = fullstep_profile.fleet_step(dev, seen)
+    fs_fresh, fs = seen
+    return step_ctx, {
         "main": (carried, big, gf_of(big), kc),
         "main_alone": (noisefloor.init_state(kc, dev, (128,)), big,
                        gf_of(big), kc),
@@ -326,12 +341,16 @@ def k5_main(args, texts: dict) -> int:
     import chip_smoke
     from audio_analyzer_rs_tpu_torch import _build
     from audio_analyzer_rs_tpu_torch.ops import hopper_noisefloor, noisefloor
+    import fullstep_profile
+    import k5_chain
     dev = torch.device("cuda")
-    cases = k5_cases(dev)          # the package's library runs the step
+    chain_build = k5_chain.start_build()
+    step_ctx, cases = k5_cases(dev)  # the package's library runs them
     torch.cuda.synchronize()
     with ThreadPoolExecutor(len(texts)) as pool:
         built = dict(zip(texts, pool.map(lambda kv: build(*kv),
                                          texts.items())))
+    chain_lib = k5_chain.finish_build(chain_build)
     libs, apis = {}, {}
     for label, (path, _) in built.items():
         apis[label] = k5_new_api(texts[label])
@@ -441,23 +460,24 @@ def k5_main(args, texts: dict) -> int:
             emit({**row, "sm_mhz": clock.mhz, "sm_clock": clock.source,
                   "card": card})
 
-    for label in (k for k in timed_labels if apis[k]):
-        fn = libs[label].aat_noise_floor_chain
-        fn.argtypes = _build._SIGNATURES["aat_noise_floor_chain"]
-        fn.restype = ctypes.c_int
-        for name in ("s1_scene", "s1_random"):
-            _, mags, gf, band = cases[name]
-            cyc = hopper_noisefloor.chain_cycles(mags[0], gf[0], band, fn)
-            emit({"chain": label, "case": name,
-                  "frames": mags.shape[1] - 1, "warps": len(cyc),
-                  "cycles_a_frame_mean": sum(cyc) / len(cyc),
-                  "cycles_a_frame_max": max(cyc),
-                  "cycles_a_frame_min": min(cyc)})
+    # The full step with each build's K5 call, in turns.
+    for r in range(args.rounds):
+        order = timed_labels if r % 2 == 0 else timed_labels[::-1]
+        for label in order:
+            emit({"fullstep": label, "turn": r,
+                  **fullstep_profile.profile_step(
+                      *step_ctx, lambda *a, label=label: scan(label, *a))})
 
-    names = ("steps", "rising", "ieee_divisions", "vn_needed",
-             "vn_shortcut", "subnormal_v", "warp_frames",
-             "warp_frames_rising", "warp_frames_dividing",
-             "div_tiny_numerator")
+    for name in ("s1_scene", "s1_random"):
+        _, mags, gf, band = cases[name]
+        cyc = k5_chain.chain_cycles(chain_lib, mags[0], gf[0], band)
+        emit({"chain": "floor recurrence", "case": name,
+              "frames": mags.shape[1] - 1, "warps": len(cyc),
+              "cycles_a_frame_mean": sum(cyc) / len(cyc),
+              "cycles_a_frame_max": max(cyc),
+              "cycles_a_frame_min": min(cyc)})
+
+    names = K5_COUNT_NAMES
     for label in (k for k in texts if k.endswith("-counts")):
         lib = libs[label]
         lib.aat_noise_floor_counts.argtypes = (ctypes.c_void_p,)
@@ -474,8 +494,10 @@ def k5_main(args, texts: dict) -> int:
             counts = dict(zip(names, (int(x) for x in buf)))
             emit({"counts": label, "case": name, "bitwise_to_plain": same,
                   **counts,
-                  "dividing_share": counts["ieee_divisions"]
-                  / max(1, counts["steps"])})
+                  "dividing_share": counts["divisions"]
+                  / max(1, counts["steps"]),
+                  "warp_frames_dividing_share": counts["warp_frames_dividing"]
+                  / max(1, counts["warp_frames"])})
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("\n".join(json.dumps(x) for x in lines) + "\n")

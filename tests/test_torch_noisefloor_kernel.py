@@ -1,5 +1,6 @@
 """Kernel K5's algorithm (csrc/noisefloor.cu), transcribed to numpy, against
-the plain floor scan, bitwise; the exactness of its shortcuts; and the
+the plain floor scan, bitwise; the exactness of its shortcut; the chain
+probe's recurrence against the kernel's (port_tools/k5_chain.cu); and the
 wrapper's argument checks.
 
 `kernel_np` is what one stream's lanes of K5 do, run for all bins at once:
@@ -40,11 +41,11 @@ SOURCE = (Path(tnf.__file__).resolve().parent.parent / "csrc"
           / "noisefloor.cu")
 
 
-def kernel_constants() -> dict:
+def kernel_constants(source=SOURCE) -> dict:
     """`constexpr float NAME = <hex>f;` of csrc/noisefloor.cu."""
     pat = re.compile(r"constexpr float (\w+) = (0x[0-9a-fA-F.]+p[-+]?\d+)f;")
     return {name: F32(float.fromhex(v))
-            for name, v in pat.findall(SOURCE.read_text())}
+            for name, v in pat.findall(source.read_text())}
 
 
 K = kernel_constants()
@@ -90,10 +91,9 @@ def floor_step_np(m, floor, prev, vol):
         rising = m > floor
         above = above_np(m, np.maximum(floor, K["FLOOR_EPS"]))
         mm = np.maximum(m, K["MAG_EPS"])
-        negligible = np.abs(v) < mm * K["VN_NEGLIGIBLE"]
-        div = rising & ~negligible
-        vn = np.where(negligible, F32(0), np.minimum(np.maximum(
-            div_where(v, mm, div), F32(0)), F32(1))).astype(F32)
+        div = rising
+        vn = np.minimum(np.maximum(div_where(v, mm, div), F32(0)),
+                        F32(1)).astype(F32)
         sustained = rising & above & (vn < K["NOTE_VOL_MAX"])
         alpha = np.where(rising,
                          fma_np(vn, K["FAST_MINUS_BASE"], K["BASE_ALPHA"]),
@@ -167,32 +167,42 @@ def test_kernel_constants_are_the_plain_versions():
         "INIT_SCALE": F32(5.0),
         "EFFECTIVE_SCALE": F32(2.5),
     }
-    bounds = ("RATIO_MIDPOINT", "VN_NEGLIGIBLE")
-    assert K == {**plain, **{name: K[name] for name in bounds}}
+    assert K == {**plain, "RATIO_MIDPOINT": K["RATIO_MIDPOINT"]}
     assert K["FAST_MINUS_BASE"] == F32(tnf._FAST_MINUS_BASE32)
     assert K["BASE_ALPHA"] == F32(tnf._BASE32)
 
 
 def test_shortcut_bounds_are_exact():
-    """The derivations of floor_step's constants (csrc/noisefloor.cu), in
+    """The derivation of floor_step's constant (csrc/noisefloor.cu), in
     exact rationals: RN(q) > 1.5 exactly when q > 1.5 + RATIO_MIDPOINT
     (the midpoint between 1.5 and the next float, a tie rounding to the
-    even 1.5), and vn * 0.31 below half an ulp of 0.04 leaves fmaf(vn,
-    0.31, 0.04) at 0.04."""
+    even 1.5)."""
     q = Fraction
     one_and_a_half = q(float(K["NOTE_RATIO"]))
     assert one_and_a_half == q(3, 2)
     ulp = q(1, 2 ** 23)                     # of floats in [1, 2)
     assert q(float(K["RATIO_MIDPOINT"])) == ulp / 2
     assert np.float32(1.5).view(np.uint32) % 2 == 0      # 1.5 is even
-    base = q(float(K["BASE_ALPHA"]))
-    half_ulp = q(1, 2 ** 29)
-    assert q(1, 2 ** 5) <= base < q(1, 2 ** 4)          # ulp(0.04) = 2^-28
-    assert q(float(K["VN_NEGLIGIBLE"])) * q(float(K["FAST_MINUS_BASE"])) \
-        < half_ulp
-    assert q(float(K["VN_NEGLIGIBLE"])) < q(float(K["NOTE_VOL_MAX"]))
-    assert q(float(K["MAG_EPS"])) * q(float(K["VN_NEGLIGIBLE"])) \
-        >= q(1, 2 ** 126)                   # mm * 2^-28 never underflows
+
+
+def test_chain_probe_runs_the_kernels_floor_recurrence():
+    """port_tools/k5_chain.cu, K5's chain bound, times floor_step's floor
+    recurrence: the same constants, the same residual test and fused
+    update, the max that keeps a NaN, and a rising step's alpha that of
+    vn = 0 (fmaf(0, 0.31, 0.04) = 0.04)."""
+    chain_src = (Path(__file__).resolve().parent.parent / "port_tools"
+                 / "k5_chain.cu")
+    chain = kernel_constants(chain_src)
+    assert chain and all(chain[name] == K[name] for name in chain)
+    assert fma_np(F32(0), K["FAST_MINUS_BASE"], K["BASE_ALPHA"]) \
+        == chain["BASE_ALPHA"]
+    text = chain_src.read_text()
+    for line in ("const bool rising = m > floor;",
+                 "const float d = max_nan(floor, FLOOR_EPS);",
+                 "fmaf(-NOTE_RATIO, d, m) > __fmul_rn(d, RATIO_MIDPOINT);",
+                 "floor = fmaf(alpha, __fsub_rn(m, floor), floor);",
+                 'asm("max.NaN.f32 %0, %1, %2;"'):
+        assert line in text and line in SOURCE.read_text(), line
 
 
 def _f32s(rng, n, lo=-40, hi=40):
@@ -229,41 +239,6 @@ def test_residual_decides_above_exactly():
         want = (m / d).astype(F32) > F32(1.5)
     np.testing.assert_array_equal(above_np(m, d), want)
     assert want.any() and not want.all()
-
-
-def test_negligible_vn_shortcut_is_exact():
-    """Where floor_step skips vn's division (|v| < max(m, 0.05) * 2^-28,
-    m > floor), the plain step's alpha and `vn < 0.15` come out the same:
-    v around the threshold by ulps, zeros of both signs, subnormals,
-    negatives, +-inf, NaN, and m = +inf."""
-    rng = np.random.default_rng(12)
-    n = 100_000
-    m = _f32s(rng, n, -10, 20)
-    m[:4] = [np.inf, np.inf, np.inf, F32(0.03)]
-    mm = np.maximum(m, F32(0.05))
-    v = _ulps((mm * K["VN_NEGLIGIBLE"]).astype(F32),
-              rng.integers(-3, 4, n))
-    v *= np.where(rng.random(n) < 0.3, F32(-1), F32(1))
-    v[:12] = [F32(1.0), -np.inf, np.nan, F32(0.0), -F32(0.0), F32(1e-45),
-              F32(-1e-40), np.inf, -np.inf, np.nan, F32(3e-39), F32(0.0)]
-    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
-        vn = np.clip((v / mm).astype(F32), F32(0), F32(1))
-        want_alpha = fma_np(vn, K["FAST_MINUS_BASE"], K["BASE_ALPHA"])
-        want_quiet = vn < K["NOTE_VOL_MAX"]
-        skip = np.abs(v) < mm * K["VN_NEGLIGIBLE"]
-    assert skip.any() and not skip.all()
-    assert (want_alpha[skip] == K["BASE_ALPHA"]).all()
-    assert want_quiet[skip].all()
-    # Through the step itself (a floor below every m, delta 0 where m is
-    # finite): the step divides exactly where the shortcut does not hold.
-    floor = np.full_like(m, F32(-1.0))
-    with np.errstate(invalid="ignore", over="ignore"):
-        vol = (v / K["VOL_MEMORY"]).astype(F32)
-        _, _, got_v, div_vn = floor_step_np(m, floor, m, vol)
-        same = (got_v == v) | (np.isnan(got_v) & np.isnan(v))
-    assert same[np.isfinite(m)].mean() > 0.5
-    np.testing.assert_array_equal(
-        div_vn[same], ~(np.abs(v) < mm * K["VN_NEGLIGIBLE"])[same])
 
 
 def _assert_bits_nan(got, want, msg=""):
@@ -409,7 +384,8 @@ def edge_cases() -> dict:
                            .astype(F32), b)
 
     # m > floor with a subnormal (or zero) v: floor 0.001, prev = m so
-    # delta is 0, vol subnormal; then a floor held by the ratio.
+    # delta is 0, vol subnormal (vn's division takes its slow path); then
+    # a floor held by the ratio.
     n = 6
     m = rng.uniform(0.02, 2.0, (1, 1, b + 1)).astype(F32)
     mags = np.repeat(m, n, axis=1)
@@ -439,18 +415,20 @@ def test_kernel_np_matches_plain_on_edge_cases(name):
     st, mags, gf, band = EDGE[name]
     counts = {}
     got = assert_kernel_np_matches_plain(st, mags, gf, band, counts)
-    assert counts["div_tiny"] == 0
+    assert counts["div"] == counts["rising"]
     if name == "silence_after_loud":
         vol = got.volatility.numpy()[:, :EDGE_B]
         assert ((vol != 0) & (np.abs(vol) < 2.0 ** -126)).any()
+        assert counts["div_tiny"] == 0
     if name == "rising_with_subnormal_v":
-        assert counts["rising"] > counts["div"]
+        assert counts["div_tiny"] > 0
 
 
 def test_kernel_np_divides_only_where_needed(scene):
     """On a scene (silence and notes), the transcription divides on the
     steps whose magnitude is above the floor only, and never with a zero
-    or subnormal numerator."""
+    or subnormal numerator: the subnormal volatilities of silence fall on
+    steps that do not rise."""
     mags, gf = scene
     mags = np.ascontiguousarray(mags[..., :BAND + 1])
     counts = {}

@@ -49,3 +49,25 @@ def rms_db(rms_linear: torch.Tensor) -> torch.Tensor:
     """Linear → dBFS with the reference's 1e-9 floor (ref
     dynamics.rs:365-368)."""
     return 20.0 * torch.log10(rms_linear.clamp_min(1e-9))
+
+
+# ── NumPy oracle, for the machine without JAX ──────────────────────────
+# A copy of the JAX package's, its source unchanged (float64 or
+# float32 loops that transcribe the Rust reference); it calls nothing
+# of torch.  tests/test_torch_oracles.py holds it to the JAX
+# package's function by syntax tree and by bits.
+
+def feature_pack_np(frames: np.ndarray, mags: np.ndarray, sample_rate: float,
+                    window: int, rolloff_pct: float = 0.85):
+    """Float64 NumPy oracle of `feature_pack`."""
+    half = mags.shape[-1]
+    freqs = np.arange(half) * (sample_rate / window)
+    rms = np.sqrt(np.mean(frames.astype(np.float64) ** 2, axis=-1))
+    energy = mags.sum(axis=-1)
+    centroid = (mags * freqs).sum(axis=-1) / np.maximum(energy, 1e-12)
+    cum = np.cumsum(mags, axis=-1)
+    rolloff_bin = np.argmax(cum >= rolloff_pct * cum[:, -1:], axis=-1)
+    rolloff = rolloff_bin * (sample_rate / window)
+    prev = np.vstack([np.zeros_like(mags[:1]), mags[:-1]])
+    flux = np.maximum(mags - prev, 0.0).sum(axis=-1)
+    return rms, energy, centroid, rolloff, flux

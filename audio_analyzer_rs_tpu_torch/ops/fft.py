@@ -109,3 +109,13 @@ def irfft(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     normalised like `numpy.fft.irfft` (irfft(rfft(x)) == x)."""
     return torch.fft.irfft(torch.complex(re.float(), im.float()),
                            dim=-1).float()
+
+
+# ── NumPy oracle, for the machine without JAX ──────────────────────────
+# A copy of the JAX package's, its source unchanged (float64 or
+# float32 loops that transcribe the Rust reference); it calls nothing
+# of torch.  tests/test_torch_oracles.py holds it to the JAX
+# package's function by syntax tree and by bits.
+
+def rfft_mag_np(frames: np.ndarray) -> np.ndarray:
+    return np.abs(np.fft.rfft(frames.astype(np.float64), axis=-1))

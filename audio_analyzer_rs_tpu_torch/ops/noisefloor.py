@@ -159,3 +159,69 @@ def global_floor_linear(noise_floor_db, half_size: int):
     return np.float32(
         np.float32(10.0) ** (np.float32(noise_floor_db) / np.float32(20.0))
         * np.float32(half_size / 2.0))
+
+
+# ── NumPy oracle, for the machine without JAX ──────────────────────────
+# A copy of the JAX package's, its source unchanged (float64 or
+# float32 loops that transcribe the Rust reference); it calls nothing
+# of torch.  tests/test_torch_oracles.py holds it to the JAX
+# package's function by syntax tree and by bits.
+
+def _fma32(a, b, c):
+    """float32 fused multiply-add emulation: the exact product a*b is
+    representable in float64 (f32 has 24 mantissa bits), so computing
+    a*b + c in float64 and rounding once to float32 reproduces a hardware
+    f32 FMA except in astronomically rare double-rounding ties."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def noise_floor_np(mags: np.ndarray, global_floor: np.ndarray,
+                   fma: bool = False) -> np.ndarray:
+    """[N, H] magnitudes → [N, H] effective floors, float32 loop transcription.
+
+    `fma=False` is the plain transcription (every multiply and add rounds
+    separately, like the reference's Rust f32 expressions without
+    contraction).  `fma=True` contracts the alpha blend and the floor
+    update into fused multiply-adds — the rounding XLA:CPU's LLVM backend
+    actually emits for `_step`.  With fma=True the output is bitwise equal
+    to `noise_floor_scan` at the production banded configuration on the
+    CPU backend (verified over a 25 s mixed scene,
+    tests/test_divergence_proof.py); the two variants differ only at
+    1-ulp scale, which is precisely the fp32 sensitivity the composed
+    divergence tests quantify."""
+    n, h = mags.shape
+    floor = np.zeros(h, dtype=np.float32)
+    prev = np.zeros(h, dtype=np.float32)
+    vol = np.zeros(h, dtype=np.float32)
+    out = np.zeros_like(mags, dtype=np.float32)
+    initialized = False
+    for i in range(n):
+        m = mags[i].astype(np.float32)
+        g = np.float32(global_floor[i])
+        if not initialized:
+            floor = np.maximum(m, g * np.float32(5.0))
+            prev = m.copy()
+            initialized = True
+        else:
+            delta = np.abs(m - prev)
+            vol = vol * np.float32(VOL_MEMORY) + delta * np.float32(1.0 - VOL_MEMORY)
+            prev = m.copy()
+            above = m / np.maximum(floor, np.float32(0.01))
+            vn = np.clip(vol / np.maximum(m, np.float32(0.05)), 0.0, 1.0)
+            sustained = (above > NOTE_RATIO) & (vn < NOTE_VOL_MAX)
+            fast_minus_base = np.float32(FLOOR_FAST_ALPHA - FLOOR_BASE_ALPHA)
+            if fma:
+                alpha_hot = _fma32(fast_minus_base, vn,
+                                   np.float32(FLOOR_BASE_ALPHA))
+                updated = _fma32(np.where(m > floor, alpha_hot,
+                                          np.float32(FLOOR_RELEASE)),
+                                 m - floor, floor)
+            else:
+                alpha_hot = (np.float32(FLOOR_BASE_ALPHA)
+                             + fast_minus_base * vn)
+                alpha = np.where(m > floor, alpha_hot,
+                                 np.float32(FLOOR_RELEASE))
+                updated = floor + alpha * (m - floor)
+            floor = np.where(sustained, floor, updated).astype(np.float32)
+        out[i] = np.minimum(floor, g * np.float32(2.5))
+    return out

@@ -223,3 +223,87 @@ def onset_scan(state: OnsetState, mags: torch.Tensor,
                                        device=mags.device)
     return hopper_onset.onset_scan(state, mags, global_floor,
                                    tick_suppressed, calibration_hold)
+
+
+# ── NumPy oracle, for the machine without JAX ──────────────────────────
+# A copy of the JAX package's, its source unchanged (float64 or
+# float32 loops that transcribe the Rust reference); it calls nothing
+# of torch.  tests/test_torch_oracles.py holds it to the JAX
+# package's function by syntax tree and by bits.
+
+def onset_np(mags: np.ndarray, global_floor: np.ndarray,
+             tick_suppressed: np.ndarray,
+             calibration_hold: np.ndarray | None = None):
+    """Transcription of onset.rs:244-543's per-frame math. Returns dict of arrays."""
+    n, half = mags.shape
+    if calibration_hold is None:
+        calibration_hold = np.zeros(n, dtype=bool)
+    prev = np.zeros(half, dtype=np.float32)
+    floor = np.zeros(half, dtype=np.float32)
+    floor_init = False
+    threshold = np.float32(0.0)
+    energy_ema = np.float32(0.0)
+    frames_since = 4
+    fired_all, det_all, vel_all, flux_all = [], [], [], []
+    for fidx in range(n):
+        m = mags[fidx].astype(np.float32)
+        g = np.float32(global_floor[fidx])
+        flux = np.float32(0.0)
+        energy = np.float32(0.0)
+        sm = np.empty(half, dtype=np.float32)
+        for k in range(half):
+            if k == 0 or k >= half - 1:
+                sm[k] = m[k]
+            else:
+                sm[k] = (m[k - 1] + m[k] + m[k + 1]) / np.float32(3.0)
+        for k in range(half):
+            energy += m[k]
+            w = np.float32(1.0 - k / half)
+            d = sm[k] - prev[k]
+            if d > 0.0:
+                flux += d * w
+            prev[k] = m[k]
+        floor_eps = max(g, np.float32(0.01))
+        if not floor_init:
+            floor = np.maximum(m, g)
+            floor_init = True
+        max_excess = np.float32(0.0)
+        burst_count = 0
+        for k in range(half):
+            fk = max(floor[k], floor_eps)
+            r = m[k] / fk
+            if r > BIN_BURST_RATIO:
+                burst_count += 1
+                floor[k] = m[k] * np.float32(FLOOR_OVERCOMPENSATE)
+            elif m[k] > floor[k]:
+                floor[k] += np.float32(FLOOR_RISE) * (m[k] - floor[k])
+            else:
+                floor[k] += np.float32(FLOOR_DECAY) * (m[k] - floor[k])
+            max_excess = max(max_excess, r)
+        if burst_count < 2:
+            flux = np.float32(0.0)
+        ema_mem = np.float32(ENERGY_EMA_RISE if energy > energy_ema else ENERGY_EMA_DECAY)
+        energy_ema = energy_ema * ema_mem + energy * (np.float32(1.0) - ema_mem)
+        is_onset = flux > threshold
+        mem = np.float32(FLUX_RISE_MEMORY if is_onset else FLUX_DECAY_MEMORY)
+        threshold = threshold * mem + flux * (np.float32(1.0) - mem)
+        threshold = max(threshold, np.float32(FLUX_THRESHOLD_FLOOR))
+        flux_onset = is_onset and flux > threshold * np.float32(FLUX_MULTIPLIER)
+        bin_burst_onset = max_excess > 3.0 and burst_count >= 3
+        detected = flux_onset and bin_burst_onset
+        energy_rising = energy > energy_ema * np.float32(ENERGY_RISING_RATIO)
+        velocity = float(np.clip(max(flux, max_excess * np.float32(5.0))
+                                 / np.float32(50.0), 0.0, 1.0))
+        fired = (detected and not tick_suppressed[fidx] and energy_rising
+                 and frames_since >= REFRACTORY_FRAMES)
+        if ((fired and not calibration_hold[fidx])
+                or (detected and frames_since < REFRACTORY_FRAMES)):
+            frames_since = 0
+        else:
+            frames_since += 1
+        fired_all.append(fired)
+        det_all.append(detected)
+        vel_all.append(velocity)
+        flux_all.append(float(flux))
+    return {"fired": np.array(fired_all), "detected": np.array(det_all),
+            "velocity": np.array(vel_all), "flux": np.array(flux_all)}

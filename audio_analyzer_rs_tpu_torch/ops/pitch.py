@@ -252,3 +252,132 @@ def extract_pitches(mags: torch.Tensor, noise_floor: torch.Tensor,
     min_bin, max_bin = _bins(bin_width, half, min_freq, max_freq)
     return hopper_extract.extract(mags, noise_floor, bin_width, min_bin,
                                   max_bin, min_freq, max_freq, half)
+
+
+# ── NumPy oracle, for the machine without JAX ──────────────────────────
+# A copy of the JAX package's, its source unchanged (float64 or
+# float32 loops that transcribe the Rust reference); it calls nothing
+# of torch.  tests/test_torch_oracles.py holds it to the JAX
+# package's function by syntax tree and by bits.
+
+def extract_pitches_np(magnitudes: np.ndarray, noise_floor: np.ndarray,
+                       bin_width: float, min_freq: float = MIN_FREQ,
+                       max_freq: float = MAX_FREQ):
+    """Loop-for-loop float32 transcription of stft.rs:443-620 for parity tests.
+
+    Returns a list of (freq, score) like the Rust Vec.
+    """
+    half = len(magnitudes)
+    magnitudes = magnitudes.astype(np.float32)
+    noise_floor = noise_floor.astype(np.float32)
+    min_bin = max(int(np.ceil(min_freq / bin_width)), 1)
+    max_bin = min(int(np.floor(max_freq / bin_width)), half - 2)
+    if min_bin >= max_bin:
+        return []
+
+    is_peak = np.zeros(half, dtype=bool)
+    peak_bins = []
+    for k in range(min_bin + 1, max_bin):
+        m = magnitudes[k]
+        if m > noise_floor[k] and m >= magnitudes[k - 1] and m >= magnitudes[k + 1]:
+            is_peak[k] = True
+            peak_bins.append(k)
+    if not peak_bins:
+        return []
+
+    scores = np.zeros(half, dtype=np.float32)
+    frac_bins = np.zeros(half, dtype=np.float32)
+    for k in peak_bins:
+        fund_mag = magnitudes[k]
+        if fund_mag < noise_floor[k] * 5.0:
+            scores[k] = 0.0
+            continue
+        with np.errstate(divide="ignore", invalid="ignore"):
+            y_l = np.log(magnitudes[k - 1])
+            y_c = np.log(magnitudes[k])
+            y_r = np.log(magnitudes[k + 1])
+            denom = y_l - 2.0 * y_c + y_r
+            delta = 0.0 if abs(denom) < 1e-30 else float(
+                np.clip(0.5 * (y_l - y_r) / denom, -1.0, 1.0))
+        if not np.isfinite(delta):
+            # Zero-magnitude neighbor: the reference's NaN candidate is
+            # dropped by the final freq filter; drop it here directly.
+            scores[k] = 0.0
+            continue
+        frac_bin = np.float32(k + delta)
+        frac_bins[k] = frac_bin
+        score = np.float32(fund_mag)
+        last = k
+        longest_run = current_run = total_harms = 0
+        for n in range(2, MAX_HARMONICS + 1):
+            expected_f = frac_bin * n
+            if expected_f >= half:
+                break
+            search_start = max(int(np.floor(expected_f - 1.0)) if expected_f >= 1.0 else 0,
+                               last + 1)
+            search_end = min(int(np.ceil(expected_f + 1.0)), half - 1)
+            best_hbin, best_mag = 0, np.float32(0.0)
+            for h in range(search_start, search_end + 1):
+                if is_peak[h] and magnitudes[h] > best_mag:
+                    best_mag = magnitudes[h]
+                    best_hbin = h
+            if best_hbin != 0:
+                score = np.float32(score + best_mag)
+                last = best_hbin
+                current_run += 1
+                total_harms += 1
+            else:
+                longest_run = max(longest_run, current_run)
+                current_run = 0
+        longest_run = max(longest_run, current_run)
+        if longest_run < 3 and fund_mag < 15.0 * noise_floor[k]:
+            scores[k] = 0.0
+        else:
+            log_score = np.float32(np.log2(np.float32(0.5) + score))
+            struct_mult = np.float32(
+                (1.0 + longest_run + total_harms / 2.0) / (1.0 + MAX_HARMONICS))
+            scores[k] = np.float32(log_score * struct_mult)
+
+    max_score = max((scores[kk] for kk in peak_bins), default=0.0)
+    max_score = np.float32(max(max_score, 0.0))
+    if max_score == 0.0:
+        return []
+    cutoff = np.float32(max_score * np.float32(0.5))
+    candidates = [(kk, scores[kk]) for kk in peak_bins if scores[kk] >= cutoff]
+
+    def freq_of(b):
+        return np.float32(frac_bins[b] * np.float32(bin_width))
+
+    suppressed = []
+    for i, (bin_i, score_i) in enumerate(candidates):
+        fi = freq_of(bin_i)
+        sup = False
+        for j, (bin_j, score_j) in enumerate(candidates):
+            if i == j:
+                continue
+            fj = freq_of(bin_j)
+            ratio = fi / fj
+            nearest = np.round(ratio)
+            if (2.0 <= nearest <= 5.0
+                    and abs(ratio / nearest - 1.0) < 0.03
+                    and score_i < score_j * np.float32(1.05)):
+                sup = True
+                break
+        suppressed.append(sup)
+    candidates = [c for c, s in zip(candidates, suppressed) if not s]
+    # Stable sort desc by (score, then lower bin — to match top_k tie order).
+    candidates.sort(key=lambda c: (-c[1], c[0]))
+
+    deduped = []
+    for cand in candidates:
+        fi = frac_bins[cand[0]]
+        if not any(abs(fi - frac_bins[b]) < 2.0 for b, _ in deduped):
+            deduped.append(cand)
+    deduped = deduped[:MAX_NOTES]
+
+    out = []
+    for b, s in deduped:
+        f = freq_of(b)
+        if min_freq <= f <= max_freq:
+            out.append((float(f), float(s)))
+    return out

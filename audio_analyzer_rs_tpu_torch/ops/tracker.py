@@ -170,3 +170,48 @@ def tracker_scan(state: TrackerState, raw_freqs, raw_scores, raw_valid,
                                          onsets[None])
     return (TrackerState(*(a[0] for a in batched)),
             tuple(o[0] for o in outs))
+
+
+# ── NumPy oracle, for the machine without JAX ──────────────────────────
+# A copy of the JAX package's, its source unchanged (float64 or
+# float32 loops that transcribe the Rust reference); it calls nothing
+# of torch.  tests/test_torch_oracles.py holds it to the JAX
+# package's function by syntax tree and by bits.
+
+class PitchTrackerNp:
+    """ref stft.rs:20-117, list-based."""
+
+    def __init__(self):
+        self.tracks = []  # [freq, score, life]
+
+    def process(self, raw_pitches, onset: bool):
+        matched = [False] * len(self.tracks)
+        for raw_freq, raw_score in raw_pitches:
+            found = False
+            for i, tr in enumerate(self.tracks):
+                if matched[i]:
+                    continue
+                if abs(tr[0] - raw_freq) / tr[0] < TOLERANCE:
+                    tr[0] = raw_freq if onset else tr[0] * EMA_OLD + raw_freq * EMA_NEW
+                    tr[1] = raw_score
+                    tr[2] = min(tr[2] + 1, MAX_LIFE)
+                    matched[i] = True
+                    found = True
+                    break
+            if not found:
+                self.tracks.append([raw_freq, raw_score, 1])
+                matched.append(True)
+        active = []
+        i = 0
+        while i < len(self.tracks):
+            if not matched[i]:
+                self.tracks[i][2] = 0 if onset else self.tracks[i][2] - 1
+            if self.tracks[i][2] <= 0:
+                self.tracks.pop(i)
+                if len(matched) > i:
+                    matched.pop(i)
+            else:
+                if self.tracks[i][2] >= DISPLAY_THRESHOLD:
+                    active.append((self.tracks[i][0], self.tracks[i][1]))
+                i += 1
+        return active

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .fft import irfft, rfft_complex
@@ -87,3 +88,46 @@ def yin_pitch(frames: torch.Tensor, sample_rate: float, fmin: float = 60.0,
     conf = 1.0 - y1
     voiced = any_below & (f0 >= fmin) & (f0 <= fmax)
     return YinResult(torch.where(voiced, f0, 0.0), conf, voiced)
+
+
+# ── NumPy oracle, for the machine without JAX ──────────────────────────
+# A copy of the JAX package's, its source unchanged (float64 or
+# float32 loops that transcribe the Rust reference); it calls nothing
+# of torch.  tests/test_torch_oracles.py holds it to the JAX
+# package's function by syntax tree and by bits.
+
+def yin_pitch_np(frame: np.ndarray, sample_rate: float, fmin: float = 60.0,
+                 fmax: float = 2000.0, threshold: float = DEFAULT_THRESHOLD):
+    """Slow loop oracle for one frame (float64)."""
+    w = len(frame)
+    half = w // 2
+    x = frame.astype(np.float64)
+    tau_min = max(int(sample_rate / fmax), 1)
+    tau_max = min(int(sample_rate / fmin) + 1, half - 1)
+    d = np.zeros(half)
+    for tau in range(1, half):
+        diff = x[:half] - x[tau:tau + half]
+        d[tau] = np.sum(diff * diff)
+    cmndf = np.ones(half)
+    cum = 0.0
+    for tau in range(1, half):
+        cum += d[tau]
+        cmndf[tau] = d[tau] * tau / max(cum, 1e-12)
+    tau_star = None
+    for tau in range(tau_min, tau_max + 1):
+        nxt = cmndf[tau + 1] if tau + 1 < half else cmndf[tau]
+        if cmndf[tau] < threshold and nxt >= cmndf[tau]:
+            tau_star = tau
+            break
+    voiced = tau_star is not None
+    if not voiced:
+        seg = np.where((np.arange(half) >= tau_min)
+                       & (np.arange(half) <= tau_max), cmndf, np.inf)
+        tau_star = int(np.argmin(seg))
+    t0, t2 = max(tau_star - 1, 0), min(tau_star + 1, half - 1)
+    y0, y1, y2 = cmndf[t0], cmndf[tau_star], cmndf[t2]
+    denom = y0 - 2 * y1 + y2
+    delta = 0.0 if abs(denom) < 1e-12 else float(np.clip(0.5 * (y0 - y2) / denom,
+                                                         -1, 1))
+    f0 = sample_rate / max(tau_star + delta, 1.0)
+    return f0 if voiced and fmin <= f0 <= fmax else 0.0, voiced

@@ -227,3 +227,73 @@ def make_pooled_wave_step(mesh, sample_rate: float, slot_len: int = 1024,
                                             slot_len, n_slots)
 
     return place, step
+
+
+# ── NumPy oracle, for the machine without JAX ──────────────────────────
+# A copy of the JAX package's, its source unchanged (float64 or
+# float32 loops that transcribe the Rust reference); it calls nothing
+# of torch.  tests/test_torch_oracles.py holds it to the JAX
+# package's function by syntax tree and by bits.
+# The JAX package's `_single_stream_step` is `_batched_stream_step` at
+# B = 1 here.
+
+def full_chain_np(audio, sample_rate: float, slot_len: int = 1024,
+                  pitch_hop: int = 512, onset_hop: int = 64):
+    """Exact NumPy oracle of `_single_stream_step` (one chunk, fresh state).
+
+    Composes the exact-mode oracles end to end: sequential biquad + gate
+    (reduce_signal_np — no blocked-scan approximation), sort-based AGC
+    percentiles (DynamicsTrackerNp — no histogram quantization), per-slot
+    causal floors, then the *_np pitch and onset pipelines.  Used to
+    quantify the fast-mode (blocked biquad + hist AGC) divergence of the
+    batched full step on realistic scenes (tools/fullchain_divergence.py,
+    tests/test_fullchain_divergence.py).
+
+    Returns a dict: stable (list of per-frame [(freq, score), ...]),
+    onset_fired [No] bool, onset_velocity [No] f32, floors_db [S] f32.
+    """
+    import numpy as np
+
+    from ..ops.pitch import extract_pitches_np
+    from ..ops.stft import stft_mags_np
+    from ..ops.tracker import PitchTrackerNp
+    from ..utils.framing import num_frames
+
+    audio = np.asarray(audio, np.float32)
+    y = reducer.reduce_signal_np(audio, sample_rate)
+    n_slots = len(y) // slot_len
+    dyn = dynamics.DynamicsTrackerNp(sample_rate, slot_len)
+    gained = np.empty(n_slots * slot_len, np.float32)
+    floors_db = np.empty(n_slots, np.float32)
+    for s in range(n_slots):
+        out = dyn.process_slot(y[s * slot_len:(s + 1) * slot_len])
+        gained[s * slot_len:(s + 1) * slot_len] = out["slot"]
+        floors_db[s] = out["noise_floor_db"]
+
+    def per_frame_floor_lin(n_frames, window, hop, half):
+        last = np.arange(n_frames) * hop + (window - 1)
+        idx = np.minimum(last // slot_len, n_slots - 1)
+        return (10.0 ** (floors_db[idx].astype(np.float64) / 20.0)
+                * (half / 2.0)).astype(np.float32)
+
+    # Pitch chain.
+    n_p = num_frames(len(gained), PITCH_WINDOW, pitch_hop)
+    half = PITCH_WINDOW // 2 + 1
+    pmags = stft_mags_np(gained, PITCH_WINDOW, pitch_hop).astype(np.float32)
+    gfp = per_frame_floor_lin(n_p, PITCH_WINDOW, pitch_hop, half)
+    eff = noisefloor.noise_floor_np(pmags, gfp)
+    bin_width = float(np.float32(sample_rate) / np.float32(PITCH_WINDOW))
+    tracker_np = PitchTrackerNp()
+    stable = []
+    for i in range(n_p):
+        raw = extract_pitches_np(pmags[i], eff[i], bin_width)
+        stable.append(tracker_np.process(raw, onset=False))
+
+    # Onset chain.
+    ohalf = ONSET_WINDOW // 2 + 1
+    n_o = num_frames(len(gained), ONSET_WINDOW, onset_hop)
+    omags = stft_mags_np(gained, ONSET_WINDOW, onset_hop).astype(np.float32)
+    gfo = per_frame_floor_lin(n_o, ONSET_WINDOW, onset_hop, ohalf)
+    oout = onset_ops.onset_np(omags, gfo, np.zeros(n_o, bool))
+    return {"stable": stable, "onset_fired": oout["fired"],
+            "onset_velocity": oout["velocity"], "floors_db": floors_db}

@@ -33,3 +33,18 @@ def pad_to_frames(x: np.ndarray, window: int, hop: int) -> np.ndarray:
     if rem:
         x = np.pad(x, (0, hop - rem))
     return x.astype(np.float32)
+
+
+# ── NumPy oracle, for the machine without JAX ──────────────────────────
+# A copy of the JAX package's, its source unchanged (float64 or
+# float32 loops that transcribe the Rust reference); it calls nothing
+# of torch.  tests/test_torch_oracles.py holds it to the JAX
+# package's function by syntax tree and by bits.
+
+def frame_signal_np(x: np.ndarray, window: int, hop: int) -> np.ndarray:
+    """NumPy oracle twin of `frame_signal` for parity tests."""
+    n = num_frames(len(x), window, hop)
+    out = np.empty((n, window), dtype=np.float32)
+    for i in range(n):
+        out[i] = x[i * hop:i * hop + window]
+    return out

@@ -58,16 +58,33 @@ Phases, one line each on standard output:
             memory); the plain scan timed once at
             S=128 x N=64;
   4. the main path: `segmented_pitch_analysis` over a 30-minute mixed scene at
-     the default geometry (128 segments x 64-frame chunks), cold then warm, with
+     the default geometry (128 segments x 64-frame chunks; transfer="auto",
+     pipelined at this length), cold then warm, with
      the launch counts of K1, K10, K3 and K5 over the warm run (and no plain
      select_stable call, no plain noise-floor step, no plain extraction and
-     no K2 launch); then
+     no K2 launch); then ("feed:" lines) the two host→device feeds,
+     `transfer="resident"` (the padded recording uploaded once) and
+     `"pipelined"` (page-locked double buffers, a block a step, copied on
+     a stream of its own): the pipelined run's launches as resident's,
+     then each mode once cold and 3 warm calls each in turns, every
+     output bitwise to the resident one: the median wall and its spread,
+     the card ms from the call's start to its first step's first kernel
+     (CUDA events), the bytes each copies; the 30-minute scene as int16
+     (scaled and clipped as JAX's test does); the copies' rates (the
+     padded recording from pageable memory, page-locked blocks); the sweep
+     at 5, 10, 30 and 60 minutes of float32 input (prefixes of
+     `mixed_scene(3600 s, seed=0)`) and its crossover against
+     `segmented.AUTO_PIPELINED_MIN_SECONDS`, with `transfer="auto"`
+     resolving as the constant says; then
      `segmented_pitch_analysis_batch` over 8 takes of 30 s;
   5. agreement: the sequential `PitchAnalyzer` on the first 5 minutes against
      the segmented run (segment 0 bitwise, >= 99.9% of frames);
   6. `analyze_buffer_segmented` over the 30-minute scene, cold then warm, with
      K1, K10, K3, K4 and K5's launch counts over the warm run (K4's row
      takes its count) and no plain onset, noise-floor or extraction step;
+     the warm wall split by pass; `segmented_onset_analysis` with
+     `transfer="pipelined"` bitwise to resident (walls and first kernel
+     as in phase 4);
   7. `analyze_buffer` over the first minute (per-frame structs);
   8. `segmented_onset_analysis_batch` over the 8 takes;
   9. onset agreement: the sequential `OnsetAnalyzer` on the first 5 minutes
@@ -153,7 +170,8 @@ Phases, one line each on standard output:
      [8, 7296] beside its bound, K8 in turns with torch.gather.  The mesh
      at world size 1 (an NCCL group through a FileStore):
      `segmented_pitch_analysis(mesh=...)` over the 30-minute scene bitwise
-     to phase 4's outputs (warm wall, K1/K10/K3/K5 launched), one
+     to phase 4's outputs (warm wall, K1/K10/K3/K5 launched), and with
+     `transfer="pipelined"` (each rank staging its own rows), one
      `make_batched_full_step(mesh, ...)` step at phase 12's configuration
      bitwise to phase 12's first step, `make_pooled_wave_step` over 33
      lanes x 3 chained waves bitwise to `fused_slot_pool_step`.  Then two
@@ -161,7 +179,18 @@ Phases, one line each on standard output:
      on one GPU): the full step at B = 16 (8 a rank) bitwise to world size
      1 with the STFT equalized (cuFFT's flips counted without), the
      segmented pitch path over the first minute at 8 segments bitwise, and
-     the pooled wave (8 lanes x 3 waves) bitwise.
+     the pooled wave (8 lanes x 3 waves) bitwise;
+ 15. the oracles on the card's machine ("oracle:" lines; the port's float64
+     loop transcriptions of the Rust reference, no JAX):
+     `make_batched_full_step` over JAX's divergence scene
+     (`mixed_scene(25 s, 48 kHz, seed=3)`, whole slots) in lane 0, "hist"
+     and "exact", at B = 1 and at B = 128 with phase 12's streams in the
+     other lanes and no STFT equalization, lane 0 against `full_chain_np`
+     at JAX's gates (stable sets on >= 98% of frames, onset frames on >=
+     99.9%, hist against exact >= 99.9% with fired equal) and the flips
+     between B = 1 and B = 128; K5 at phase 3's S = 1 call against
+     `noise_floor_np(fma=True)` (rtol 1e-6, atol 2^-126) and K4 at its S =
+     1 call against `onset_np` (fired equal, velocities within rtol 1e-6).
 Phases 4, 6 and 10-14 count the launches of the kernels their paths run
 (K2's comb runs inside K10) and fail on a plain extraction (`ops/pitch.py`
 `_extract`) run on the card.
@@ -383,6 +412,204 @@ def frame_agreement(a_freqs, a_valid, b_freqs, b_valid) -> float:
                 == sorted(np.round(b_freqs[i][b_valid[i]], 1))
                 for i in range(n))
     return agree / max(n, 1)
+
+
+FEEDS = ("resident", "pipelined")
+FEED_REPS = 3                     # warm calls a transfer mode, in turns
+SWEEP_MINUTES = (5, 10, 30, 60)   # the transfer="auto" crossover's sweep
+
+
+def first_kernel_call(fn, step_name: str):
+    """fn() → (its result, its host wall in s, the card ms from the call's
+    start to its first step's first kernel).  One CUDA event is recorded
+    as the call starts, one as its first step (`segmented.<step_name>`) is
+    entered, both on the compute stream: the card reaches the second when
+    every copy and kernel that step waits on has run."""
+    import torch
+    from audio_analyzer_rs_tpu_torch.models import segmented
+    start = torch.cuda.Event(enable_timing=True)
+    first = torch.cuda.Event(enable_timing=True)
+    step, marked = getattr(segmented, step_name), []
+
+    def marking(*args, **kwargs):
+        if not marked:
+            first.record()
+            marked.append(1)
+        return step(*args, **kwargs)
+    torch.cuda.synchronize()
+    setattr(segmented, step_name, marking)
+    try:
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(segmented, step_name, step)
+    assert marked, f"{step_name} was not called"
+    first.synchronize()
+    return out, wall, start.elapsed_time(first)
+
+
+def feed_turns(call, step_name: str = "_vmapped_step") -> dict:
+    """call(mode) for both transfer modes: once each cold, then FEED_REPS
+    warm calls each in turns (resident first, then pipelined first, ...),
+    every output bitwise to the first resident one → {mode: {"walls",
+    "first_ms"}}, with each mode's median and spread (max - min)."""
+    import numpy as np
+    want = call("resident")
+    for a, b in zip(call("pipelined"), want):
+        assert a.dtype == b.dtype and np.array_equal(a, b), "pipelined cold"
+    res = {m: {"walls": [], "first_ms": []} for m in FEEDS}
+    for rep in range(FEED_REPS):
+        for mode in (FEEDS if rep % 2 == 0 else FEEDS[::-1]):
+            out, wall, first = first_kernel_call(lambda: call(mode),
+                                                 step_name)
+            for a, b in zip(out, want):
+                assert a.dtype == b.dtype and np.array_equal(a, b), \
+                    f"{mode} differs from the cold resident run"
+            res[mode]["walls"].append(wall)
+            res[mode]["first_ms"].append(first)
+    for r in res.values():
+        r["median"] = statistics.median(r["walls"])
+        r["spread"] = max(r["walls"]) - min(r["walls"])
+        r["first"] = statistics.median(r["first_ms"])
+    return res
+
+
+def default_plan(n_samples: int, chunk_frames: int = 64, warmup: int = 128,
+                 window: int = 2048, hop: int = 512):
+    """The stream plan `segmented_pitch_analysis` makes for a recording of
+    n_samples at its default segment count."""
+    from audio_analyzer_rs_tpu_torch.models import segmented
+    from audio_analyzer_rs_tpu_torch.utils.framing import num_frames
+    n_total = num_frames(n_samples, window, hop)
+    segs = segmented.auto_segments(n_total, warmup)
+    segs = max(1, min(segs, max(n_total // chunk_frames, 1)))
+    return segmented._plan_streams(n_total, segs, warmup, chunk_frames,
+                                   window, hop)
+
+
+def fed_bytes(n_samples: int, itemsize: int) -> dict:
+    """Bytes each transfer mode copies host→device for the pitch path over
+    n_samples: resident the padded recording, pipelined every step's [S,
+    chunk_samples] block."""
+    plan = default_plan(n_samples)
+    return {"resident": max(plan.max_sample, n_samples) * itemsize,
+            "pipelined": (plan.segments * plan.steps * plan.chunk_samples
+                          * itemsize)}
+
+
+def feed_text(res: dict, moved: dict) -> str:
+    return "; ".join(
+        f"{m} {res[m]['median']:.4f} s (spread {res[m]['spread']:.4f}, "
+        f"first kernel at {res[m]['first']:.2f} ms, "
+        f"{moved[m] / 1e6:.0f} MB copied, "
+        f"{moved[m] / res[m]['median'] / 1e9:.2f} GB/s of the wall)"
+        for m in FEEDS)
+
+
+def link_rates(dev, padded, rows: int, chunk_samples: int) -> tuple:
+    """The host→device rate of each mode's copy, by CUDA events (median of
+    3): the padded recording from pageable memory in one copy (resident),
+    and 21 page-locked [rows, chunk_samples] float32 blocks copied with
+    non_blocking=True (pipelined) → (pageable GB/s, page-locked GB/s)."""
+    import numpy as np
+    import torch
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    pageable, pinned = [], []
+    host = torch.from_numpy(padded)
+    block = torch.empty((rows, chunk_samples), dtype=torch.float32,
+                        pin_memory=True)
+    block.copy_(torch.from_numpy(np.ascontiguousarray(
+        padded[:rows * chunk_samples].reshape(rows, chunk_samples))))
+    for _ in range(3):
+        torch.cuda.synchronize()
+        begin.record()
+        on_card = host.to(dev)
+        end.record()
+        end.synchronize()
+        pageable.append(host.nbytes / begin.elapsed_time(end) / 1e6)
+        del on_card
+        begin.record()
+        copies = [block.to(dev, non_blocking=True) for _ in range(21)]
+        end.record()
+        end.synchronize()
+        pinned.append(21 * block.nbytes / begin.elapsed_time(end) / 1e6)
+        del copies
+    return statistics.median(pageable), statistics.median(pinned)
+
+
+def feed_phase(card: str, audio, launches_main: list) -> None:
+    """Phase 4b: the two transfer modes of the 30-minute pitch path (float32
+    and int16), their launches, the link rates of their copies, and the
+    sweep that sets segmented.AUTO_PIPELINED_MIN_SECONDS."""
+    import math
+    import numpy as np
+    import torch
+    from audio_analyzer_rs_tpu_torch.models import generators as gen
+    from audio_analyzer_rs_tpu_torch.models import segmented
+    from audio_analyzer_rs_tpu_torch.ops import hopper_comb
+    t_phase = time.perf_counter()
+
+    def pitch(x):
+        return lambda mode: segmented.segmented_pitch_analysis(
+            x, SR, transfer=mode)
+
+    # Each mode's launches and plain extractions, as the main path's.
+    counters = counters_of(("K1", "K10", "K3", "K5"))
+    for mode in FEEDS:
+        for mod in counters + (hopper_comb,):
+            mod.LAUNCHES = 0
+        with PlainExtractions() as plain_x:
+            segmented.segmented_pitch_analysis(audio, SR, transfer=mode)
+        launches = [mod.LAUNCHES for mod in counters]
+        assert launches == launches_main, (mode, launches, launches_main)
+        assert not plain_x.calls and hopper_comb.LAUNCHES == 0
+
+    i16 = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+    res16 = feed_turns(pitch(i16))
+    moved16 = fed_bytes(len(i16), 2)
+    plan = default_plan(len(audio))
+    padded = np.pad(audio, (0, max(0, plan.max_sample - len(audio))))
+    pageable, pinned = link_rates(torch.device("cuda"), padded,
+                                  plan.segments, plan.chunk_samples)
+    del padded, i16
+    say(f"feed: 30 min int16, pipelined bitwise to resident over "
+        f"{FEED_REPS} warm calls each in turns: {feed_text(res16, moved16)}; "
+        f"launches K1/K10/K3/K5 (float32) {launches} in each mode, as the "
+        f"main path's, plain extractions 0; copies: the padded "
+        f"recording from pageable memory {pageable:.2f} GB/s, page-locked "
+        f"{plan.segments} x {plan.chunk_samples} blocks {pinned:.2f} GB/s "
+        f"(CUDA events)")
+
+    # The sweep: prefixes of one 60-minute scene are the shorter scenes.
+    scene = gen.mixed_scene(60 * max(SWEEP_MINUTES), SR, seed=0)
+    assert np.array_equal(scene[:len(audio)], audio)
+    crossover = math.inf
+    for minutes in SWEEP_MINUTES:
+        x = scene[:int(minutes * 60 * SR)]
+        res = feed_turns(pitch(x))
+        moved = fed_bytes(len(x), 4)
+        gain = res["resident"]["median"] - res["pipelined"]["median"]
+        wins = gain > res["resident"]["spread"] + res["pipelined"]["spread"]
+        if wins and math.isinf(crossover):
+            crossover = minutes * 60.0
+        auto = segmented._resolve_transfer("auto", "pitch", len(x), SR, None)
+        want = ("pipelined" if len(x) >= segmented.AUTO_PIPELINED_MIN_SECONDS
+                * SR else "resident")
+        assert auto == want, (minutes, auto, want)
+        say(f"feed: {minutes} min float32, pipelined bitwise to resident: "
+            f"{feed_text(res, moved)}; resident - pipelined {gain:+.4f} s "
+            f"({'beyond' if wins else 'within'} the two spreads); "
+            f"transfer=\"auto\" resolves to {auto}")
+    del scene
+    constant = segmented.AUTO_PIPELINED_MIN_SECONDS
+    say(f"feed: the sweep's crossover (the shortest length at which "
+        f"pipelined beats resident by more than the two spreads) "
+        f"{crossover} s; AUTO_PIPELINED_MIN_SECONDS = {constant} "
+        f"({'agrees' if crossover == constant else 'differs'}); {card}; "
+        f"phase 4b took {time.perf_counter() - t_phase:.0f} s")
 
 
 LIVE_SR = 48000.0
@@ -2191,14 +2418,15 @@ def mesh_phase(card: str, audio44, full_outs, fleet_chunk,
         try:
             mesh = pmesh.make_mesh("cuda")
             t0 = time.perf_counter()
-            segmented.segmented_pitch_analysis(audio44, SR, mesh=mesh)
+            segmented.segmented_pitch_analysis(audio44, SR, mesh=mesh,
+                                               transfer="resident")
             cold = time.perf_counter() - t0
             for mod in counters:
                 mod.LAUNCHES = 0
             with PlainExtractions() as plain_x:
                 t0 = time.perf_counter()
-                got = segmented.segmented_pitch_analysis(audio44, SR,
-                                                         mesh=mesh)
+                got = segmented.segmented_pitch_analysis(
+                    audio44, SR, mesh=mesh, transfer="resident")
                 warm = time.perf_counter() - t0
             launches = [mod.LAUNCHES for mod in counters]
             assert all(n > 0 for n in off_path_zero(launches)), launches
@@ -2206,6 +2434,15 @@ def mesh_phase(card: str, audio44, full_outs, fleet_chunk,
                 f"{plain_x.calls} plain extractions on the card"
             for a, b in zip(got, full_outs):
                 assert a.dtype == b.dtype and np.array_equal(a, b)
+            piped = segmented.segmented_pitch_analysis(
+                audio44, SR, mesh=mesh, transfer="pipelined")
+            t0 = time.perf_counter()
+            piped = segmented.segmented_pitch_analysis(
+                audio44, SR, mesh=mesh, transfer="pipelined")
+            warm_piped = time.perf_counter() - t0
+            for a, b in zip(piped, full_outs):
+                assert a.dtype == b.dtype and np.array_equal(a, b)
+            del piped
             _, out = sharding.make_batched_full_step(mesh, FULL_SR)(
                 sharding.init_stream_states(FULL_B), fleet_chunk)
             for name, a, b in zip(sharding.FullStepOut._fields, out,
@@ -2217,9 +2454,11 @@ def mesh_phase(card: str, audio44, full_outs, fleet_chunk,
             dist.destroy_process_group()
     del out
     say(f"mesh: world size 1 (NCCL): segmented_pitch_analysis 30 min on the "
-        f"mesh bitwise to phase 4's mesh-free run, cold {cold:.2f} s, warm "
+        f"mesh (transfer=\"resident\") bitwise to phase 4's mesh-free run, "
+        f"cold {cold:.2f} s, warm "
         f"{warm:.3f} s, launches K1/K10/K3/K5/K2 {launches}, plain "
-        f"extractions 0; "
+        f"extractions 0; with transfer=\"pipelined\" (each rank stages its "
+        f"own rows) bitwise to the same, warm {warm_piped:.3f} s; "
         f"make_batched_full_step {FULL_B} streams x {fleet_chunk.shape[1]} "
         f"samples bitwise to phase 12's first step (every output, the fleet "
         f"statistics included); make_pooled_wave_step {pool['lanes']} lanes "
@@ -2280,6 +2519,134 @@ def mesh_phase(card: str, audio44, full_outs, fleet_chunk,
         f"{TWO_RANK_SECONDS:.0f} s at {TWO_RANK_SEGMENTS} segments bitwise; "
         f"the pooled wave {TWO_RANK_LANES} lanes x {MESH_WAVES} waves "
         f"bitwise; phase 14 took {time.perf_counter() - t_phase:.0f} s")
+
+
+ORACLE_SECONDS = 25.0             # JAX tests/test_fullchain_divergence.py
+ORACLE_STABLE_AGREEMENT = 0.98    # ... and its gates
+ORACLE_ONSET_AGREEMENT = 0.999
+ORACLE_MODE_AGREEMENT = 0.999
+ORACLE_K5_RTOL, ORACLE_K5_ATOL = 1e-6, 2.0 ** -126
+ORACLE_K4_RTOL = 1e-6             # tests/test_torch_onset.py's values
+
+
+def stable_sets(sf, sv) -> list:
+    """Each frame's stable frequencies in integer deci-hertz, sorted."""
+    return [sorted(int(round(float(f) * 10)) for f in sf[i][sv[i]])
+            for i in range(sf.shape[0])]
+
+
+def oracle_phase(card: str, audio44, oracle_in: dict, device="cuda",
+                 seconds: float = ORACLE_SECONDS, lanes: int = FULL_B):
+    """Phase 15 ("oracle:" lines): the port's float64 oracles, on the card's
+    machine.  `make_batched_full_step` over JAX's divergence scene
+    (mixed_scene(seconds, 48 kHz, seed=3), whole slots) in lane 0, "hist"
+    and "exact", at B = 1 and at B = `lanes` with phase 12's streams in the
+    other lanes and cuFFT's batched magnitudes (no equalization), lane 0
+    against `full_chain_np` at JAX's gates; the stable-set and fired flips
+    between the two B.  Then K5 and K4 at phase 3's S = 1 calls against
+    `noise_floor_np` (the FMA form) and `onset_np`."""
+    import numpy as np
+    import torch
+    from audio_analyzer_rs_tpu_torch.models import generators as gen
+    from audio_analyzer_rs_tpu_torch.ops import noisefloor, onset
+    from audio_analyzer_rs_tpu_torch.parallel import sharding
+    t_phase = time.perf_counter()
+    x = gen.mixed_scene(seconds, FULL_SR, seed=3)
+    x = x[:(len(x) // 1024) * 1024]
+    t0 = time.perf_counter()
+    oracle = sharding.full_chain_np(x, FULL_SR)
+    oracle_s = time.perf_counter() - t0
+    sets_o = [sorted(int(round(float(f) * 10)) for f, _ in fr)
+              for fr in oracle["stable"]]
+    fired_o = oracle["onset_fired"]
+    fleet = np.stack([x] + [audio44[k * 600_000:k * 600_000 + len(x)]
+                            for k in range(1, lanes)])
+    outs = {}
+    for b in (1, lanes):
+        audio_b = torch.from_numpy(fleet[:b]).to(device)
+        for mode in ("hist", "exact"):
+            step = sharding.make_batched_full_step(None, FULL_SR,
+                                                   dyn_mode=mode,
+                                                   device=device)
+            _, out = step(sharding.init_stream_states(b, device=device),
+                          audio_b)
+            sf, sv, fired = (t[0].cpu().numpy() for t in (
+                out.stable_freqs, out.stable_valid, out.onset_fired))
+            assert np.isfinite(sf).all() and len(sets_o) == sf.shape[0]
+            sets = stable_sets(sf, sv)
+            stable = float(np.mean([a == o for a, o in zip(sets, sets_o)]))
+            onsets = float((fired == fired_o[:len(fired)]).mean())
+            outs[b, mode] = dict(sets=sets, sv=sv, fired=fired,
+                                 stable=stable, onsets=onsets)
+            assert stable >= ORACLE_STABLE_AGREEMENT, (b, mode, stable)
+            assert onsets >= ORACLE_ONSET_AGREEMENT, (b, mode, onsets)
+            del out
+        del audio_b
+    texts = []
+    for b in (1, lanes):
+        h, e = outs[b, "hist"], outs[b, "exact"]
+        modes = float(np.mean([a == c for a, c in zip(h["sets"],
+                                                      e["sets"])]))
+        assert modes >= ORACLE_MODE_AGREEMENT, (b, modes)
+        assert np.array_equal(h["fired"], e["fired"]), b
+        texts.append(
+            f"B = {b}: stable sets against the oracle {h['stable']:.4%} "
+            f"hist, {e['stable']:.4%} exact (>= 98%), onset frames "
+            f"{h['onsets']:.4%} / {e['onsets']:.4%} (>= 99.9%), hist "
+            f"against exact {modes:.4%} (>= 99.9%), fired equal")
+    flips = []
+    for mode in ("hist", "exact"):
+        one, many = outs[1, mode], outs[lanes, mode]
+        flips.append(
+            f"{mode} {int((one['sv'] != many['sv']).sum())} stable slots, "
+            f"{sum(a != c for a, c in zip(one['sets'], many['sets']))} "
+            f"frames' sets, {int((one['fired'] != many['fired']).sum())} "
+            f"fired")
+    say(f"oracle: make_batched_full_step on mixed_scene({seconds:.0f} s, "
+        f"48 kHz, seed=3) ({len(x)} samples, {len(sets_o)} pitch and "
+        f"{len(fired_o)} onset frames; {int(fired_o.sum())} oracle onsets) "
+        f"in lane 0 against full_chain_np (its wall {oracle_s:.1f} s on the "
+        f"host): " + "; ".join(texts) + f"; B = 1 against B = {lanes} "
+        f"(cuFFT's batched magnitudes, no equalization): "
+        + ", ".join(flips))
+
+    # K5 and K4 at phase 3's S = 1 calls against their oracles.
+    mags5, gf5, kc = oracle_in["K5"]
+    dev = torch.device(device)
+    _, eff = noisefloor.noise_floor_scan(
+        noisefloor.init_state(2048 // 2 + 1, dev, (1,)), mags5.to(dev),
+        gf5.to(dev), kc)
+    eff = eff[0, :, :kc].cpu().numpy()
+    t0 = time.perf_counter()
+    eff_o = noisefloor.noise_floor_np(mags5[0, :, :kc].numpy(),
+                                      gf5[0].numpy(), fma=True)
+    k5_s = time.perf_counter() - t0
+    np.testing.assert_allclose(eff, eff_o, rtol=ORACLE_K5_RTOL,
+                               atol=ORACLE_K5_ATOL)
+    k5_bitwise = float((eff.view(np.uint32) == eff_o.view(np.uint32)).mean())
+    mags4, gf4, ts4, hold4 = oracle_in["K4"]
+    _, out4 = onset.onset_scan(onset.init_state(onset.HALF, dev, (1,)),
+                               *(t.to(dev) for t in oracle_in["K4"]))
+    t0 = time.perf_counter()
+    o4 = onset.onset_np(mags4[0].numpy(), gf4[0].numpy(), ts4[0].numpy(),
+                        hold4[0].numpy())
+    k4_s = time.perf_counter() - t0
+    fired4 = out4.fired[0].cpu().numpy()
+    vel4 = out4.velocity[0].cpu().numpy().astype(np.float64)
+    assert np.array_equal(fired4, o4["fired"]), "K4 fired against onset_np"
+    np.testing.assert_allclose(vel4, o4["velocity"], rtol=ORACLE_K4_RTOL,
+                               atol=0)
+    nz = o4["velocity"] != 0
+    vel_rel = float((np.abs(vel4 - o4["velocity"])[nz]
+                     / o4["velocity"][nz]).max()) if nz.any() else 0.0
+    say(f"oracle: K5 at S=1 x N={eff.shape[0]} (band {kc}) against "
+        f"noise_floor_np(fma=True): within rtol {ORACLE_K5_RTOL:g}, atol "
+        f"2^-126, {k5_bitwise:.4%} of the effective floors bitwise (oracle "
+        f"{k5_s:.1f} s); K4 at S=1 x N={len(fired4)} with tick-suppressed "
+        f"and held frames against onset_np: fired equal ({int(fired4.sum())} "
+        f"onsets), velocities within rtol {ORACLE_K4_RTOL:g} (largest "
+        f"{vel_rel:.2e}; oracle {k4_s:.1f} s); {card}; phase 15 took "
+        f"{time.perf_counter() - t_phase:.0f} s")
 
 
 def main() -> int:
@@ -2694,6 +3061,7 @@ def main() -> int:
                   chain_cycles_a_frame_s1=max(chain),
                   share_of_chain_bound_s1=max(chain) / k5_cycles_seq,
                   sm_mhz=k5_clock.mhz, sm_clock=k5_clock.source)
+    oracle_in = {"K5": (mags_seq5.cpu(), gf_seq5.cpu(), kc)}
     del mags_prev, mags_seq5, mags_full
     del streams, chunk, frames, audio_dev
 
@@ -2736,6 +3104,7 @@ def main() -> int:
             if g.dtype == torch.float32:
                 k4_err = max(k4_err, float((g - r).abs().max()))
         k4_fired.append(int(out_k.fired.sum()))
+    oracle_in["K4"] = tuple(t.cpu() for t in in_one)
     n_seq = 131072
     mags_seq = windowed_mags(frame_signal(
         o_audio[:(n_seq - 1) * o_hop + o_win], o_win, o_hop)[None], o_win,
@@ -2812,7 +3181,9 @@ def main() -> int:
     assert sf.shape == ss.shape == sv.shape == (n_total, 8), sf.shape
     assert np.isfinite(sf).all() and np.isfinite(ss).all()
     assert sv.any(), "no stable pitch in 30 minutes of tones"
-    say(f"main path: segmented_pitch_analysis 30 min ({n_total} frames): "
+    auto = segmented._resolve_transfer("auto", "pitch", len(audio), SR, None)
+    say(f"main path: segmented_pitch_analysis 30 min ({n_total} frames, "
+        f"transfer=\"auto\": {auto}): "
         f"cold {cold:.2f} s, warm {warm:.2f} s = {n_total / warm:,.0f} "
         f"frames/s; launches K1/K10/K3/K5 {launches} (K2 0: its comb runs "
         f"inside K10), plain select_stable calls 0, plain floor steps 0, "
@@ -2821,6 +3192,7 @@ def main() -> int:
     for tag, n in zip(tags, launches):
         row_of(rows, tag)["launches"] = n
     row_of(rows, "K2")["launches"] = hopper_comb.LAUNCHES
+    feed_phase(card, audio, launches)
 
     takes = [audio[i * int(30 * SR):(i + 1) * int(30 * SR)] for i in range(8)]
     t0 = time.perf_counter()
@@ -2909,6 +3281,14 @@ def main() -> int:
     say(f"analysis: warm wall split: upload {t_up:.3f} s, onset pass "
         f"{t_on:.3f} s, pitch pass {t_pi:.3f} s, feature chunks and "
         f"readback (the rest) {warm - t_up - t_on - t_pi:.3f} s")
+    ores = feed_turns(lambda mode: segmented.segmented_onset_analysis(
+        audio, SR, transfer=mode), "_vmapped_onset_chunks")
+    say("feed: segmented_onset_analysis 30 min, pipelined bitwise to "
+        "resident over 3 warm calls each in turns: " + "; ".join(
+            f"{m} {ores[m]['median']:.4f} s (spread {ores[m]['spread']:.4f},"
+            f" first kernel at {ores[m]['first']:.2f} ms)" for m in FEEDS)
+        + "; transfer=\"auto\" resolves to "
+        + segmented._resolve_transfer("auto", "onset", len(audio), SR, None))
 
     # 7. The sequential API over the first minute.
     minute = audio[:int(60 * SR)]
@@ -2980,6 +3360,10 @@ def main() -> int:
     # two ranks on the one card with gloo.
     gather_phase(rows)
     mesh_phase(card, audio, (sf, ss, sv), fleet_chunk, fleet_out)
+    del fleet_chunk, fleet_out
+
+    # 15. The float64 oracles on the card's machine (no JAX).
+    oracle_phase(card, audio, oracle_in)
 
     say(json.dumps({"kernels": rows}))
     say(f"card: {card}")

@@ -1530,3 +1530,67 @@ def test_mesh_at_world_size_one_on_the_card(dev, tmp_path):
             np.testing.assert_array_equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_pipelined_feed_is_bitwise_resident_on_the_card(dev, dtype):
+    """transfer="pipelined" (page-locked double buffers, copies on a stream
+    of their own) gives the resident path's bits on the card, pitch over 9
+    steps and onsets over 5, for float32 input and the scene scaled and
+    clipped to int16; the pitch path launches K1, K10, K3 and K5 once a
+    step with either feed."""
+    from audio_analyzer_rs_tpu_torch.models import segmented
+    x = gen.mixed_scene(20.0, SR, seed=1)        # with percussion
+    if dtype == "int16":
+        x = np.clip(x * 32768.0, -32768, 32767).astype(np.int16)
+    mods = (hopper_stft, hopper_extract, hopper_tracker, hopper_noisefloor)
+    launches = {}
+    outs = {}
+    for mode in ("resident", "pipelined"):
+        before = [m.LAUNCHES for m in mods]
+        outs[mode] = segmented.segmented_pitch_analysis(
+            x, SR, segments=4, transfer=mode)
+        launches[mode] = [m.LAUNCHES - n for m, n in zip(mods, before)]
+    assert launches["pipelined"] == launches["resident"] == [9] * 4
+    for a, b in zip(outs["pipelined"], outs["resident"]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert outs["resident"][2].any()
+    got, want = (segmented.segmented_onset_analysis(
+        x, SR, segments=4, chunk_frames=1024, transfer=mode)
+        for mode in ("pipelined", "resident"))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert want[0].any()
+
+
+def test_full_step_against_the_float64_oracle(dev):
+    """`make_batched_full_step` at B = 1 on the card against the port's
+    `full_chain_np` on 3 s of JAX's divergence scene (its seconds 10-13,
+    after the scene's silent opening), at the gates of JAX's
+    tests/test_fullchain_divergence.py: stable sets equal on >= 98% of
+    frames, onset frames on >= 99.9%, hist against exact AGC on >= 99.9%
+    with fired equal."""
+    from audio_analyzer_rs_tpu_torch.parallel import sharding
+    x = gen.mixed_scene(13.0, SR48, seed=3)[int(10 * SR48):]
+    x = x[:(len(x) // 1024) * 1024]
+    oracle = sharding.full_chain_np(x, SR48)
+    sets_o = [sorted(int(round(float(f) * 10)) for f, _ in fr)
+              for fr in oracle["stable"]]
+    outs = {}
+    for mode in ("hist", "exact"):
+        step = sharding.make_batched_full_step(None, SR48, dyn_mode=mode,
+                                               device=dev)
+        _, out = step(sharding.init_stream_states(1, device=dev), x[None])
+        sf, sv = out.stable_freqs[0].cpu().numpy(), \
+            out.stable_valid[0].cpu().numpy()
+        outs[mode] = ([sorted(int(round(float(f) * 10)) for f in sf[i][sv[i]])
+                       for i in range(sf.shape[0])],
+                      out.onset_fired[0].cpu().numpy())
+    sets_h, fired_h = outs["hist"]
+    sets_e, fired_e = outs["exact"]
+    assert len(sets_h) == len(sets_o) and any(sets_h)
+    assert np.mean([a == b for a, b in zip(sets_h, sets_o)]) >= 0.98
+    assert (fired_h == oracle["onset_fired"][:len(fired_h)]).mean() >= 0.999
+    assert np.mean([a == b for a, b in zip(sets_h, sets_e)]) >= 0.999
+    np.testing.assert_array_equal(fired_h, fired_e)
+    assert fired_h.any()

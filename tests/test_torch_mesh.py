@@ -99,6 +99,9 @@ def _segmented(mesh):
                                                device="cpu", **PITCH_KW),
         "floor": tseg.segmented_pitch_analysis(x, SR, mesh=mesh,
                                                device="cpu", **FLOOR_KW),
+        "pipelined": tseg.segmented_pitch_analysis(
+            x, SR, mesh=mesh, device="cpu", transfer="pipelined",
+            **PITCH_KW),
         "onset": tseg.segmented_onset_analysis(x, SR, mesh=mesh,
                                                device="cpu", **ONSET_KW),
         "batch": tseg.segmented_pitch_analysis_batch(xs, SR, mesh=mesh,
@@ -256,13 +259,17 @@ def test_pooled_wave_sharded_matches_one_card(world):
     assert [r["pool"] for r in ranks] == [{"lanes": 2, "waves": 3}] * WORLD
 
 
-@pytest.mark.parametrize("name", ["pitch", "floor", "onset"])
+@pytest.mark.parametrize("name", ["pitch", "floor", "onset", "pipelined"])
 def test_segmented_on_the_mesh_is_bitwise(world, name):
     """One recording's segments shared over the mesh: every rank returns
     the mesh-free result bit for bit (JAX's tests/test_segmented.py:205
-    for the pitch path)."""
+    for the pitch path); with transfer="pipelined" each rank stages only
+    its own rows, and the result is the resident mesh-free one."""
     ranks, ref = world
     want = ref["segmented"][name]
+    if name == "pipelined":
+        for a, b in zip(want, ref["segmented"]["pitch"]):
+            np.testing.assert_array_equal(a, b)
     assert want[0].shape[0] > 600
     for r in ranks:
         for a, b in zip(r["segmented"][name], want):

@@ -123,3 +123,30 @@ def test_short_empty_and_unported():
     with pytest.raises(ValueError):
         tseg.segmented_onset_analysis(np.zeros(int(SR), np.float32), SR,
                                       transfer="tunnel", device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_pipelined_transfer_matches_resident_and_jax(dtype):
+    """transfer="pipelined" gives the resident path's bits over 5 steps (both
+    staging buffers refilled), for float32 input and the scene scaled and
+    clipped to int16; and agrees with the JAX package's own pipelined run
+    by this module's criteria."""
+    x = gen.mixed_scene(2.5, SR, seed=1)
+    if dtype == "int16":
+        x = np.clip(x * 32768.0, -32768, 32767).astype(np.int16)
+    kw = dict(segments=2, warmup_frames=128, chunk_frames=256)
+    n = num_frames(len(x), ONSET_WINDOW, ONSET_HOP)
+    assert tseg._plan_streams(n, 2, 128, 256, ONSET_WINDOW,
+                              ONSET_HOP).steps >= 3
+    got = tseg.segmented_onset_analysis(x, SR, transfer="pipelined",
+                                        device="cpu", **kw)
+    _assert_same(got, tseg.segmented_onset_analysis(
+        x, SR, transfer="resident", device="cpu", **kw))
+    assert got[0].any()
+    (gf, gv, gx, ge) = got
+    (rf, rv, rx, re_) = jseg.segmented_onset_analysis(
+        x, SR, transfer="pipelined", **kw)
+    np.testing.assert_array_equal(gf, rf)
+    np.testing.assert_allclose(gv, rv, rtol=RTOL, atol=0)
+    np.testing.assert_allclose(gx, rx, rtol=RTOL, atol=0)
+    np.testing.assert_allclose(ge, re_, rtol=RTOL, atol=0)

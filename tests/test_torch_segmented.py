@@ -73,7 +73,7 @@ def _near_rounding_boundary(f):
     return np.abs(f * 10.0 - np.floor(f * 10.0) - 0.5) * 0.1 <= RTOL * f
 
 
-def _assert_agrees(got, ref, straddles=frozenset()):
+def _assert_agrees(got, ref, straddles=frozenset(), score_atol=0.0):
     """got/ref: (freqs, scores, valid) [N, 8] — see the module docstring.
     Only the frames in `straddles` may differ at 0.1 Hz."""
     (gf, gs, gv), (rf, rs, rv) = got, ref
@@ -81,7 +81,7 @@ def _assert_agrees(got, ref, straddles=frozenset()):
     np.testing.assert_array_equal(gv, rv)
     assert rv.any()
     np.testing.assert_allclose(gf[rv], rf[rv], rtol=RTOL)
-    np.testing.assert_allclose(gs[rv], rs[rv], rtol=RTOL)
+    np.testing.assert_allclose(gs[rv], rs[rv], rtol=RTOL, atol=score_atol)
     flips = [i for i in range(len(rf))
              if _rounded(gf, gv, i) != _rounded(rf, rv, i)]
     assert set(flips) <= straddles, f"frames {flips} differ at 0.1 Hz"
@@ -191,9 +191,62 @@ def test_unported_options_raise():
                                       device="cpu")
     with pytest.raises(ValueError):
         tseg.segmented_pitch_analysis(x, SR, transfer="tunnel", device="cpu")
-    for transfer in ("auto", "resident", "pipelined"):
-        tseg.segmented_pitch_analysis(x, SR, transfer=transfer,
-                                      device="cpu")
+    # transfer is ported: every mode gives the resident bits.
+    want = tseg.segmented_pitch_analysis(x, SR, transfer="resident",
+                                         device="cpu")
+    for transfer in ("auto", "pipelined"):
+        for a, b in zip(tseg.segmented_pitch_analysis(
+                x, SR, transfer=transfer, device="cpu"), want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_pipelined_transfer_matches_resident_and_jax(dtype):
+    """transfer="pipelined" (two staging buffers, a block a step) gives the
+    resident path's bits, over 4 steps, so that both buffers are refilled;
+    and agrees with the JAX package's own pipelined run by this module's
+    criteria (decisions exact, floats within rtol 1e-5).  A score is
+    log2(0.5 + s) times the structure factor, so a score near 0 carries
+    the log's float32 error near log2(1), which is absolute: scores are
+    held within 4 ulps of 1.0 besides rtol 1e-5 (this scene has a valid
+    score of 0.0070, 1.0e-7 off JAX's)."""
+    x = gen.mixed_scene(5.0, SR, seed=1)
+    if dtype == "int16":     # scaled and clipped as JAX's transfer test
+        x = np.clip(x * 32768.0, -32768, 32767).astype(np.int16)
+    kw = dict(segments=2, warmup_frames=64, chunk_frames=64)
+    n_total = tseg.num_frames(len(x), 2048, 512)
+    assert tseg._plan_streams(n_total, 2, 64, 64, 2048, 512).steps >= 3
+    got = tseg.segmented_pitch_analysis(x, SR, transfer="pipelined",
+                                        device="cpu", **kw)
+    want = tseg.segmented_pitch_analysis(x, SR, transfer="resident",
+                                         device="cpu", **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    _assert_agrees(got, jseg.segmented_pitch_analysis(
+        x, SR, transfer="pipelined", **kw), score_atol=4 * 2.0 ** -23)
+
+
+def test_resolve_transfer_auto_policy():
+    """JAX's test_resolve_transfer_auto_policy, on the port's constant (the
+    crossover measured on the card, 10 minutes)."""
+    limit = tseg.AUTO_PIPELINED_MIN_SECONDS
+    resolve = tseg._resolve_transfer
+    assert limit == 600.0
+    long_n, short_n = int(limit * SR) + 1, int(limit * SR) - 1
+    assert resolve("auto", "pitch", long_n, SR, None) == "pipelined"
+    assert resolve("auto", "pitch", short_n, SR, None) == "resident"
+    # A shared device upload is on the device already: never pipeline.
+    assert resolve("auto", "pitch", long_n, SR, object()) == "resident"
+    # Onset steps cannot hide a copy.
+    assert resolve("auto", "onset", long_n, SR, None) == "resident"
+    # Explicit modes pass through.
+    assert resolve("resident", "pitch", long_n, SR, None) == "resident"
+    assert resolve("pipelined", "onset", short_n, SR, None) == "pipelined"
+    for bad in ("Auto", "pipeline", "", "stream"):
+        with pytest.raises(ValueError, match="transfer="):
+            resolve(bad, "pitch", long_n, SR, None)
 
 
 def test_cuda_device_raises_without_cuda():

@@ -12,7 +12,9 @@ Layer map (mirrors the JAX package):
                      (bulk): per-frame features, pitches and onsets
   utils/framing      hop-strided framing (Tensor.unfold)
   ops/fft, ops/stft  Hann × rDFT magnitude; the "dft" backend is kernel K1
-                     (ops/hopper_stft.py, csrc/stft.cu); rfft_complex/irfft
+                     (ops/hopper_stft.py, csrc/stft.cu), the "fft" backend
+                     kernel K11 (ops/hopper_rfft.py, csrc/rfft_mag.cu);
+                     rfft_complex/irfft (cuFFT)
   ops/noisefloor     per-bin noise-floor recurrence (kernel K5:
                      ops/hopper_noisefloor.py, csrc/noisefloor.cu)
   ops/reducer        input conditioning, HPF -> LPF -> noise gate: the

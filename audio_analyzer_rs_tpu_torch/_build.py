@@ -8,7 +8,8 @@ edited source rebuilds and an unchanged one loads the cached build.  No
 `--use_fast_math`: the comb, onset, noise-floor and dynamics kernels rely
 on IEEE division (and the dynamics kernel on the CUDA math library's
 logf, powf and sqrtf, as PyTorch calls them), and every kernel but K1
-keeps denormals (each matches its plain version bitwise).
+keeps denormals (each matches its plain version, or K11 its numpy
+transcription, bitwise).
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` turns a non-zero code into an exception.
@@ -72,6 +73,10 @@ _SIGNATURES = {
     # silence alpha, stream
     "aat_dynamics_scan": (_P,) * 26 + (_I, _I, _I, _I)
     + (ctypes.c_float,) * 3 + (_P,),
+    # frames, frame stride (outer, inner), frames per outer row, window,
+    # twiddle table, out, n, log2 width, band, float2 loads, stream
+    "aat_rfft_mag": (_P, ctypes.c_longlong, ctypes.c_longlong, _I, _P, _P,
+                     _P, _I, _I, _I, _I, _P),
     # x, idx, out, rows, columns, stream
     "aat_lane_gather": (_P, _P, _P, _I, _I, _P),
     "aat_comb_gather12": (_P, _P, _P, _I, _I, _P),

@@ -2,13 +2,17 @@
 
 Two backends:
 
-* ``fft`` — `torch.fft.rfft`, full spectrum (the full-spectrum default).
+* ``fft`` — the real FFT's magnitude, full spectrum (the full-spectrum
+  default).  On a CUDA tensor this is kernel K11 (ops/hopper_rfft.py: one
+  fixed order of operations a frame, so a frame's bits do not depend on the
+  batch); on a CPU tensor its plain version, `torch.fft.rfft(...).abs()`.
 * ``dft`` — frames @ an interleaved cos/-sin table, then the magnitude; with
   `band`, only the first `band` bins.  On a CUDA tensor this is kernel K1
   (ops/hopper_stft.py); on a CPU tensor its plain matmul version.
 
-`rfft_complex` and `irfft` (YIN's FFT autocorrelation) are library FFTs,
-as in the JAX package, which computes them with `jnp.fft`.
+`rfft_complex` and `irfft` (YIN's FFT autocorrelation) are library FFTs
+(cuFFT on the card), as in the JAX package, which computes them with
+`jnp.fft`.
 
 The constant tables are built with the JAX module's own numpy formulas, so
 they are bit-equal to the reference's.
@@ -21,7 +25,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from . import hopper_stft
+from . import hopper_rfft, hopper_stft
 
 DEFAULT_BACKEND = "fft"
 
@@ -80,8 +84,7 @@ def rfft_mag(frames: torch.Tensor, backend: str = DEFAULT_BACKEND,
     if band is None or band >= half:
         band = half
     if backend == "fft":
-        mags = torch.fft.rfft(frames.float(), dim=-1).abs()
-        return mags if band == half else mags[..., :band]
+        return hopper_rfft.rfft_mag(frames.float(), band)
     if backend != "dft":
         raise ValueError(f"backend={backend!r}: expected 'fft' or 'dft'")
     return dft_mag(frames.float(), band)

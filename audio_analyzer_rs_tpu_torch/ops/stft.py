@@ -4,6 +4,9 @@ audio_analyzer_rs_tpu/ops/stft.py).
 The pitch pipeline's backend is the candidate-banded rDFT (`"dft_band"`):
 the pitch stages read only bins [0, kc+1), ~465 of 1025.  Its `"dft"` base
 is kernel K1 on CUDA tensors (window multiply fused, ops/hopper_stft.py).
+The `"fft"` backend is kernel K11 on CUDA tensors (the window applied as
+the frames load, ops/hopper_rfft.py) and `torch.fft.rfft(frames *
+hann).abs()` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import numpy as np
 import torch
 
 from ..utils.framing import frame_signal, num_frames
+from . import hopper_rfft
 from .fft import DEFAULT_BACKEND, dft_mag, hann, hann_window, rfft_mag
 
 # Pitch-analysis geometry (ref stft.rs:169-171).
@@ -34,10 +38,13 @@ def windowed_mags(frames: torch.Tensor, window: int = PITCH_WINDOW,
                   backend: str = DEFAULT_BACKEND,
                   band: int | None = None) -> torch.Tensor:
     """[..., N, window] pre-framed audio → [..., N, band or window//2+1]
-    magnitudes.  backend "fft" (torch.fft) or "dft" (kernel K1 on CUDA,
-    with the Hann multiply fused)."""
+    magnitudes.  backend "fft" (kernel K11 on CUDA, torch.fft on the CPU)
+    or "dft" (kernel K1 on CUDA); on CUDA both apply the Hann window as
+    they load the frames."""
     if backend == "dft":
         return dft_mag(frames, band, hann(window, frames.device))
+    if backend == "fft":
+        return hopper_rfft.rfft_mag(frames, band, hann(window, frames.device))
     return rfft_mag(frames * hann(window, frames.device), backend=backend,
                     band=band)
 

@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """The full step's kernels and card time, profiled in a process of its own.
 
-    python3 port_tools/fullstep_profile.py [--profiles 3]
+    python3 port_tools/fullstep_profile.py [--profiles 3] [--stft k11|plain]
 
 `make_batched_full_step` over chip_smoke.py phase 12's fleet (128 streams
 of the 30-minute `mixed_scene(seed=0)` taken as 48 kHz audio, a stream
 every 600,000 samples, 468-slot chunks on the card): the first two steps
 from fresh states, then the second step again from the states the first
-leaves, timed by CUDA events around it (median of 20 steps) and run
+leaves, timed by CUDA events around it (median of 20 steps) and by the
+host clock around it and a synchronize (median of 20), and run
 `--profiles` times under torch.profiler, each its own session, the step
-20 ms into it and bracketed by CUDA events.  Prints the card's name and
-power limit, then one JSON line: the step's ms, and for each profile
-torch's CUDA kernels and their card ms, the port's (csrc/*.cu) and theirs,
-K5's, the card's busy ms against the profiled step's ms, and the top
-torch kernels.  Exits 2 without a CUDA device.
+20 ms into it and bracketed by CUDA events.  `--stft plain` runs the
+step's two "fft" STFTs through the plain version instead of K11
+(`torch.fft.rfft(frames x hann).abs()`, cuFFT: the step as it was before
+K11), for the before-and-after of one run.  Prints the card's name and
+power limit, then one JSON line: the step's ms (events and host), and for
+each profile torch's CUDA kernels and their card ms, the port's
+(csrc/*.cu) and theirs, K5's, K11's, cuFFT's, the card's busy ms against
+the profiled step's ms, and the top torch kernels.  Exits 2 without a
+CUDA device.
 
 torch.profiler has lost kernels in a process that profiled before:
 chip_smoke.py's phase 12, after phases 10-11's profiles, saw 22-28 of
@@ -37,7 +42,17 @@ SR44 = 44100.0
 # The port's own kernels among the profiler's (csrc/*.cu).
 OWN_KERNELS = ("reducer_kernel", "dynamics_", "noise_floor_kernel",
                "onset_kernel", "tracker_select_kernel", "extract_kernel",
-               "stft_mag_kernel", "comb_kernel")
+               "stft_mag_kernel", "comb_kernel", "rfft_mag_kernel")
+
+
+def plain_stft(frames, window, backend="fft", band=None):
+    """The step's "fft" STFT through the plain version (cuFFT), in place of
+    ops/stft.py `windowed_mags`."""
+    from audio_analyzer_rs_tpu_torch.ops import hopper_rfft
+    from audio_analyzer_rs_tpu_torch.ops.fft import hann
+    assert backend == "fft", backend
+    return hopper_rfft.rfft_mag_plain(frames, band,
+                                      hann(window, frames.device))
 
 
 def fleet_step(dev, capture=None):
@@ -90,6 +105,13 @@ def profile_step(step, st, chunk, call=None, profiles: int = 1) -> dict:
     try:
         step_ms = statistics.median(chip_smoke.cuda_times(
             lambda: step(st, chunk)))
+        host = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(st, chunk)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
         for _ in range(profiles):
             torch.cuda.synchronize()
             begin = torch.cuda.Event(enable_timing=True)
@@ -114,24 +136,32 @@ def profile_step(step, st, chunk, call=None, profiles: int = 1) -> dict:
         own = [ev for ev in evs if any(k in ev.key for k in OWN_KERNELS)]
         torch_k = [ev for ev in evs if ev not in own]
         top = sorted(torch_k, key=lambda ev: -ev.self_device_time_total)
+        k11 = [ev for ev in own if "rfft_mag_kernel" in ev.key]
+        cufft = [ev for ev in torch_k if "fft" in ev.key.lower()]
         out.append({
-            "saw_fft": any("fft" in ev.key.lower() for ev in evs),
+            "saw_stft": bool(k11 or cufft),
             "torch_kernels": sum(ev.count for ev in torch_k),
             "torch_card_ms": ms(torch_k),
             "port_kernels": sum(ev.count for ev in own),
             "port_card_ms": ms(own),
             "k5_card_ms": ms(ev for ev in own
                              if "noise_floor_kernel" in ev.key),
+            "k11_kernels": sum(ev.count for ev in k11),
+            "k11_card_ms": ms(k11),
+            "cufft_kernels": sum(ev.count for ev in cufft),
+            "cufft_card_ms": ms(cufft),
             "card_busy_ms": ms(evs), "profiled_step_ms": span_ms,
             "top": [f"{ev.key[:48]} x{ev.count} "
                     f"{ev.self_device_time_total / 1e3:.3f} ms"
                     for ev in top[:6]]})
-    return {"step_ms": step_ms, "profiles": out}
+    return {"step_ms": step_ms, "host_ms": statistics.median(host),
+            "profiles": out}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profiles", type=int, default=3)
+    ap.add_argument("--stft", choices=("k11", "plain"), default="k11")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -141,6 +171,10 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
+    sys.path.insert(0, str(REPO))
+    from audio_analyzer_rs_tpu_torch.parallel import sharding
+    if args.stft == "plain":
+        sharding.windowed_mags = plain_stft
     step, st, chunk = fleet_step(torch.device("cuda"))
     print(json.dumps(profile_step(step, st, chunk,
                                   profiles=args.profiles)), flush=True)

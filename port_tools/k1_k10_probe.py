@@ -52,7 +52,7 @@ K5's floors; and chip_smoke.py phase 3's call, the 30-minute scene's third
 pitch step, 128 streams x 64 frames with fresh floor states), a live slot
 ([2, 427] at 48 kHz), a pool wave of 33 lanes ([66, 427]) and the full
 step's call (128 streams x 933 frames at 48 kHz:
-cuFFT's full-width magnitudes [119424, 1025] read through their stride,
+the "fft" full-width magnitudes [119424, 1025] read through their stride,
 banded floors [119424, 426]), the 48 kHz ones windows of a 120 s
 `mixed_scene(seed=1)`.  Times: CUDA events around 10 back-to-back launches
 after a ~2 ms spin, median of 20 samples, as chip_smoke.py times.  One

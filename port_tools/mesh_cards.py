@@ -18,9 +18,8 @@ the same scene, `mixed_scene(minutes, 44.1 kHz, seed=0)`, then:
      each rank its share, `--steps` chunks of `--slots` slots chained:
      the host ms a warm step (each step ends in the fleet all-reduce and a
      synchronize) against rank 0's mesh-free step over all streams; then
-     one step from fresh states with each stream's STFT computed alone
-     (cuFFT's 2,048-point bits depend on the batch), all-gathered and held
-     bit for bit to the mesh-free step's, and the flips counted without;
+     one step from fresh states, all-gathered and held bit for bit to the
+     mesh-free step's;
   3. the pooled wave (`make_pooled_wave_step`), `--lanes` lanes x 3 waves,
      bitwise to the one-card pool step (`dryrun.pooled_wave_check`).
 Prints each card's name and power limit, one JSON object of results, and
@@ -39,13 +38,6 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 SR, FULL_SR = 44100.0, 48000.0
 STREAM_STRIDE = 600_000          # a stream's window into the scene (phase 12)
-
-
-def _per_stream(frames, window, backend="fft", band=None):
-    import torch
-    from audio_analyzer_rs_tpu_torch.ops.stft import windowed_mags
-    return torch.cat([windowed_mags(frames[i:i + 1], window, backend, band)
-                      for i in range(frames.shape[0])])
 
 
 def _sync(dev):
@@ -139,28 +131,13 @@ def rank_main(rank: int, world: int, args: dict) -> dict:
         one = run(None, "one_card")
     dist.barrier()
     step = run(mesh, "mesh")
-    windowed = sharding.windowed_mags
-    outs = {}
-    for label, mags in (("equalized", _per_stream), ("cufft", windowed)):
-        sharding.windowed_mags = mags
-        try:
-            _, o = step(sh.shard(sharding.init_stream_states(b, device=dev)),
-                        sh.shard(chunks[0]))
-            gathered = sh.gather(tuple(o[:5]))
-            if rank == 0:
-                _, r = one(sharding.init_stream_states(b, device=dev),
-                           chunks[0])
-                outs[label] = (gathered, r)
-        finally:
-            sharding.windowed_mags = windowed
+    _, o = step(sh.shard(sharding.init_stream_states(b, device=dev)),
+                sh.shard(chunks[0]))
+    gathered = sh.gather(tuple(o[:5]))
     if rank == 0:
-        g, r = outs["equalized"]
-        out["step_equalized_bitwise"] = all(
-            _bits_equal(x, y) for x, y in zip(g, r[:5]))
-        g, r = outs["cufft"]
-        out["step_cufft_flips"] = [
-            int((g[1] != r.stable_valid).sum()),
-            int((g[2] != r.onset_fired).sum())]
+        _, r = one(sharding.init_stream_states(b, device=dev), chunks[0])
+        out["step_bitwise"] = all(
+            _bits_equal(x, y) for x, y in zip(gathered, r[:5]))
     del chunks, fleet
 
     # 3. The pooled wave.
@@ -202,7 +179,7 @@ def main() -> int:
     r0 = ranks[0]
     gates = {
         "pitch_bitwise": r0["pitch_bitwise"],
-        "step_equalized_bitwise": r0["step_equalized_bitwise"],
+        "step_bitwise": r0["step_bitwise"],
         "pool_bitwise": all(r["pool"]["lanes"] == args.lanes // args.ranks
                             for r in ranks),
     }
@@ -222,7 +199,6 @@ def main() -> int:
             / 1e3),
         "audio_s_per_wall_s_mesh": args.streams * secs / (
             sorted(r0["step_mesh_ms"])[len(r0["step_mesh_ms"]) // 2] / 1e3),
-        "step_cufft_flips": r0["step_cufft_flips"],
         "gates": gates,
     }
     print(json.dumps(result))

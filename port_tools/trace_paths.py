@@ -9,9 +9,9 @@ Paths: `segmented_pitch_analysis` and `analyze_buffer_segmented` over the
 `mixed_scene(seed=0)` recording chip_smoke.py uses, each warmed by one
 untraced call and then traced once.  Stages are marked by wrapping the
 package's functions in `torch.profiler.record_function` for the traced call
-(nothing in the package changes): the upload, the STFT (K1, or cuFFT), the
+(nothing in the package changes): the upload, the STFT (K1, or K11), the
 noise-floor scan (K5), the extraction (K10), the tracker (K3),
-and for the analysis API the onset pass (cuFFT + K4), the pitch pass and the
+and for the analysis API the onset pass (K11 + K4), the pitch pass and the
 feature chunks (spectrogram, feature pack, YIN).
 
 Per path, one JSON object: the host wall of the traced call; per stage its
@@ -57,7 +57,7 @@ def stage_wrappers(analysis_api: bool) -> list:
     undo: list = []
     wrap(segmented, "_upload_f32", "upload", undo)
     wrap(segmented, "_slice_streams", "slice streams", undo)
-    wrap(analyzer, "windowed_mags", "stft (K1; cuFFT in the onset pass)",
+    wrap(analyzer, "windowed_mags", "stft (K1; K11 in the onset pass)",
          undo)
     wrap(noisefloor, "noise_floor_scan", "noise floor (K5)", undo)
     wrap(pitch, "extract_pitches", "extraction (K10)", undo)
@@ -131,7 +131,7 @@ def summarize(prof, wall_s: float, steps: int) -> dict:
 
 
 STAGE_LABELS = {
-    "upload", "slice streams", "stft (K1; cuFFT in the onset pass)",
+    "upload", "slice streams", "stft (K1; K11 in the onset pass)",
     "noise floor (K5)", "extraction (K10)", "tracker (K3)",
     "onset pass", "pitch pass", "feature chunks: spectrogram",
     "feature chunks: feature pack", "feature chunks: YIN",

@@ -26,7 +26,12 @@ every state leaf across the full width, tail included: at bands 426, 464
 and 1,025 for S = 1, 33 and 128, at the full step's call (128 x 933
 frames of 1,025-float rows, band 426, fresh and carried), and on the cases
 its division shortcuts could break (tests/test_torch_noisefloor_kernel.py
-`edge_cases`); no torch op runs after its launch.  Tolerances: K1 max |Δ| <= 1e-5 ·
+`edge_cases`); no torch op runs after its launch.  K11 (the "fft"
+magnitude) is bitwise to `rfft_mag_fixed_np`, its operation order in
+numpy, on random, scene and silence-level frames, and a frame's bits do
+not depend on the batch or the layout (1 to 2,064 frames, [C, 16] and
+[B, 933]); against cuFFT (its plain version) within 1e-5 of each frame's
+peak.  Tolerances: K1 max |Δ| <= 1e-5 ·
 max (3xTF32 on the tensor cores against cuBLAS FP32), and bitwise across
 batch geometries; K2, K3, K4 and K5 bitwise (K3's, K4's and K5's floats as
 bit patterns, so -0.0 and +0.0 differ).
@@ -54,9 +59,9 @@ import torch
 from audio_analyzer_rs_tpu_torch.models import generators as gen
 from audio_analyzer_rs_tpu_torch.ops import (hopper_comb, hopper_extract,
                                              hopper_noisefloor, hopper_onset,
-                                             hopper_stft, hopper_tracker,
-                                             noisefloor, onset, pitch,
-                                             tracker)
+                                             hopper_rfft, hopper_stft,
+                                             hopper_tracker, noisefloor,
+                                             onset, pitch, tracker)
 from audio_analyzer_rs_tpu_torch.ops.fft import hann, rdft_trig
 from audio_analyzer_rs_tpu_torch.ops.stft import windowed_mags
 from audio_analyzer_rs_tpu_torch.utils.framing import frame_signal
@@ -910,7 +915,7 @@ def test_live_onset_kernel(dev, n, nan):
 
 
 def test_fft_mags_are_batch_independent(dev):
-    """One onset frame's "fft" magnitudes (cuFFT) in batches of 1, 16, 63,
+    """One onset frame's "fft" magnitudes (K11) in batches of 1, 16, 63,
     64, 65 and 129 frames and in an engine pool's batches of 16·C frames
     (C lanes of 16 onset frames, C up to 129), the frame at the batch's
     first, middle and last row: the same bits in every batch, and in the
@@ -1249,28 +1254,113 @@ def test_k7_matches_plain_bitwise(dev, b, s, length, mode):
 
 
 def test_fft_2048_mags_across_batches(dev):
-    """One pitch frame's "fft" magnitudes (cuFFT, 2,048 points, the full
+    """One pitch frame's "fft" magnitudes (K11, 2,048 points, the full
     step's pitch STFT) in batches of 1, 7, 933 and 1,866 frames and in the
-    full step's [B, 933] layout at B = 4 and 128.  Unlike the 256-point
-    transform (`test_fft_mags_are_batch_independent`), cuFFT's 2,048-point
-    bits depend on the batch (ROADMAP Queue 3): held within 1e-5 of the
-    frame's peak magnitude."""
+    full step's [B, 933] layout at B = 4 and 128: the same bits in every
+    batch (cuFFT's 2,048-point bits depended on the batch, and this test
+    held them within 1e-5 of the frame's peak)."""
     x = _live_scene(dev, 24.0)
     frames = frame_signal(x, W, HOP)                          # 2,246 frames
     k = 1000
     want = windowed_mags(frames[k:k + 1], W, "fft")[0]
-    tol = 1e-5 * float(want.max())
-    worst = 0.0
-    for b in (1, 7, 933):
+    for b in (1, 7, 933, 1866):
         for start in (k, k - b // 2, k - b + 1):
+            if start < 0 or start + b > frames.shape[0]:
+                continue
             got = windowed_mags(frames[start:start + b], W, "fft")
-            worst = max(worst, float((got[k - start] - want).abs().max()))
+            assert_same_bits(got[k - start], want, f"batch {b} at {start}")
     for rows in (4, 128):
         lanes = frames[k - 400:k + 533].unsqueeze(0).repeat(rows, 1, 1)
         got = windowed_mags(lanes, W, "fft")
         for r in (0, rows - 1):
-            worst = max(worst, float((got[r, 400] - want).abs().max()))
-    assert worst <= tol, (worst, tol)
+            assert_same_bits(got[r, 400], want, f"[{rows}, 933] row {r}")
+
+
+@pytest.mark.parametrize("width", [256, 2048])
+@pytest.mark.parametrize("data", ["random", "scene", "silence"])
+def test_k11_bitwise_to_its_transcription(dev, width, data):
+    """K11 bit for bit against `rfft_mag_fixed_np` (its operation order in
+    numpy) on random, scene and silence-level frames (the Hann window's
+    products below 2^-126), read through unfold views with float2 loads
+    and (an odd sample offset) scalar loads, and through the wrapper's
+    rectangular window and a band."""
+    hop = width // 4
+    if data == "random":
+        x = np.random.default_rng(width).standard_normal(
+            width * 64).astype(np.float32)
+    elif data == "scene":
+        x = _live_scene(dev, 3.0).cpu().numpy()
+    else:
+        x = (gen.mixed_scene(3.0, SR48, seed=4)
+             * np.float32(2.0 ** -120)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    win = hann(width, dev)
+    for off in (0, 1):
+        fr = frame_signal(xd[off:], width, hop)
+        want = hopper_rfft.rfft_mag_fixed_np(fr.cpu().numpy(), None,
+                                             win.cpu().numpy())
+        assert_same_bits(windowed_mags(fr, width, "fft"), want,
+                         f"offset {off}")
+    fr = fr[::3]
+    assert_same_bits(hopper_rfft.rfft_mag(fr, 17),
+                     hopper_rfft.rfft_mag_fixed_np(fr.cpu().numpy(), 17))
+
+
+@pytest.mark.parametrize("width", [256, 2048])
+def test_k11_both_forms_bitwise(dev, width):
+    """K11 takes 16 values a thread below one 32-value tile an SM and 32
+    at and above it (csrc/rfft_mag.cu `launch`): frame counts on both sides
+    of the switch, each bitwise to `rfft_mag_fixed_np`, a frame's bits the
+    same in either form."""
+    per_tile = 256 // (width // 64)              # frames a 32-value tile
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(width + 7)
+    x = rng.standard_normal(
+        (per_tile * sms + 9) * width // 4 + width).astype(np.float32)
+    fr = frame_signal(torch.from_numpy(x).to(dev), width, width // 4)
+    win = hann(width, dev)
+    small = fr[:per_tile * (sms - 1) + 3]
+    got_small = hopper_rfft.rfft_mag(small, None, win)
+    got_big = hopper_rfft.rfft_mag(fr, None, win)
+    assert_same_bits(got_small, hopper_rfft.rfft_mag_fixed_np(
+        small.cpu().numpy(), None, win.cpu().numpy()))
+    assert_same_bits(got_big, hopper_rfft.rfft_mag_fixed_np(
+        fr.cpu().numpy(), None, win.cpu().numpy()))
+    assert_same_bits(got_big[:small.shape[0]], got_small)
+
+
+@pytest.mark.parametrize("width", [256, 2048])
+def test_k11_near_cufft_and_the_spectral_gate(dev, width):
+    """K11 within 1e-5 of each frame's peak of its plain version
+    (torch.fft.rfft(frames x hann).abs(), cuFFT), and the float64 spectral
+    gate (rel MSE < 1e-6) through `windowed_mags`."""
+    from audio_analyzer_rs_tpu_torch.ops import stft
+    x = _live_scene(dev, 6.0)
+    fr = frame_signal(x, width, width // 4)
+    win = hann(width, dev)
+    got = hopper_rfft.rfft_mag(fr, None, win)
+    plain = hopper_rfft.rfft_mag_plain(fr, None, win)
+    peak = plain.abs().amax(-1, keepdim=True)
+    assert bool(((got - plain).abs() <= 1e-5 * peak).all())
+    probe = gen.tone_with_harmonics(220.0, 1.0, SR48, harmonics=8,
+                                    amplitude=0.5)
+    for sig in (probe, x.cpu().numpy()):
+        rel = stft.spectral_rel_mse(sig, width, width // 4, "fft", dev)
+        assert rel < stft.FIDELITY_MAX_REL_MSE, rel
+
+
+def test_k11_refuses_and_counts(dev):
+    """The wrapper on CUDA tensors: K11 or an exception (a float64 frame,
+    an untaken width), one count a launch and none for a refusal."""
+    before = hopper_rfft.LAUNCHES
+    fr = torch.zeros((3, 256), device=dev)
+    hopper_rfft.rfft_mag(fr)
+    assert hopper_rfft.LAUNCHES == before + 1
+    with pytest.raises(TypeError):
+        hopper_rfft.rfft_mag(fr.double())
+    with pytest.raises(ValueError):
+        hopper_rfft.rfft_mag(torch.zeros((3, 300), device=dev))
+    assert hopper_rfft.LAUNCHES == before + 1
 
 
 def _full_step_two_streams(device, mags_fn=None):
@@ -1294,7 +1384,7 @@ def test_full_step_card_matches_cpu(dev):
     CPU (the plain versions), 2 streams x 2 s in one step.  With the STFT
     equalized (the CPU's FFT magnitudes used on the card) every decision
     is equal: stable valid flags, fired onsets, levels; frequencies within
-    1e-4 relative, velocities within 1e-5.  With cuFFT's own magnitudes
+    1e-4 relative, velocities within 1e-5.  With K11's own magnitudes
     the levels are equal and at most 1% of the stable slots flip."""
     cpu = _full_step_two_streams("cpu")
 
@@ -1318,7 +1408,8 @@ def test_full_step_card_matches_cpu(dev):
 
 def test_full_step_launches_each_kernel_once(dev, monkeypatch):
     """One full step at B = 4: K3-K7 and K10 once each (K2's comb runs
-    inside K10), no plain scan step and no plain extraction."""
+    inside K10) and K11 twice (the pitch and the onset STFT), no plain
+    scan step and no plain extraction."""
     from audio_analyzer_rs_tpu_torch.ops import (dynamics, hopper_dynamics,
                                                  hopper_reducer)
     from audio_analyzer_rs_tpu_torch.ops import reducer
@@ -1332,14 +1423,15 @@ def test_full_step_launches_each_kernel_once(dev, monkeypatch):
                       (pitch, "_extract"), (hopper_comb, "comb")):
         monkeypatch.setattr(mod, name, refuse)
     mods = (hopper_extract, hopper_tracker, hopper_onset, hopper_noisefloor,
-            hopper_reducer, hopper_dynamics)
+            hopper_reducer, hopper_dynamics, hopper_rfft)
+    monkeypatch.setattr(hopper_rfft, "rfft_mag_plain", refuse)
     audio = torch.from_numpy(dynamics_streams(4, 6).reshape(4, -1)).to(dev)
     step = sharding.make_batched_full_step(None, SR48, device=dev)
     st = sharding.init_stream_states(4, device=dev)
     before = [m.LAUNCHES for m in mods]
     st, out = step(st, audio)
     torch.cuda.synchronize()
-    assert [m.LAUNCHES - n for m, n in zip(mods, before)] == [1] * 6
+    assert [m.LAUNCHES - n for m, n in zip(mods, before)] == [1] * 6 + [2]
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (1, 2), (1, 3), (4, 37), (1, 300)])

@@ -327,7 +327,8 @@ def test_source_scan():
                 "parallel/sharding.py", "ops/hopper_reducer.py",
                 "ops/hopper_dynamics.py", "devtools.py", "cli.py",
                 "parallel/mesh.py", "parallel/dryrun.py", "ops/gather.py",
-                "ops/hopper_gather.py", "ops/hopper_extract.py"):
+                "ops/hopper_gather.py", "ops/hopper_extract.py",
+                "ops/hopper_rfft.py"):
         assert PORT / new in files, new
     assert REPO / "port_tools" / "gather_probe.py" in files
     assert REPO / "port_tools" / "k1_k10_probe.py" in files
@@ -338,6 +339,6 @@ def test_source_scan():
                 (path, name)
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == \
         ["comb.cu", "dynamics.cu", "extract.cu", "gather.cu", "noisefloor.cu",
-         "onset.cu", "reducer.cu", "stft.cu", "tracker.cu"]
+         "onset.cu", "reducer.cu", "rfft_mag.cu", "stft.cu", "tracker.cu"]
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cuh")) == \
         ["comb.cuh"]

@@ -63,6 +63,10 @@ _SIGNATURES = {
     # mags width, stream
     "aat_noise_floor_scan": (_P, ctypes.c_longlong, ctypes.c_longlong)
     + (_P,) * 10 + (_I, _I, _I, _I, _I, _P),
+    # the same, and each stream's first frame at full width before the
+    # sizes
+    "aat_noise_floor_scan_first": (_P, ctypes.c_longlong, ctypes.c_longlong)
+    + (_P,) * 11 + (_I, _I, _I, _I, _I, _P),
     # x, y, state in [B, 9], hold in, state out, hold out, streams,
     # samples, gate only, the two biquads' b0 b1 b2 a1 a2, release,
     # 1 - release, hold samples, stream
@@ -77,6 +81,9 @@ _SIGNATURES = {
     # twiddle table, out, n, log2 width, band, float2 loads, stream
     "aat_rfft_mag": (_P, ctypes.c_longlong, ctypes.c_longlong, _I, _P, _P,
                      _P, _I, _I, _I, _I, _P),
+    # the same, and each outer row's first frame at full width after out
+    "aat_rfft_mag_first": (_P, ctypes.c_longlong, ctypes.c_longlong, _I, _P,
+                           _P, _P, _P, _I, _I, _I, _I, _P),
     # x, idx, out, rows, columns, stream
     "aat_lane_gather": (_P, _P, _P, _I, _I, _P),
     "aat_comb_gather12": (_P, _P, _P, _I, _I, _P),

@@ -32,8 +32,9 @@
 //  - Lanes past B run bin B - 1's frames from bin B - 1's state, so they
 //    branch as lane B - 1 does and add no divergence; they store nothing.
 //  - The state above the band is written by the kernel (copied, or seeded
-//    from a full-width first frame), so the wrapper runs no torch op
-//    after the launch.
+//    from a full-width first frame: the magnitudes' own, or a stream's
+//    first frame handed in beside banded magnitudes), so the wrapper runs
+//    no torch op after the launch.
 //
 // Rounding, as the plain version does it: XLA:CPU contracts the alpha blend
 // and the floor update into fused multiply-adds (fmaf here, rounded once);
@@ -185,8 +186,9 @@ noise_floor_kernel(const float* __restrict__ mags, long long ms_s,
                    const uint8_t* __restrict__ init0,
                    float* __restrict__ eff, float* __restrict__ floor1,
                    float* __restrict__ prev1, float* __restrict__ vol1,
-                   uint8_t* __restrict__ init1, int S, int N, int B, int H,
-                   int width, int W) {
+                   uint8_t* __restrict__ init1,
+                   const float* __restrict__ first_in, int S, int N, int B,
+                   int H, int width, int W) {
   const int lane = threadIdx.x & 31;
   const int gw = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (gw >= S * W) return;           // whole warps
@@ -212,10 +214,12 @@ noise_floor_kernel(const float* __restrict__ mags, long long ms_s,
     load_group<AHEAD, false>(cur, g_cur, m_col, ms_n, g_in, 0, N, lane);
 
   // The state above the band, spread over the stream's warps: frozen, or
-  // with full-width magnitudes on a fresh stream seeded by the first-frame
-  // rule (`noisefloor.with_tail`); its volatility stays.
+  // with a full-width first frame (the magnitudes' frame 0, or first_in's
+  // row: `noisefloor.with_tail`) on a fresh stream seeded by the
+  // first-frame rule; its volatility stays.
   // TAIL columns a lane at once, so that their loads go out together.
-  const bool full = width >= H;
+  const bool full = width >= H || first_in != nullptr;
+  const float* first_row = first_in != nullptr ? first_in + st : m_row;
   const bool seed = fresh && full;
   const int lanes = W * 32;
   for (int c0 = B + w * 32 + lane; c0 < H; c0 += TAIL * lanes) {
@@ -227,7 +231,7 @@ noise_floor_kernel(const float* __restrict__ mags, long long ms_s,
         f_in[k] = floor0[st + c];
         p_in[k] = prev0[st + c];
         v_in[k] = vol0[st + c];
-        first[k] = full ? m_row[c] : 0.0f;
+        first[k] = full ? first_row[c] : 0.0f;
       }
     }
     const float g0 = g_in[0];
@@ -289,6 +293,31 @@ bool deep_ahead(long long warps, int N) {
   return N > 8 && warps <= 4LL * sms;
 }
 
+int launch_scan(const float* mags, long long ms_s, long long ms_n,
+                const float* gf, const float* floor0, const float* prev0,
+                const float* vol0, const uint8_t* init0, float* eff,
+                float* floor1, float* prev1, float* vol1, uint8_t* init1,
+                const float* first, int S, int N, int B, int H, int width,
+                void* stream) {
+  if (S <= 0) return static_cast<int>(cudaGetLastError());
+  if (N < 1 || B < 1 || H < B || width < B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int W = (B + 31) / 32;
+  const long long warps = (long long)S * W;
+  const dim3 grid(static_cast<unsigned>((warps + WARPS - 1) / WARPS));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define K5_LAUNCH(A)                                                        \
+  noise_floor_kernel<A><<<grid, WARPS * 32, 0, st>>>(                       \
+      mags, ms_s, ms_n, gf, floor0, prev0, vol0, init0, eff, floor1, prev1, \
+      vol1, init1, first, S, N, B, H, width, W)
+  if (deep_ahead(warps, N))
+    K5_LAUNCH(32);
+  else
+    K5_LAUNCH(8);
+#undef K5_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -305,23 +334,27 @@ int aat_noise_floor_scan(const float* mags, long long ms_s, long long ms_n,
                          const uint8_t* init0, float* eff, float* floor1,
                          float* prev1, float* vol1, uint8_t* init1, int S,
                          int N, int B, int H, int width, void* stream) {
-  if (S <= 0) return static_cast<int>(cudaGetLastError());
-  if (N < 1 || B < 1 || H < B || width < B)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int W = (B + 31) / 32;
-  const long long warps = (long long)S * W;
-  const dim3 grid(static_cast<unsigned>((warps + WARPS - 1) / WARPS));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K5_LAUNCH(A)                                                        \
-  noise_floor_kernel<A><<<grid, WARPS * 32, 0, st>>>(                       \
-      mags, ms_s, ms_n, gf, floor0, prev0, vol0, init0, eff, floor1, prev1, \
-      vol1, init1, S, N, B, H, width, W)
-  if (deep_ahead(warps, N))
-    K5_LAUNCH(32);
-  else
-    K5_LAUNCH(8);
-#undef K5_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return launch_scan(mags, ms_s, ms_n, gf, floor0, prev0, vol0, init0, eff,
+                     floor1, prev1, vol1, init1, nullptr, S, N, B, H, width,
+                     stream);
+}
+
+// aat_noise_floor_scan with each stream's first frame at full width,
+// first [S, H] contiguous, beside magnitudes of any width >= B: a fresh
+// stream's state above the band is seeded from it, as from full-width
+// magnitudes' frame 0.
+int aat_noise_floor_scan_first(const float* mags, long long ms_s,
+                               long long ms_n, const float* gf,
+                               const float* floor0, const float* prev0,
+                               const float* vol0, const uint8_t* init0,
+                               float* eff, float* floor1, float* prev1,
+                               float* vol1, uint8_t* init1,
+                               const float* first, int S, int N, int B,
+                               int H, int width, void* stream) {
+  if (first == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_scan(mags, ms_s, ms_n, gf, floor0, prev0, vol0, init0, eff,
+                     floor1, prev1, vol1, init1, first, S, N, B, H, width,
+                     stream);
 }
 
 }  // extern "C"

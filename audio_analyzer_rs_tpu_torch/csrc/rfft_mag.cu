@@ -1,5 +1,7 @@
 // K11: the windowed real-FFT magnitude, |rfft(frames x window)| for the
-// first `band` bins of frames of W = 64 .. 4,096 samples (a power of two).
+// first `band` bins of frames of W = 64 .. 4,096 samples (a power of two),
+// and optionally each outer row's first frame at full width (W/2 + 1 bins)
+// beside them.
 //
 // Replaces no TPU kernel.  The JAX package computes these magnitudes with
 // `jnp.abs(jnp.fft.rfft(...))` (audio_analyzer_rs_tpu/ops/fft.py:77), left
@@ -10,13 +12,15 @@
 // the complex spectrum and the magnitude were three passes over device
 // memory, 5.1 of the full step's 11.75 card ms.
 //
-// What bounds it on an H100: bytes.  The full step's pitch call reads
-// 128 x 479,232 samples (245.4 MB; its 933 frames a stream overlap 4x and
-// each sample is read once at best) and writes 119,424 x 1,025 magnitudes
-// (489.6 MB): 0.219 ms at 3.35 TB/s.  Its onset call (958,080 frames of
-// 256 into 129 bins) writes 494.4 MB over the same input: 0.221 ms.  A
-// real FFT done as a half-length complex FFT is ~2.5 W log2 W flops a
-// frame: 7.3 and 5.3 GFLOP, 0.11 and 0.08 ms at 67 TFLOP/s.
+// What bounds it on an H100.  Bytes: the full step's pitch call reads 128 x
+// 479,232 samples (245.4 MB; its 933 frames a stream overlap 4x and each
+// sample is read once at best) and writes the 427 bins the extraction
+// reads (204.0 MB) and each stream's first frame at full width (0.5 MB):
+// 0.134 ms at 3.35 TB/s.  Its onset call (958,080 frames of 256 into 129
+// bins) writes 494.4 MB over the same input: 0.221 ms.  And issue: the
+// fixed order below is one float32 instruction a product or sum (no FMA),
+// about 66k a banded 2,048-point frame, ~0.24 ms for the pitch call at 128
+// lanes an SM a clock; chip_smoke.py phase 3 prints both floors.
 //
 // One fixed order a frame (ops/hopper_rfft.py's docstring states it, and
 // `rfft_mag_fixed_np` transcribes it in numpy, bit for bit):
@@ -30,33 +34,49 @@
 // Every product and sum is spelled __fmul_rn / __fadd_rn / __fsub_rn (no
 // FMA contraction; _build.py does not pass --fmad=false), the square root
 // is __fsqrt_rn, denormals are kept (no fast math), and no atomics: the
-// operations of a frame do not depend on N, the batch, the frame's place
-// or the grid, so its bits are the same in any call.
+// operations of a frame do not depend on N, the band, the batch, the
+// frame's place or the grid, so its bits are the same in any call.
 //
-// Design (a first, simple one; wgmma, TMA and persistence across calls are
-// for later):
-// - a thread holds 32 complex values in registers; a frame takes M / 32
-//   threads (1 at W = 64, 4 at 256, 32 at 2,048, 64 at 4,096), a block of
-//   256 threads takes 256 / (M / 32) frames (8 at 2,048, 64 at 256) and
-//   walks over tiles of that many frames (grid: the blocks that fit on the
-//   card at once).  Where those tiles would not give every SM a block (a
-//   live slot's 16 onset frames, a pool wave's 528), a thread holds 16
-//   values and a tile is half as many frames: each tile's latency, which
-//   is all such a call costs, falls (measured on an H100, PERF.md: a pool
-//   wave 14.6 -> 10.0 us; at the full step's calls the 16-value form was
-//   0.96-1.07 against 0.79 ms);
-// - the stages run five (four) at a time in registers.  A pass starting at stage
-//   s0 with R = 2^r values a group gives group j (in [0, M/R)) the values
-//   z[j + q M/R]: those close under r consecutive stages, and after them
-//   value q sits at (j >> s0) Ns0 R + (j mod Ns0) + Ns0 bitrev_r(q), Ns0 =
-//   2^s0.  Between passes the frame goes through shared memory (padded by
-//   one float2 every 32, so the passes' strided writes hit distinct
-//   banks), and each stage's factors lie in a row of the table of their
-//   own, so the lanes of a pass read consecutive factors;
-// - the frames are read in place through the unfold view's strides, the
-//   window applied on load (neither frames x window nor the complex
-//   spectrum reaches device memory); the block's magnitudes, consecutive
-//   rows of the output, are written as one contiguous run.
+// Design:
+// - a thread holds RR = 32 complex values in registers (or 16, below);
+//   a frame takes TPF = M / RR threads (1 at W = 64, 4 at 256, 32 at
+//   2,048, 64 at 4,096).  A group of G = max(32, TPF) threads owns FPG =
+//   G / TPF frames at a time (a warp 32 frames at 64, 8 at 256, one at
+//   2,048; two warps one frame at 4,096) and its own padded buffer in
+//   shared memory, and walks over its frame batches (grid-stride over the
+//   groups) on its own timeline: between passes it syncs with
+//   `__syncwarp()` (G = 32) or a named barrier of its G threads (`bar.sync
+//   id, G`).  The block's one `__syncthreads` follows the one-time load of
+//   the table and the window, held once an SM: one persistent block an SM
+//   (the grid the SMs, the groups a block set by the call's size);
+// - the stages run five (four) at a time in registers.  A pass starting
+//   at stage s0 with R = 2^r values a group of registers gives register
+//   group j (in [0, M/R)) the values z[j + q M/R]: those close under r
+//   consecutive stages, and after them value q sits at (j >> s0) Ns0 R +
+//   (j mod Ns0) + Ns0 bitrev_r(q), Ns0 = 2^s0.  Between passes the frame
+//   goes through the group's buffer (padded by one float2 every 32, so the
+//   passes' strided writes hit distinct banks), and each stage's factors
+//   lie in a row of the table of their own, so the lanes of a pass read
+//   consecutive factors;
+// - the epilogue: thread tg of a group writes elements tg + G i of its
+//   batch's rows, one contiguous run of rows x band floats; its (row,
+//   bin) start and its step are worked out once a launch, so the loop has
+//   no division.  Once the last pass's spectrum is in the buffer the
+//   registers are free: the group issues its next batch's raw loads into
+//   them first, runs the epilogue from shared memory while they are in
+//   flight, and applies the window after it;
+// - the frames are read in place through the unfold view's strides
+//   (neither frames x window nor the complex spectrum reaches device
+//   memory);
+// - 16 values a thread where the 32-value groups would leave SMs short
+//   of warps (a live slot's 16 onset frames, a pool wave's 528): half the
+//   work a thread, so the latency of a call of a few batches, which is
+//   all it costs, falls; and there a group takes as few frames a batch as
+//   let one wave take the call (one at those shapes), so its epilogue
+//   has fewer rows;
+// - in that form the table and the window go to shared memory 8 loads a
+//   thread in flight, so a block of one warp waits a few load latencies
+//   for them, not one a copy.
 //
 // Frame m lives at frames + (m / per_row) * stride_outer
 //                        + (m % per_row) * stride_inner.
@@ -64,8 +84,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int THREADS = 256;
 
 __host__ __device__ constexpr int bitrev(int x, int bits) {
   int r = 0;
@@ -78,6 +96,38 @@ __host__ __device__ constexpr int log2i(int x) {
 }
 
 __device__ __forceinline__ int pad(int p) { return p + (p >> 5); }
+
+// The shape of the work at width 2^(L+1), RR values a thread.
+template <int L, int RR>
+struct Geo {
+  static constexpr int M = 1 << L;
+  static constexpr int TPF = M / RR;                 // threads a frame
+  static constexpr int G = TPF > 32 ? TPF : 32;      // threads a group
+  static constexpr int FPG = G / TPF;                // frames a group
+  static constexpr int MP = M + (M >> 5);            // a padded frame
+  // The largest block: 128 registers a thread (RR = 32) or 64 (RR = 16)
+  // fill the SM's 65,536; named barriers 1 .. 15 for groups of 2+ warps.
+  static constexpr int MAXT = RR == 32 ? 512 : 1024;
+  static constexpr int GPB = (G > 32 && MAXT / G > 15) ? 15 : MAXT / G;
+};
+
+// Shared memory of a block of `gpb` groups: stage factors (M), post factors
+// (M + 1), window (2M), then the groups' frame buffers.
+template <int L, int RR>
+constexpr int smem_bytes(int gpb) {
+  using Q = Geo<L, RR>;
+  return (2 * Q::M + 1) * 8 + 2 * Q::M * 4 + gpb * Q::FPG * Q::MP * 8;
+}
+
+// The group's threads meet: its warp, or its G / 32 warps at barrier id.
+template <int G>
+__device__ __forceinline__ void group_sync(int id) {
+  if constexpr (G == 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" : : "r"(id), "r"(G) : "memory");
+  }
+}
 
 // a, b <- a + b T, a - b T
 __device__ __forceinline__ void butterfly(float& ar, float& ai, float& br,
@@ -115,23 +165,26 @@ __device__ __forceinline__ void stages(float (&vr)[RR], float (&vi)[RR],
 }
 
 // The passes from stage S0 on, RR values a thread: RL = log2(RR) stages
-// (fewer in the last pass) on each of the thread's RR / R groups (group
-// g: registers [g R, g R + R), j = t + g TPF), the result to the frame's
-// buffer fb, then the next pass.
-template <int RR, int L, int S0>
+// (fewer in the last pass) on each of the thread's RR / R register groups
+// (group g: registers [g R, g R + R), j = t + g TPF), the result to the
+// frame's buffer fb, then the next pass.  The group of G threads syncs
+// before a pass reads (the last pass's writes are visible) and before it
+// writes (every read of the buffer is done: this pass's, or the last
+// batch's epilogue's).
+template <int RR, int L, int S0, int G>
 __device__ __forceinline__ void fft_passes(float (&vr)[RR], float (&vi)[RR],
                                            float2* fb, int t,
-                                           const float2* stage_tw) {
+                                           const float2* stage_tw, int bar) {
   constexpr int M = 1 << L;
   constexpr int TPF = M / RR;
   constexpr int RL = (L - S0 < log2i(RR)) ? L - S0 : log2i(RR);
   constexpr int R = 1 << RL;
-  constexpr int G = RR / R;
+  constexpr int NG = RR / R;
   constexpr int NS0 = 1 << S0;
   if constexpr (S0 > 0) {
-    __syncthreads();             // the last pass's writes are visible
+    group_sync<G>(bar);
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < NG; ++g) {
       const int j = t + g * TPF;
 #pragma unroll
       for (int q = 0; q < R; ++q) {
@@ -140,15 +193,15 @@ __device__ __forceinline__ void fft_passes(float (&vr)[RR], float (&vi)[RR],
         vi[g * R + q] = v.y;
       }
     }
-    __syncthreads();             // every read is done before any write
   }
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < NG; ++g) {
     stages<RR, R, NS0, 0, RL>(vr, vi, g * R, (t + g * TPF) & (NS0 - 1),
                               stage_tw);
   }
+  group_sync<G>(bar);
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < NG; ++g) {
     const int j = t + g * TPF;
     const int base = ((j >> S0) << (S0 + RL)) + (j & (NS0 - 1));
 #pragma unroll
@@ -158,7 +211,7 @@ __device__ __forceinline__ void fft_passes(float (&vr)[RR], float (&vi)[RR],
     }
   }
   if constexpr (S0 + RL < L) {
-    fft_passes<RR, L, S0 + RL>(vr, vi, fb, t, stage_tw);
+    fft_passes<RR, L, S0 + RL, G>(vr, vi, fb, t, stage_tw, bar);
   }
 }
 
@@ -188,89 +241,176 @@ __device__ __forceinline__ float magnitude(float2 zk, float2 zm, float2 w) {
       __fsqrt_rn(__fadd_rn(__fmul_rn(sr, sr), __fmul_rn(si, si))), back);
 }
 
-template <int L, int RR>
-constexpr int smem_bytes() {
-  constexpr int M = 1 << L;
-  constexpr int FPB = THREADS / (M / RR);
-  // frame buffers, stage factors (M), post factors (M + 1), window (2M)
-  return (FPB * (M + (M >> 5)) + 2 * M + 1) * 8 + 2 * M * 4;
+// Bin k of the spectrum in frame buffer z.
+template <int M>
+__device__ __forceinline__ float bin_of(const float2* z, int k,
+                                        const float2* post_tw) {
+  return magnitude(z[pad(k & (M - 1))], z[pad((M - k) & (M - 1))],
+                   post_tw[k]);
 }
 
-// RR = 32 values a thread at 2 blocks an SM (<= 128 registers), or 16 at
-// 4 (<= 64).
+// n elements from global src to shared dst, UNROLL loads a thread in
+// flight before their stores (a small call's block of one warp copies its
+// table in a few load latencies, not one a copy).
+template <typename T>
+__device__ __forceinline__ void to_shared(T* dst, const T* __restrict__ src,
+                                          int n) {
+  constexpr int UNROLL = 8;
+  for (int i0 = threadIdx.x; i0 < n; i0 += UNROLL * blockDim.x) {
+    T v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n) v[u] = src[i];
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n) dst[i] = v[u];
+    }
+  }
+}
+
+// (row r, bin k) of element idx of a batch's run -> that of idx + G, with
+// G = qb band + rb and rb < band.
+__device__ __forceinline__ void step_bin(int& r, int& k, int qb, int rb,
+                                         int band) {
+  k += rb;
+  r += qb;
+  if (k >= band) {
+    k -= band;
+    ++r;
+  }
+}
+
+// Frame `frame`'s samples t + q TPF (q < RR) as they are, complex pairs
+// (x[2m], x[2m + 1]) into (vr, vi); zeros past n.
+template <int RR, int TPF>
+__device__ __forceinline__ void load_raw(float (&vr)[RR], float (&vi)[RR],
+                                         const float* __restrict__ x,
+                                         long long stride_outer,
+                                         long long stride_inner, int per_row,
+                                         int frame, int n, int t, int vec2) {
+  if (frame < n) {
+    const float* src = x + (long long)(frame / per_row) * stride_outer +
+                       (long long)(frame % per_row) * stride_inner;
+    if (vec2) {
+#pragma unroll
+      for (int q = 0; q < RR; ++q) {
+        const float2 v =
+            *reinterpret_cast<const float2*>(src + 2 * (t + q * TPF));
+        vr[q] = v.x;
+        vi[q] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < RR; ++q) {
+        vr[q] = src[2 * (t + q * TPF)];
+        vi[q] = src[2 * (t + q * TPF) + 1];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < RR; ++q) vr[q] = vi[q] = 0.0f;
+  }
+}
+
+// RR = 32 values a thread (<= 128 registers at 512 threads) or 16 (<= 64
+// at 1,024).  blockDim.x = gpb * G.  A group takes fpw <= FPG frames a
+// batch (its frame slots from fpw on run zeros and write nothing).
 template <int L, int RR>
-__global__ void __launch_bounds__(THREADS, 64 / RR)
+__global__ void __launch_bounds__(Geo<L, RR>::MAXT, 1)
 rfft_mag_kernel(const float* __restrict__ x, long long stride_outer,
                 long long stride_inner, int per_row,
                 const float* __restrict__ window,
                 const float2* __restrict__ table, float* __restrict__ out,
-                int n, int band, int vec2) {
-  constexpr int M = 1 << L;
-  constexpr int TPF = M / RR;
-  constexpr int FPB = THREADS / TPF;
-  constexpr int MP = M + (M >> 5);
+                float* __restrict__ first, int n, int band, int vec2,
+                int fpw) {
+  using Q = Geo<L, RR>;
+  constexpr int M = Q::M, TPF = Q::TPF, G = Q::G, FPG = Q::FPG, MP = Q::MP;
+  if constexpr (RR == 32) fpw = FPG;   // the host's value, as a constant
   extern __shared__ float2 smem[];
-  float2* buf = smem;
-  float2* stage_tw = buf + FPB * MP;
+  float2* stage_tw = smem;
   float2* post_tw = stage_tw + M;
   float* win = reinterpret_cast<float*>(post_tw + M + 1);
-  for (int i = threadIdx.x; i < 2 * M + 1; i += THREADS) {
-    stage_tw[i] = table[i];
+  float2* buf = reinterpret_cast<float2*>(win + 2 * M);
+  if constexpr (RR == 16) {
+    to_shared(stage_tw, table, 2 * M + 1);
+    to_shared(win, window, 2 * M);
+  } else {
+    // Plain loops here: measured on an H100, nvcc schedules the frame
+    // loop of this form worse behind to_shared (1-2% at the full step).
+    for (int i = threadIdx.x; i < 2 * M + 1; i += blockDim.x) {
+      stage_tw[i] = table[i];
+    }
+    for (int i = threadIdx.x; i < 2 * M; i += blockDim.x) win[i] = window[i];
   }
-  for (int i = threadIdx.x; i < 2 * M; i += THREADS) win[i] = window[i];
-  __syncthreads();
+  __syncthreads();               // the block's only barrier
   const float2* win2 = reinterpret_cast<const float2*>(win);
-  const int f = threadIdx.x / TPF;
-  const int t = threadIdx.x % TPF;
-  float2* fb = buf + f * MP;
-  const int tiles = (n + FPB - 1) / FPB;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int frame = tile * FPB + f;
-    float vr[RR], vi[RR];
-    if (frame < n) {
-      const float* src = x + (long long)(frame / per_row) * stride_outer +
-                         (long long)(frame % per_row) * stride_inner;
-      if (vec2) {
+  const int gpb = blockDim.x / G;
+  const int grp = threadIdx.x / G;
+  const int tg = threadIdx.x % G;
+  const int t = tg % TPF;
+  const int slot = tg / TPF;     // the thread's frame slot, < fpw if used
+  const int bar = 1 + grp;       // unused by one-warp groups
+  float2* gbuf = buf + grp * (FPG * MP);
+  float2* fb = gbuf + slot * MP;
+  const int batches = (n + fpw - 1) / fpw;
+  const int stride = gridDim.x * gpb;
+  // The epilogue's (row, bin) of element tg of a batch's run, and of each
+  // step of G elements: G = qb band + rb.
+  const int r0 = tg / band, k0 = tg - r0 * band;
+  const int qb = G / band, rb = G - qb * band;
+  int batch = blockIdx.x * gpb + grp;
+  float vr[RR], vi[RR];
+  if (batch < batches) {
+    load_raw<RR, TPF>(vr, vi, x, stride_outer, stride_inner, per_row,
+                      slot < fpw ? batch * fpw + slot : n, n, t, vec2);
+  }
+  for (; batch < batches; batch += stride) {
 #pragma unroll
-        for (int q = 0; q < RR; ++q) {
-          const int m = t + q * TPF;
-          const float2 v = *reinterpret_cast<const float2*>(src + 2 * m);
-          const float2 u = win2[m];
-          vr[q] = __fmul_rn(v.x, u.x);
-          vi[q] = __fmul_rn(v.y, u.y);
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < RR; ++q) {
-          const int m = t + q * TPF;
-          const float2 u = win2[m];
-          vr[q] = __fmul_rn(src[2 * m], u.x);
-          vi[q] = __fmul_rn(src[2 * m + 1], u.y);
-        }
+    for (int q = 0; q < RR; ++q) {
+      const float2 u = win2[t + q * TPF];
+      vr[q] = __fmul_rn(vr[q], u.x);
+      vi[q] = __fmul_rn(vi[q], u.y);
+    }
+    fft_passes<RR, L, 0, G>(vr, vi, fb, t, stage_tw, bar);
+    group_sync<G>(bar);          // the spectra are in the group's buffer
+    const int next = batch + stride;
+    if (next < batches) {
+      load_raw<RR, TPF>(vr, vi, x, stride_outer, stride_inner, per_row,
+                        slot < fpw ? next * fpw + slot : n, n, t, vec2);
+    }
+    const int f0 = batch * fpw;
+    const int rows = min(fpw, n - f0);
+    const int count = rows * band;
+    float* dst = out + (long long)f0 * band;
+    int r = r0, k = k0;
+    if constexpr (RR == 16) {
+      // Few warps share an SM in this form's calls: unrolled, a warp's
+      // bins overlap their latencies (measured on an H100: at the 32-value
+      // form's calls nvcc's own unrolling was faster than 4 or 1).
+#pragma unroll 4
+      for (int idx = tg; idx < count; idx += G) {
+        dst[idx] = bin_of<M>(gbuf + r * MP, k, post_tw);
+        step_bin(r, k, qb, rb, band);
       }
     } else {
-#pragma unroll
-      for (int q = 0; q < RR; ++q) vr[q] = vi[q] = 0.0f;
-    }
-    fft_passes<RR, L, 0>(vr, vi, fb, t, stage_tw);
-    __syncthreads();
-    // The tile's rows of the output are one contiguous run.
-    const int rows = min(FPB, n - tile * FPB);
-    const int count = rows * band;
-    float* dst = out + (long long)tile * FPB * band;
-    int ff = threadIdx.x / band;
-    int k = threadIdx.x - ff * band;
-    for (int idx = threadIdx.x; idx < count; idx += THREADS) {
-      const float2* z = buf + ff * MP;
-      dst[idx] = magnitude(z[pad(k & (M - 1))], z[pad((M - k) & (M - 1))],
-                           post_tw[k]);
-      k += THREADS;
-      while (k >= band) {
-        k -= band;
-        ++ff;
+      for (int idx = tg; idx < count; idx += G) {
+        dst[idx] = bin_of<M>(gbuf + r * MP, k, post_tw);
+        step_bin(r, k, qb, rb, band);
       }
     }
-    __syncthreads();             // the buffers are read before the next tile
+    if (first != nullptr) {
+      // The batch's frames that start an outer row, at full width.
+      for (int m = (f0 + per_row - 1) / per_row * per_row; m < f0 + rows;
+           m += per_row) {
+        float* row = first + (long long)(m / per_row) * (M + 1);
+        for (int kk = tg; kk <= M; kk += G) {
+          row[kk] = bin_of<M>(gbuf + (m - f0) * MP, kk, post_tw);
+        }
+      }
+    }
   }
 }
 
@@ -281,56 +421,101 @@ int sm_count(int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
+// One persistent block an SM (as many as fit at the largest block): the
+// largest blocks where the call's groups fill them, else the groups
+// spread over the SMs, ceil(groups / grid) a block.
 template <int L, int RR>
 cudaError_t launch_rr(const float* x, long long stride_outer,
                       long long stride_inner, int per_row,
                       const float* window, const float* table, float* out,
-                      int n, int band, int vec2, int sms,
+                      float* first, int n, int band, int vec2, int sms,
                       cudaStream_t stream) {
-  constexpr int SMEM = smem_bytes<L, RR>();
+  using Q = Geo<L, RR>;
   static int blocks_per_sm = -1;
   if (blocks_per_sm < 0) {
+    constexpr int SMEM = smem_bytes<L, RR>(Q::GPB);
     cudaError_t err = cudaFuncSetAttribute(
         rfft_mag_kernel<L, RR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM);
     if (err != cudaSuccess) return err;
     int occ = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ, rfft_mag_kernel<L, RR>, THREADS, SMEM);
+        &occ, rfft_mag_kernel<L, RR>, Q::GPB * Q::G, SMEM);
     if (err != cudaSuccess) return err;
     if (occ < 1) return cudaErrorInvalidConfiguration;
     blocks_per_sm = occ;
   }
-  constexpr int FPB = THREADS / ((1 << L) / RR);
-  const int tiles = (n + FPB - 1) / FPB;
-  const int grid = tiles < blocks_per_sm * sms ? tiles : blocks_per_sm * sms;
-  rfft_mag_kernel<L, RR><<<grid, THREADS, SMEM, stream>>>(
+  const long long slots = (long long)sms * blocks_per_sm;
+  // Frames a group takes a batch: all FPG, but in the 16-value form (a
+  // call too small to fill the card) as few as let one wave of groups
+  // take the call, so each warp's epilogue has fewer rows.
+  int fpw = Q::FPG;
+  if (RR == 16) {
+    fpw = 1;
+    while (fpw < Q::FPG && (n + fpw - 1) / fpw > slots * Q::GPB) fpw *= 2;
+  }
+  const long long groups = (n + fpw - 1) / fpw;
+  int grid = static_cast<int>(slots), gpb = Q::GPB;
+  if (groups < slots * Q::GPB) {
+    grid = static_cast<int>(groups < slots ? groups : slots);
+    gpb = static_cast<int>((groups + grid - 1) / grid);
+  }
+  const int smem = smem_bytes<L, RR>(gpb);
+  rfft_mag_kernel<L, RR><<<grid, gpb * Q::G, smem, stream>>>(
       x, stride_outer, stride_inner, per_row, window,
-      reinterpret_cast<const float2*>(table), out, n, band, vec2);
+      reinterpret_cast<const float2*>(table), out, first, n, band, vec2,
+      fpw);
   return cudaGetLastError();
 }
 
-// 32 values a thread where the 32-value tiles give every SM a block, else
-// 16: half the frames a tile and half the work a thread, so the tile's
-// latency, all that a live slot's or a pool wave's few tiles cost, falls.
-// Both forms run the same operations on a frame.
+// 32 values a thread where its groups give every SM at least 8 warps (half
+// the largest block), else 16: half the work a thread, so the latency of
+// the call's few batches falls (measured on an H100 with the earlier
+// design's block tiles at the same threshold: a pool wave 14.6 -> 10.0 us;
+// at the full step's calls the 16-value form was 0.96-1.07 against 0.79
+// ms).  Both forms run the same operations on a frame.
 template <int L>
 cudaError_t launch(const float* x, long long stride_outer,
                    long long stride_inner, int per_row, const float* window,
-                   const float* table, float* out, int n, int band, int vec2,
-                   cudaStream_t stream) {
+                   const float* table, float* out, float* first, int n,
+                   int band, int vec2, cudaStream_t stream) {
   static int sms = 0;
   if (sms == 0) {
     const cudaError_t err = static_cast<cudaError_t>(sm_count(&sms));
     if (err != cudaSuccess) return err;
   }
-  constexpr int FPB32 = THREADS / ((1 << L) / 32);
-  if ((n + FPB32 - 1) / FPB32 >= sms) {
+  using Q32 = Geo<L, 32>;
+  const long long warps32 =
+      (long long)((n + Q32::FPG - 1) / Q32::FPG) * (Q32::G / 32);
+  if (warps32 >= 8LL * sms) {
     return launch_rr<L, 32>(x, stride_outer, stride_inner, per_row, window,
-                            table, out, n, band, vec2, sms, stream);
+                            table, out, first, n, band, vec2, sms, stream);
   }
   return launch_rr<L, 16>(x, stride_outer, stride_inner, per_row, window,
-                          table, out, n, band, vec2, sms, stream);
+                          table, out, first, n, band, vec2, sms, stream);
+}
+
+int dispatch(const float* x, long long stride_outer, long long stride_inner,
+             int per_row, const float* window, const float* table,
+             float* out, float* first, int n, int log2_width, int band,
+             int vec2, void* stream) {
+  if (n <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K11_WIDTH(LOG2W)                                                   \
+  case LOG2W:                                                              \
+    return launch<LOG2W - 1>(x, stride_outer, stride_inner, per_row,       \
+                             window, table, out, first, n, band, vec2, s)
+  switch (log2_width) {
+    K11_WIDTH(6);
+    K11_WIDTH(7);
+    K11_WIDTH(8);
+    K11_WIDTH(9);
+    K11_WIDTH(10);
+    K11_WIDTH(11);
+    K11_WIDTH(12);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef K11_WIDTH
 }
 
 }  // namespace
@@ -346,25 +531,21 @@ int aat_rfft_mag(const float* x, long long stride_outer,
                  long long stride_inner, int per_row, const float* window,
                  const float* table, float* out, int n, int log2_width,
                  int band, int vec2, void* stream) {
-  if (n <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (log2_width) {
-    case 6: return launch<5>(x, stride_outer, stride_inner, per_row, window,
-                             table, out, n, band, vec2, s);
-    case 7: return launch<6>(x, stride_outer, stride_inner, per_row, window,
-                             table, out, n, band, vec2, s);
-    case 8: return launch<7>(x, stride_outer, stride_inner, per_row, window,
-                             table, out, n, band, vec2, s);
-    case 9: return launch<8>(x, stride_outer, stride_inner, per_row, window,
-                             table, out, n, band, vec2, s);
-    case 10: return launch<9>(x, stride_outer, stride_inner, per_row,
-                              window, table, out, n, band, vec2, s);
-    case 11: return launch<10>(x, stride_outer, stride_inner, per_row,
-                               window, table, out, n, band, vec2, s);
-    case 12: return launch<11>(x, stride_outer, stride_inner, per_row,
-                               window, table, out, n, band, vec2, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(x, stride_outer, stride_inner, per_row, window, table, out,
+                  nullptr, n, log2_width, band, vec2, stream);
+}
+
+// aat_rfft_mag, and each outer row's first frame (frame r * per_row) at
+// full width into first [n / per_row, width / 2 + 1] contiguous: the same
+// operations on a bin as `out`'s.
+int aat_rfft_mag_first(const float* x, long long stride_outer,
+                       long long stride_inner, int per_row,
+                       const float* window, const float* table, float* out,
+                       float* first, int n, int log2_width, int band,
+                       int vec2, void* stream) {
+  if (first == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(x, stride_outer, stride_inner, per_row, window, table, out,
+                  first, n, log2_width, band, vec2, stream);
 }
 
 }  // extern "C"

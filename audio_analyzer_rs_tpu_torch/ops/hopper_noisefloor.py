@@ -18,8 +18,9 @@ Design (the source note in csrc/noisefloor.cu has the detail): a lane a
 registers, the next frames' loads issued ahead, coalesced along the bins;
 the two quotients of the step computed only where they can change the
 result.  The kernel writes the whole [S, H] state: the band it scans and
-the state above it (frozen, or seeded once from full-width magnitudes, as
-`noisefloor.with_tail` does), so no torch op runs after the launch.
+the state above it (frozen, or seeded once from full-width magnitudes or
+a first frame handed in, as `noisefloor.with_tail` does), so no torch op
+runs after the launch.
 
 `noise_floor_scan` is the wrapper: on CPU tensors the plain scan, on CUDA
 tensors the kernel (or it raises).
@@ -37,7 +38,8 @@ from .. import _build
 LAUNCHES = 0
 
 
-def check_args(state, mags, global_floor, band: int) -> torch.Tensor:
+def check_args(state, mags, global_floor, band: int,
+               first=None) -> torch.Tensor:
     """Raise ValueError on what the kernel does not take; return mags as
     [S, N, H'] (a view where the leading axes allow it)."""
     lead = tuple(state.initialized.shape)
@@ -57,6 +59,8 @@ def check_args(state, mags, global_floor, band: int) -> torch.Tensor:
         "volatility": (state.volatility, torch.float32, lead + (half,)),
         "initialized": (state.initialized, torch.bool, lead),
     }
+    if first is not None:
+        expect["first"] = (first, torch.float32, lead + (half,))
     for name, (t, dtype, shape) in expect.items():
         if t.device != mags.device:
             raise ValueError("noise_floor_scan: all tensors must share one "
@@ -75,19 +79,20 @@ def check_args(state, mags, global_floor, band: int) -> torch.Tensor:
     return m3
 
 
-def noise_floor_scan(state, mags, global_floor, band: int):
+def noise_floor_scan(state, mags, global_floor, band: int, first=None):
     """state: NoiseFloorState with leaves [..., H] / [...]; mags [..., N,
     H'] float32 with unit stride along the bins, H' >= band; global_floor
-    [..., N] float32; 1 <= band <= H → (state, effective floor [..., N,
-    band])."""
+    [..., N] float32; 1 <= band <= H; first: None or [..., H] float32
+    contiguous, each stream's first frame at full width (the tail's seed
+    beside banded magnitudes) → (state, effective floor [..., N, band])."""
     from . import noisefloor
     if mags.device.type == "cpu":
         return noisefloor.noise_floor_scan_plain(state, mags, global_floor,
-                                                 band)
+                                                 band, first)
     if mags.device.type != "cuda":
         raise ValueError(f"noise_floor_scan: unsupported device "
                          f"{mags.device}")
-    m3 = check_args(state, mags, global_floor, band)
+    m3 = check_args(state, mags, global_floor, band, first)
     s, n, width = m3.shape
     lead = tuple(state.initialized.shape)
     half = state.floor.shape[-1]
@@ -99,12 +104,18 @@ def noise_floor_scan(state, mags, global_floor, band: int):
         *(torch.empty(lead + (half,), dtype=torch.float32, device=dev)
           for _ in range(3)),
         torch.empty_like(state.initialized))
-    code = _build.lib().aat_noise_floor_scan(
-        m3.data_ptr(), m3.stride(0), m3.stride(1), global_floor.data_ptr(),
-        *(t.data_ptr() for t in state), eff.data_ptr(),
-        *(t.data_ptr() for t in out), s, n, band, half, width,
-        ctypes.c_void_p(_build.stream_ptr(mags)))
-    _build.check(code, "aat_noise_floor_scan")
+    lib = _build.lib()
+    head = (m3.data_ptr(), m3.stride(0), m3.stride(1),
+            global_floor.data_ptr(), *(t.data_ptr() for t in state),
+            eff.data_ptr(), *(t.data_ptr() for t in out))
+    tail = (s, n, band, half, width, ctypes.c_void_p(_build.stream_ptr(mags)))
+    if first is None:
+        name, code = "aat_noise_floor_scan", lib.aat_noise_floor_scan(
+            *head, *tail)
+    else:
+        name = "aat_noise_floor_scan_first"
+        code = lib.aat_noise_floor_scan_first(*head, first.data_ptr(), *tail)
+    _build.check(code, name)
     global LAUNCHES
     LAUNCHES += 1
     return out, eff

@@ -44,6 +44,9 @@ The plain version is `torch.fft.rfft(frames * window).abs()`, today's
 order than K11, so it is held to K11 within a tolerance, not bitwise.
 `rfft_mag` is the wrapper: the plain version for CPU tensors (every CPU
 result keeps its bits), K11 for CUDA tensors (or it raises).
+`rfft_mag_first` adds each outer row's first frame at full width, from
+the same launch (the full step's pitch call: its first frames seed the
+noise floor's state above the band on a fresh stream).
 
 `rfft_complex` and `irfft` (YIN's autocorrelation, ops/fft.py) stay on
 cuFFT: they are the library FFTs of a JAX `jnp.fft` call.
@@ -180,6 +183,17 @@ def rfft_mag_plain(frames: torch.Tensor, band: int | None = None,
     return mags if band == mags.shape[-1] else mags[..., :band]
 
 
+def rfft_mag_first_plain(frames: torch.Tensor, band: int | None = None,
+                         window: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of `rfft_mag_first`: the full width's magnitudes,
+    their first `band` bins and their frame 0 along the frame axis (as the
+    kernel writes it, contiguous)."""
+    full = rfft_mag_plain(frames, None, window)
+    band = _band(frames.shape[-1], band)
+    return full[..., :band], full[..., 0, :].contiguous()
+
+
 def check_args(frames: torch.Tensor, band: int | None,
                window: torch.Tensor | None) -> tuple[torch.Tensor, int]:
     """Raise on what K11 does not take → (frames as [A, F, W] with unit
@@ -225,10 +239,36 @@ def rfft_mag(frames: torch.Tensor, band: int | None = None,
     return _launch(f3, band, window, out)
 
 
+def rfft_mag_first(frames: torch.Tensor, band: int | None = None,
+                   window: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`rfft_mag` of frames [..., F, W] (F >= 1) and the full width of each
+    frame 0 along F → (magnitudes [..., F, band], first [..., W/2 + 1]),
+    the same bits as `rfft_mag(frames)[..., :band]` and `[..., 0, :]`.  On
+    CPU tensors the plain version; on CUDA tensors one K11 launch writes
+    both."""
+    if frames.dim() < 2 or frames.shape[-2] < 1:
+        raise ValueError("rfft_mag_first: frames need a frame axis with a "
+                         "frame")
+    if frames.device.type == "cpu":
+        return rfft_mag_first_plain(frames, band, window)
+    if frames.device.type != "cuda":
+        raise ValueError(f"rfft_mag_first: unsupported device "
+                         f"{frames.device}")
+    f3, band = check_args(frames, band, window)
+    out = torch.empty(frames.shape[:-1] + (band,), dtype=torch.float32,
+                      device=frames.device)
+    first = torch.empty(frames.shape[:-2] + (frames.shape[-1] // 2 + 1,),
+                        dtype=torch.float32, device=frames.device)
+    return _launch(f3, band, window, out, first), first
+
+
 def _launch(f3: torch.Tensor, band: int, window: torch.Tensor | None,
-            out: torch.Tensor) -> torch.Tensor:
+            out: torch.Tensor, first: torch.Tensor | None = None
+            ) -> torch.Tensor:
     """Launch K11 on checked [A, F, W] frames into `out` (contiguous,
-    A·F·band floats)."""
+    A·F·band floats) and, where given, frame 0 of each of the A rows at
+    full width into `first` (contiguous, A·(W/2 + 1) floats)."""
     lib = _build.lib()
     outer, per_row, width = f3.shape
     n = outer * per_row
@@ -240,12 +280,16 @@ def _launch(f3: torch.Tensor, band: int, window: torch.Tensor | None,
     vec2 = int(f3.data_ptr() % 8 == 0
                and (outer == 1 or s_out % 2 == 0)
                and (per_row == 1 or s_in % 2 == 0))
-    code = lib.aat_rfft_mag(
-        f3.data_ptr(), s_out, s_in, per_row, win.data_ptr(),
-        twiddle_table(width, f3.device).data_ptr(), out.data_ptr(), n,
-        width.bit_length() - 1, band, vec2,
-        ctypes.c_void_p(_build.stream_ptr(f3)))
-    _build.check(code, "aat_rfft_mag")
+    head = (f3.data_ptr(), s_out, s_in, per_row, win.data_ptr(),
+            twiddle_table(width, f3.device).data_ptr(), out.data_ptr())
+    tail = (n, width.bit_length() - 1, band, vec2,
+            ctypes.c_void_p(_build.stream_ptr(f3)))
+    if first is None:
+        name, code = "aat_rfft_mag", lib.aat_rfft_mag(*head, *tail)
+    else:
+        name = "aat_rfft_mag_first"
+        code = lib.aat_rfft_mag_first(*head, first.data_ptr(), *tail)
+    _build.check(code, name)
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -89,18 +89,20 @@ def _scan_width(state: NoiseFloorState, mags: torch.Tensor,
 
 
 def with_tail(state: NoiseFloorState, sub: NoiseFloorState,
-              mags: torch.Tensor, global_floor: torch.Tensor
-              ) -> NoiseFloorState:
+              mags: torch.Tensor, global_floor: torch.Tensor,
+              first: torch.Tensor | None = None) -> NoiseFloorState:
     """The scanned state `sub` (width B) joined to the state above B: frozen
-    while banded, but with full-width magnitudes an uninitialized state's
-    tail is seeded once by the first-frame rule.  `mags` has N >= 1
-    frames."""
+    while banded, but with a full-width first frame (`first` [..., H], or
+    full-width magnitudes' frame 0) an uninitialized state's tail is seeded
+    once by the first-frame rule.  `mags` has N >= 1 frames."""
     band, half = sub.floor.shape[-1], state.floor.shape[-1]
     if band == half:
         return sub
     init = state.initialized[..., None]
-    if mags.shape[-1] >= half:
-        first = mags[..., 0, band:half]
+    if first is None and mags.shape[-1] >= half:
+        first = mags[..., 0, :]
+    if first is not None:
+        first = first[..., band:half]
         seed_floor = torch.maximum(first, global_floor[..., 0, None] * 5.0)
         tail_floor = torch.where(init, state.floor[..., band:], seed_floor)
         tail_prev = torch.where(init, state.prev_mag[..., band:], first)
@@ -116,7 +118,8 @@ def with_tail(state: NoiseFloorState, sub: NoiseFloorState,
 
 def noise_floor_scan_plain(state: NoiseFloorState, mags: torch.Tensor,
                            global_floor: torch.Tensor,
-                           band: int | None = None):
+                           band: int | None = None,
+                           first: torch.Tensor | None = None):
     """The plain scan, a loop over `_step`: arguments and results as
     `noise_floor_scan`."""
     band = _scan_width(state, mags, band)
@@ -130,11 +133,12 @@ def noise_floor_scan_plain(state: NoiseFloorState, mags: torch.Tensor,
     for i in range(n):
         sub, eff[..., i, :] = _step(sub, mags[..., i, :band],
                                     global_floor[..., i])
-    return with_tail(state, sub, mags, global_floor), eff
+    return with_tail(state, sub, mags, global_floor, first), eff
 
 
 def noise_floor_scan(state: NoiseFloorState, mags: torch.Tensor,
-                     global_floor: torch.Tensor, band: int | None = None):
+                     global_floor: torch.Tensor, band: int | None = None,
+                     first: torch.Tensor | None = None):
     """mags [..., N, H'], global_floor [..., N] → (final state,
     effective_floor [..., N, B]).  Kernel K5 on CUDA tensors,
     `noise_floor_scan_plain` on CPU tensors.
@@ -142,10 +146,14 @@ def noise_floor_scan(state: NoiseFloorState, mags: torch.Tensor,
     `band`: run the recurrence on the first `band` bins only and carry the
     state above it through frozen (B = band).  With full-width magnitudes
     an uninitialized state's above-band floor is seeded once by the
-    first-frame rule; with banded magnitudes the tail stays frozen.
-    band=None (or >= H) scans the full width and needs full-width mags."""
+    first-frame rule; with banded magnitudes the tail stays frozen, unless
+    `first` [..., H] (each stream's first frame at full width, the same
+    bits as full-width magnitudes' frame 0) is given: then it seeds the
+    tail as they would.  band=None (or >= H) scans the full width and
+    needs full-width mags."""
     return hopper_noisefloor.noise_floor_scan(state, mags, global_floor,
-                                              _scan_width(state, mags, band))
+                                              _scan_width(state, mags, band),
+                                              first)
 
 
 def global_floor_linear(noise_floor_db, half_size: int):

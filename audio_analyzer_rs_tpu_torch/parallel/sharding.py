@@ -4,8 +4,10 @@ audio_analyzer_rs_tpu/parallel/sharding.py).
 
 Each step takes a fixed-length chunk of each stream and runs reducer
 conditioning (kernel K6) -> AGC (kernel K7) -> the pitch pipeline (the
-"fft" STFT at full width, the noise floor K5, extraction with the comb K2,
-the tracker K3) -> the onset pipeline (the "fft" STFT, the onset scan K4),
+"fft" STFT banded to the bins the extraction reads, with each stream's
+first frame at full width, `pitch_mags`; the noise floor K5, extraction
+with the comb K2, the tracker K3) -> the onset pipeline (the "fft" STFT,
+the onset scan K4),
 every stage once over the whole batch, each stream's states carried to its
 next chunk.  The JAX package vmaps one stream's chain and shards the batch
 over a device mesh with `shard_map`, whose only collectives are the fleet
@@ -28,8 +30,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import dynamics, noisefloor, onset as onset_ops, pitch as pitch_ops
-from ..ops import reducer, tracker
+from ..ops import dynamics, hopper_rfft, noisefloor, onset as onset_ops
+from ..ops import pitch as pitch_ops, reducer, tracker
+from ..ops.fft import hann
 from ..ops.stft import ONSET_WINDOW, PITCH_WINDOW, windowed_mags
 from ..utils.framing import frame_signal
 from .mesh import check_mesh, replicated
@@ -65,6 +68,23 @@ def init_stream_states(batch: int, half: int = PITCH_WINDOW // 2 + 1,
     )
 
 
+def pitch_mags(frames: torch.Tensor, band: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The step's pitch STFT as its readers take it: frames [B, N, W] →
+    (magnitudes of bins [0, band) [B, N, band], each stream's first frame
+    at full width [B, W/2 + 1]).  The extraction reads bins [0, kc + 1),
+    the noise floor [0, kc) and, on a fresh stream, the first frame above
+    kc (its state's tail seed).  On CUDA tensors one K11 launch writes both
+    (`hopper_rfft.rfft_mag_first`); on CPU tensors both are slices of
+    `windowed_mags` at full width.  Either way the bits of each bin are
+    those of the full width's."""
+    if frames.device.type == "cpu":
+        full = windowed_mags(frames, PITCH_WINDOW)
+        return full[..., :band], full[..., 0, :].contiguous()
+    return hopper_rfft.rfft_mag_first(frames, band,
+                                      hann(PITCH_WINDOW, frames.device))
+
+
 def _batched_stream_step(states: StreamStates, audio: torch.Tensor,
                          sample_rate: float, slot_len: int, pitch_hop: int,
                          onset_hop: int, dyn_mode: str):
@@ -89,15 +109,16 @@ def _batched_stream_step(states: StreamStates, audio: torch.Tensor,
     # Pitch pipeline.
     pframes = frame_signal(cond, PITCH_WINDOW, pitch_hop)
     n_p = pframes.shape[1]
-    pmags = windowed_mags(pframes, PITCH_WINDOW)
     half = PITCH_WINDOW // 2 + 1
+    bin_width = sample_rate / PITCH_WINDOW
+    kc = pitch_ops.candidate_band(bin_width, half)
+    pmags, pfirst = pitch_mags(pframes, kc + 1)
     gfp = noisefloor.global_floor_linear(
         causal_floor_db(n_p, PITCH_WINDOW, pitch_hop), half)
-    bin_width = sample_rate / PITCH_WINDOW
-    nf, eff = noisefloor.noise_floor_scan(
-        states.nf, pmags, gfp, pitch_ops.candidate_band(bin_width, half))
+    nf, eff = noisefloor.noise_floor_scan(states.nf, pmags, gfp, kc, pfirst)
     pf = pitch_ops.extract_pitches(pmags.reshape(b * n_p, -1),
-                                   eff.reshape(b * n_p, -1), bin_width)
+                                   eff.reshape(b * n_p, -1), bin_width,
+                                   true_half=half)
     pf = pitch_ops.PitchFrame(*(a.reshape(b, n_p, -1) for a in pf))
     no_onsets = torch.zeros((b, n_p), dtype=torch.bool, device=y.device)
     tr, (sf, _, sv) = tracker.tracker_scan_batched(

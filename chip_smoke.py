@@ -58,16 +58,22 @@ Phases, one line each on standard output:
             memory); the plain scan timed once at
             S=128 x N=64;
        K11 rfft_mag, the Hann x real-FFT magnitude ("fft") at the shapes of
-            port_tools/k11_probe.py SHAPES (the full step's [128, 933,
-            2048] and [128, 7485, 256], segmented onsets [128, 4096, 256],
-            the live slot's [1, 16, 256], a pool wave's [33, 16, 256], a
-            feature chunk [8192, 2048]): bitwise to `rfft_mag_fixed_np`
-            (its operation order in numpy) on 4 streams (1,024 frames) of
-            each, within 1e-5 of each frame's peak of cuFFT (its plain
-            version, which is the library call too) on all; a frame's bits
-            alone and at B = 1, 33 and 128 at the full step's two calls; the
-            spectral gate at 2,048 and 256 points; timed in turns with
-            cuFFT beside its bound;
+            port_tools/k11_probe.py SHAPES (the full step's pitch call
+            [128, 933, 2048] banded to 427 bins with each stream's first
+            frame at full width, and at full width, its onset call [128,
+            7485, 256], segmented onsets [128, 4096, 256], the live slot's
+            [1, 16, 256], a pool wave's [33, 16, 256], a feature chunk
+            [8192, 2048]): bitwise to `rfft_mag_fixed_np` (its operation
+            order in numpy) on 4 streams (1,024 frames) of each, within
+            1e-5 of each frame's peak of cuFFT (its plain version, which
+            is the library call too) on all; the band and the first frames
+            bitwise the full width's at the full step's pitch call, and a
+            frame's bits alone and at B = 1, 33 and 128 at its calls; the
+            spectral gate
+            at 2,048 and 256 points; timed in turns with cuFFT beside its
+            bytes bound and the issue floor of its order (its float32
+            instructions at 128 lanes an SM a clock, at the SM clock
+            sampled while it runs), saying which is larger;
   4. the main path: `segmented_pitch_analysis` over a 30-minute mixed scene at
      the default geometry (128 segments x 64-frame chunks; transfer="auto",
      pipelined at this length), cold then warm, with
@@ -141,8 +147,12 @@ Phases, one line each on standard output:
      quiet sections, each timed there beside its plain version and bound; `make_batched_full_step(None, 48000.0)` over 128 streams x 3
      chained chunks of 9.98 s: host ms a step, seconds of audio a wall
      second, K3-K7 and K10 launched once a step each and K11 twice (both
-     STFTs; asserted), no plain scan step, the port's kernels in a step
-     by CUDA events, and the step's CUDA kernels, card-busy ms and idle
+     STFTs; asserted), no plain scan step, the step (its pitch STFT
+     banded to the 427 bins the extraction reads, with each stream's
+     first frame at full width) bitwise to the step with full-width pitch
+     magnitudes over the chained steps (every output and the states), the
+     port's kernels in a step by CUDA events (K11's pitch and onset calls
+     apart), and the step's CUDA kernels, card-busy ms and idle
      share under torch.profiler in processes of their own
      (port_tools/fullstep_profile.py), with K11 and, before it, with the
      plain STFT (`--stft plain`, cuFFT): the STFTs' card ms and share
@@ -152,8 +162,9 @@ Phases, one line each on standard output:
      extraction's card time by
      torch.profiler, and that of the path K10 took over (the same torch
      ops around K2, K2 by CUDA events); K5 at the step's call (128 x 933
-     frames of 1,025-float rows, band 426) from the first step's fresh
-     state and from the state it leaves, bitwise to the plain scan, timed
+     frames of 427-float rows, band 426, the first frames at full width)
+     from the first step's fresh state and from the state it leaves,
+     bitwise to the plain scan, timed
      beside its bound and its events in the step; the
      gates: one stream's bits equal at B = 1, 33 and 128 with no
      equalization (and K11's magnitudes of each stream alone bitwise the
@@ -402,11 +413,14 @@ def k11_phase(rows, probe, dev) -> None:
     from audio_analyzer_rs_tpu_torch.ops.fft import hann
     from audio_analyzer_rs_tpu_torch.ops.stft import (FIDELITY_MAX_REL_MSE,
                                                       spectral_rel_mse)
+    import torch
     k11_probe = _tool("k11_probe")
     audio48 = gen.mixed_scene(120.0, FULL_SR, seed=0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     k11_err, k11_shapes, k11_parts = 0.0, {}, []
     for name, shape in k11_probe.SHAPES.items():
         fr, src = k11_probe.views(audio48, shape, dev)
+        band = shape[4]
         w = fr.shape[-1]
         win_k = hann(w, dev)
         few = fr[:4] if fr.dim() == 3 else fr[:1024]
@@ -414,6 +428,12 @@ def k11_phase(rows, probe, dev) -> None:
                       _k11_near_plain(fr, win_k, name))
         if name.startswith("full step"):
             whole = hopper_rfft.rfft_mag(fr, None, win_k)
+            if band is not None:
+                # The band and the first frames bitwise the full width's.
+                got, first = hopper_rfft.rfft_mag_first(fr, band, win_k)
+                assert same_bits(got, whole[..., :band].contiguous()), name
+                assert same_bits(first, whole[:, 0].contiguous()), name
+                del got, first
             for b in (1, 33):
                 assert same_bits(hopper_rfft.rfft_mag(fr[:b], None, win_k),
                                  whole[:b]), (name, b)
@@ -422,31 +442,42 @@ def k11_phase(rows, probe, dev) -> None:
                                                       None, win_k),
                                  whole[i:i + 1, 9:13]), (name, i)
             del whole
-        t_ms, lib_ms, turns = in_turns(
-            lambda: hopper_rfft.rfft_mag(fr, None, win_k),
-            lambda: hopper_rfft.rfft_mag_plain(fr, None, win_k), KERNEL_REPS)
-        nb, flops = k11_work(fr, src.numel())
+        with SmClock() as clock:
+            t_ms, lib_ms, turns = in_turns(
+                lambda: k11_probe.call(fr, win_k, band),
+                lambda: k11_probe.plain_call(fr, win_k, band), KERNEL_REPS)
+        rows_first = k11_probe.first_rows(fr, band)
+        nb, flops = k11_work(fr, src.numel(), band, rows_first)
         b_ms, b_by = bound(nb, flops, FP32_FLOPS)
-        k11_shapes[name] = dict(frames=list(fr.shape), ms=t_ms,
+        ops = k11_issue_ops(fr, band, rows_first)
+        i_ms = issue_floor_ms(ops, clock.mhz, sms)
+        k11_shapes[name] = dict(frames=list(fr.shape), band=band, ms=t_ms,
                                 plain_ms=lib_ms, library_ms=lib_ms,
                                 bound_ms=b_ms, bound_by=b_by,
-                                gb_per_s=nb / t_ms / 1e6)
-        k11_parts.append(f"{name} {list(fr.shape)} {t_ms:.4f} ms vs cuFFT "
-                         f"{lib_ms:.4f} ms (turns "
-                         f"{'/'.join(f'{t:.4f}' for t in turns)}), bound "
-                         f"{b_ms:.4f} ms ({b_by}: {nb / 1e6:.1f} MB; "
-                         f"{b_ms / t_ms:.1%} of it, {nb / t_ms / 1e6:.0f} "
-                         f"GB/s)")
+                                gb_per_s=nb / t_ms / 1e6,
+                                issue_floor_ms=i_ms, sm_mhz=clock.mhz,
+                                sm_clock=clock.source)
+        k11_parts.append(
+            f"{name} {list(fr.shape)}"
+            + ("" if band is None else f" band {band} + first frames")
+            + f" {t_ms:.4f} ms vs cuFFT {lib_ms:.4f} ms (turns "
+            f"{'/'.join(f'{t:.4f}' for t in turns)}), bytes bound "
+            f"{b_ms:.4f} ms ({b_by}: {nb / 1e6:.1f} MB; {b_ms / t_ms:.1%} "
+            f"of it, {nb / t_ms / 1e6:.0f} GB/s), the order's issue floor "
+            f"{i_ms:.4f} ms ({ops / fr[..., 0].numel():,.0f} float32 "
+            f"instructions a frame at {clock.mhz:.0f} MHz, {clock.source}; "
+            f"{'issue' if i_ms > b_ms else 'bytes'} the larger)")
         del fr, src
     k11_mse = {w: spectral_rel_mse(probe, w, w // 4, "fft", dev)
                for w in (2048, 256)}
     assert all(m < FIDELITY_MAX_REL_MSE for m in k11_mse.values()), k11_mse
-    main_k11 = k11_shapes["full step, pitch"]
+    main_k11 = k11_shapes["full step, pitch, banded"]
     say(f"K11 rfft_mag (Hann x real-FFT magnitude, one fixed order a frame): "
         f"bitwise to rfft_mag_fixed_np on 4 streams of each shape, within "
         f"{K11_PEAK_TOL:g}x of each frame's peak of cuFFT on all (max|d| "
-        f"{k11_err:.3e}); a frame's bits equal alone and at B = 1, 33 and "
-        f"128 at the full step's two calls; spectral rel MSE "
+        f"{k11_err:.3e}); the full step's band and first frames bitwise "
+        f"its full width's; a frame's bits equal alone and at B = 1, 33 "
+        f"and 128 at the full step's calls; spectral rel MSE "
         f"{k11_mse[2048]:.3e} (2048) / {k11_mse[256]:.3e} (256) (< "
         f"{FIDELITY_MAX_REL_MSE:g}); " + "; ".join(k11_parts))
     rows.append(dict(name="K11 rfft_mag (windowed real-FFT magnitude; "
@@ -457,19 +488,54 @@ def k11_phase(rows, probe, dev) -> None:
                      plain_ms=main_k11["plain_ms"],
                      bound_ms=main_k11["bound_ms"],
                      bound_by=main_k11["bound_by"],
-                     library_ms=main_k11["library_ms"], shapes=k11_shapes,
-                     spectral_rel_mse=k11_mse))
+                     library_ms=main_k11["library_ms"],
+                     issue_floor_ms=main_k11["issue_floor_ms"],
+                     shapes=k11_shapes, spectral_rel_mse=k11_mse))
 
 
-def k11_work(frames, span_samples: int) -> tuple[int, float]:
+def k11_work(frames, span_samples: int, band: int | None = None,
+             first_rows: int = 0) -> tuple[int, float]:
     """(bytes, flops) of K11 on [..., N, W] frames read from `span_samples`
-    samples: each sample read once, each magnitude written once, the window
-    and the table; ~2.5 W log2 W flops a frame (a half-length complex
-    FFT)."""
+    samples into `band` bins (None: W/2 + 1) and `first_rows` frames at
+    full width: each sample read once, each magnitude written once, the
+    window and the table; ~2.5 W log2 W flops a frame (a half-length
+    complex FFT)."""
     w = frames.shape[-1]
     n = frames.numel() // w
-    nb = span_samples * 4 + n * (w // 2 + 1) * 4 + w * 4 + (w + 1) * 8
+    band = w // 2 + 1 if band is None else band
+    nb = (span_samples * 4 + (n * band + first_rows * (w // 2 + 1)) * 4
+          + w * 4 + (w + 1) * 8)
     return nb, 2.5 * w * (w.bit_length() - 1) * n
+
+
+# K11's fixed order, in float32 instructions (csrc/rfft_mag.cu, one
+# instruction a product or sum: no FMA): a butterfly 4 products and 6 sums;
+# a bin 16 products, sums and the max of `magnitude` as
+# `rfft_mag_fixed_np` spells them, and ~14 more for its scale's selects and
+# __fsqrt_rn's instruction sequence.
+K11_BUTTERFLY_OPS = 10
+K11_BIN_OPS = 30
+SM_FP32_LANES = 128           # float32 lanes an SM issues a clock
+
+
+def k11_issue_ops(frames, band: int | None = None,
+                  first_rows: int = 0) -> float:
+    """The float32 instructions of K11's order on [..., N, W] frames into
+    `band` bins (None: W/2 + 1) and `first_rows` frames at full width: a
+    frame's W window products, its (W/4) log2(W/2) butterflies and its
+    bins."""
+    w = frames.shape[-1]
+    n = frames.numel() // w
+    band = w // 2 + 1 if band is None else band
+    frame = w + K11_BUTTERFLY_OPS * (w // 4) * (w.bit_length() - 2)
+    return (n * (frame + K11_BIN_OPS * band)
+            + first_rows * K11_BIN_OPS * (w // 2 + 1))
+
+
+def issue_floor_ms(ops: float, mhz: float, sms: int) -> float:
+    """`ops` float32 instructions over SM_FP32_LANES lanes an SM a clock
+    on `sms` SMs at `mhz`."""
+    return ops / (sms * SM_FP32_LANES * mhz * 1e6) * 1e3
 
 
 # The wrapper module of each path kernel, by the tag that starts its row's
@@ -1808,6 +1874,36 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         f"extractions 0; global floor "
         f"{float(last.global_noise_floor_db):.2f} dB, "
         f"{int(last.global_onset_count)} onsets in the last step")
+    # The banded step against the step with full-width pitch magnitudes
+    # (K11 at full width; K5 seeding a fresh stream's tail from them, K10
+    # reading their first kc + 1 bins: the step before the banding), each
+    # of the chained steps from fresh states: every output and the last
+    # states, bit for bit (NaNs by position).
+    from audio_analyzer_rs_tpu_torch.ops.fft import hann
+
+    def full_width_pitch(frames, band):
+        return hopper_rfft.rfft_mag(frames, None,
+                                    hann(frames.shape[-1], dev)), None
+
+    def leaves(tree):
+        if isinstance(tree, tuple):
+            return [x for part in tree for x in leaves(part)]
+        return [tree]
+    banded_pitch = sharding.pitch_mags
+    sharding.pitch_mags = full_width_pitch
+    try:
+        st_w = states
+        for k in range(FULL_STEPS):
+            st_w, out_w = step(st_w, chunks[k])
+            for name, a, b in zip(sharding.FullStepOut._fields, out_w,
+                                  outs[k]):
+                assert same_bits_nan(a, b), \
+                    f"banded step {k}: {name} differs from full width"
+    finally:
+        sharding.pitch_mags = banded_pitch
+    for a, b in zip(leaves(st_w), leaves(st)):
+        assert same_bits_nan(a, b), "banded step: states differ"
+    del st_w, out_w
     # The step's card time.  Each launch call into the port's library is
     # bracketed by a pair of CUDA events over one step (the wrappers' torch
     # ops stay outside them).  torch's kernels come from torch.profiler in
@@ -1817,9 +1913,11 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
     from audio_analyzer_rs_tpu_torch import _build
     lib = _build.lib()
     ours = {"aat_extract": "extraction", "aat_tracker_select": "tracker",
-            "aat_onset_scan": "onset", "aat_noise_floor_scan": "noise floor",
+            "aat_onset_scan": "onset",
+            "aat_noise_floor_scan_first": "noise floor",
             "aat_reducer_scan": "reducer", "aat_dynamics_scan": "dynamics",
-            "aat_rfft_mag": "rfft_mag x2"}
+            "aat_rfft_mag_first": "rfft_mag (pitch)",
+            "aat_rfft_mag": "rfft_mag (onset)"}
     spans = []
 
     def timed(name, fn):
@@ -1842,7 +1940,7 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         for fn in ours:
             setattr(lib, fn, originals[fn])
     names = sorted(name for name, _, _ in spans)
-    assert names == sorted(list(ours.values()) + ["rfft_mag x2"]), names
+    assert names == sorted(ours.values()), names
     port_ms = {}
     for name, b, e in spans:
         port_ms[name] = port_ms.get(name, 0.0) + b.elapsed_time(e)
@@ -1895,8 +1993,11 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
                      f"({k11_prof / busy_of['k11']:.1%})")
     else:
         stft_text = "the STFTs' share not measured"
-    say(f"fullstep: the port's kernels in one step (CUDA events around "
-        f"each library launch) "
+    k11_events = port_ms["rfft_mag (pitch)"] + port_ms["rfft_mag (onset)"]
+    say(f"fullstep: the banded step bitwise to the step with full-width "
+        f"pitch magnitudes ({FULL_STEPS} chained steps from fresh states, "
+        f"every output and the states); the port's kernels in one step "
+        f"(CUDA events around each library launch) "
         + ", ".join(f"{k} {v:.3f}" for k, v in port_ms.items())
         + f" ms; in fresh processes (port_tools/fullstep_profile.py, 3 "
         f"profiles each): before K11 (--stft plain, cuFFT) "
@@ -1904,7 +2005,9 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         f"{stft_text}; {med * 1e3:.1f} ms a step by this process's host "
         f"clock")
     row_of(rows, "K11").update(
-        launches=launches[6], full_step_events_ms=port_ms["rfft_mag x2"],
+        launches=launches[6], full_step_events_ms=k11_events,
+        full_step_pitch_events_ms=port_ms["rfft_mag (pitch)"],
+        full_step_onset_events_ms=port_ms["rfft_mag (onset)"],
         full_step_profiled_ms=k11_prof,
         full_step_card_busy_ms=busy_of["k11"],
         full_step_card_busy_ms_before=busy_of["plain"],
@@ -1912,8 +2015,8 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         full_step_torch_kernels_before=prof["plain"]["profiles"][0][
             "torch_kernels"])
 
-    # K10 at the full step's call (128 streams x 933 frames, full-width
-    # magnitudes, banded floors), held against the plain extraction and
+    # K10 at the full step's call (128 streams x 933 frames, magnitudes
+    # and floors banded), held against the plain extraction and
     # timed; the plain extraction's card time from torch.profiler, and
     # that of the path K10 took over: the same torch ops around K2 (K2 by
     # CUDA events).
@@ -2011,18 +2114,22 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
     row_of(rows, "K2")["launches_full_step"] = launches[-1]
     del prof, kern, got, ref, seen, x_mags, x_floor
 
-    # K5 at the step's call (128 streams x 933 frames of 1,025-float rows,
-    # band 426, the 1,025-wide state): the first step's call (a fresh
-    # state: the tail seeded) and the next one's (its state carried: the
-    # tail frozen, as in every later step), each bitwise to the plain scan
-    # on the card, then timed alone beside the call's byte bound.
-    (f_st, f_mags, f_gf, f_band), = seen_k5
-    c_st, _ = hopper_noisefloor.noise_floor_scan(f_st, f_mags, f_gf, f_band)
+    # K5 at the step's call (128 streams x 933 frames of 427-float rows,
+    # band 426, the 1,025-wide state, each stream's first frame at full
+    # width): the first step's call (a fresh state: the tail seeded from
+    # the first frames) and the next one's (its state carried: the tail
+    # frozen, as in every later step), each bitwise to the plain scan on
+    # the card, then timed alone beside the call's byte bound.
+    (f_st, f_mags, f_gf, f_band, f_first), = seen_k5
+    c_st, _ = hopper_noisefloor.noise_floor_scan(f_st, f_mags, f_gf, f_band,
+                                                 f_first)
     k5_calls = {"fresh": f_st, "carried": c_st}
     k5_step_ms = {}
     for label, st5 in k5_calls.items():
-        got5 = hopper_noisefloor.noise_floor_scan(st5, f_mags, f_gf, f_band)
-        ref5 = noisefloor.noise_floor_scan_plain(st5, f_mags, f_gf, f_band)
+        got5 = hopper_noisefloor.noise_floor_scan(st5, f_mags, f_gf, f_band,
+                                                  f_first)
+        ref5 = noisefloor.noise_floor_scan_plain(st5, f_mags, f_gf, f_band,
+                                                 f_first)
         torch.cuda.synchronize()
         for name, g, r in zip(("effective",) + noisefloor.NoiseFloorState
                               ._fields, (got5[1], *got5[0]),
@@ -2030,7 +2137,8 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
             assert same_bits(g, r), f"K5 at the full step ({label}): {name}"
         k5_step_ms[label] = cuda_ms(
             lambda: hopper_noisefloor.noise_floor_scan(st5, f_mags, f_gf,
-                                                       f_band), KERNEL_REPS)
+                                                       f_band, f_first),
+            KERNEL_REPS)
     del got5, ref5
     s_5, n_5, w_5 = f_mags.shape
     h_5 = f_st.floor.shape[-1]
@@ -2040,7 +2148,8 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
                                       30 * s_5 * n_5 * f_band, FP32_FLOPS)
     k5_events = port_ms["noise floor"]
     say(f"fullstep: K5 at the step's call (magnitudes {tuple(f_mags.shape)}"
-        f", band {f_band}, a {h_5}-wide state): bitwise equal to the plain "
+        f", band {f_band}, a {h_5}-wide state, first frames "
+        f"{tuple(f_first.shape)}): bitwise equal to the plain "
         f"scan from the first step's fresh state (the tail seeded) and "
         f"from the state it leaves (carried); carried "
         f"{k5_step_ms['carried']:.4f} ms, fresh {k5_step_ms['fresh']:.4f} "
@@ -2055,7 +2164,7 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
         full_step_bound_ms=k5_step_bound, full_step_bound_by=k5_step_by,
         full_step_gb_per_s=k5_step_bytes / k5_step_ms["carried"] / 1e6,
         full_step_profiled_ms=k5_events, launches_full_step=launches[3])
-    del seen_k5, f_st, f_mags, f_gf, c_st, k5_calls
+    del seen_k5, f_st, f_mags, f_gf, f_first, c_st, k5_calls
 
     # 3a. One stream's bits do not depend on B: stream 0's first step at
     # B = 1 and 33 against B = 128's, the step as shipped (K11's
@@ -2100,22 +2209,27 @@ def fullstep_phase(rows, card: str, audio44, full_outs):
                                               amplitude=0.2)
                     for s in range(2)]).astype(np.float32)
 
-    windowed = sharding.windowed_mags
+    windowed, banded = sharding.windowed_mags, sharding.pitch_mags
 
     def cpu_mags(frames, window, backend="fft", band=None):
         return windowed(frames.cpu(), window, backend, band).to(frames.device)
 
-    def two_streams(device, mags_fn=None):
-        sharding.windowed_mags = mags_fn or windowed
+    def cpu_pitch_mags(frames, band):
+        return tuple(t.to(frames.device) for t in banded(frames.cpu(), band))
+
+    def two_streams(device, equalize=False):
+        if equalize:
+            sharding.windowed_mags = cpu_mags
+            sharding.pitch_mags = cpu_pitch_mags
         try:
             _, o = sharding.make_batched_full_step(None, sr, device=device)(
                 sharding.init_stream_states(2, device=device), two)
         finally:
-            sharding.windowed_mags = windowed
+            sharding.windowed_mags, sharding.pitch_mags = windowed, banded
         return sharding.FullStepOut(*(t.cpu() for t in o))
 
     cpu = two_streams("cpu")
-    for label, card_out in (("equalized", two_streams("cuda", cpu_mags)),
+    for label, card_out in (("equalized", two_streams("cuda", True)),
                             ("K11", two_streams("cuda"))):
         assert torch.equal(card_out.dyn_level, cpu.dyn_level)
         flips, reordered, f_err = stable_compare(card_out, cpu)

@@ -12,8 +12,9 @@ host clock around it and a synchronize (median of 20), and run
 `--profiles` times under torch.profiler, each its own session, the step
 20 ms into it and bracketed by CUDA events.  `--stft plain` runs the
 step's two "fft" STFTs through the plain version instead of K11
-(`torch.fft.rfft(frames x hann).abs()`, cuFFT: the step as it was before
-K11), for the before-and-after of one run.  Prints the card's name and
+(`torch.fft.rfft(frames x hann).abs()`, cuFFT, the pitch call's band and
+first frames sliced from its full width: the step as it was before K11),
+for the before-and-after of one run.  Prints the card's name and
 power limit, then one JSON line: the step's ms (events and host), and for
 each profile torch's CUDA kernels and their card ms, the port's
 (csrc/*.cu) and theirs, K5's, K11's, cuFFT's, the card's busy ms against
@@ -53,6 +54,16 @@ def plain_stft(frames, window, backend="fft", band=None):
     assert backend == "fft", backend
     return hopper_rfft.rfft_mag_plain(frames, band,
                                       hann(window, frames.device))
+
+
+def plain_pitch_mags(frames, band):
+    """The step's banded pitch STFT and its first frames through the plain
+    version (cuFFT), in place of parallel/sharding.py `pitch_mags`."""
+    from audio_analyzer_rs_tpu_torch.ops import hopper_rfft
+    from audio_analyzer_rs_tpu_torch.ops.fft import hann
+    from audio_analyzer_rs_tpu_torch.ops.stft import PITCH_WINDOW
+    return hopper_rfft.rfft_mag_first_plain(
+        frames, band, hann(PITCH_WINDOW, frames.device))
 
 
 def fleet_step(dev, capture=None):
@@ -175,6 +186,7 @@ def main() -> int:
     from audio_analyzer_rs_tpu_torch.parallel import sharding
     if args.stft == "plain":
         sharding.windowed_mags = plain_stft
+        sharding.pitch_mags = plain_pitch_mags
     step, st, chunk = fleet_step(torch.device("cuda"))
     print(json.dumps(profile_step(step, st, chunk,
                                   profiles=args.profiles)), flush=True)

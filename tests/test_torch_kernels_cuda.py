@@ -26,12 +26,14 @@ every state leaf across the full width, tail included: at bands 426, 464
 and 1,025 for S = 1, 33 and 128, at the full step's call (128 x 933
 frames of 1,025-float rows, band 426, fresh and carried), and on the cases
 its division shortcuts could break (tests/test_torch_noisefloor_kernel.py
-`edge_cases`); no torch op runs after its launch.  K11 (the "fft"
-magnitude) is bitwise to `rfft_mag_fixed_np`, its operation order in
-numpy, on random, scene and silence-level frames, and a frame's bits do
-not depend on the batch or the layout (1 to 2,064 frames, [C, 16] and
-[B, 933]); against cuFFT (its plain version) within 1e-5 of each frame's
-peak.  Tolerances: K1 max |Δ| <= 1e-5 ·
+`edge_cases`); with banded magnitudes and each stream's first frame at
+full width it is bitwise its full-width call; no torch op runs after its
+launch.  K11 (the "fft" magnitude) is bitwise to `rfft_mag_fixed_np`, its
+operation order in numpy, on random, scene, silence-level and NaN/inf
+frames, full width and banded with each row's first frame at full width,
+in both its forms at every width, and a frame's bits do not depend on the
+batch or the layout (1 to 2,064 frames, [C, 16] and [B, 933]); against
+cuFFT (its plain version) within 1e-5 of each frame's peak.  Tolerances: K1 max |Δ| <= 1e-5 ·
 max (3xTF32 on the tensor cores against cuBLAS FP32), and bitwise across
 batch geometries; K2, K3, K4 and K5 bitwise (K3's, K4's and K5's floats as
 bit patterns, so -0.0 and +0.0 differ).
@@ -684,6 +686,33 @@ def test_k5_matches_plain_at_band_widths(dev, s, band):
     _assert_k5_matches_plain(_k5_state(dev, s, seed=s), mags, gf, band)
 
 
+@pytest.mark.parametrize("s", [1, 33, 128])
+def test_k5_first_frames_match_the_full_width_call(dev, s):
+    """K5 over magnitudes banded to kc + 1 bins with each stream's first
+    frame at full width (`first`, the full step's call) bitwise to K5 over
+    the full-width magnitudes and to the plain scan with `first`: fresh,
+    mixed (every other stream fresh) and initialized states, every state
+    leaf across the full width."""
+    mags, gf = _k5_inputs(dev, s, 40, HALF, seed=60 + s)
+    banded = mags[..., :KC48 + 1].contiguous()
+    first = mags[:, 0].contiguous()
+    mixed = _k5_state(dev, s, seed=s)
+    states = {"fresh": noisefloor.init_state(HALF, dev, (s,)),
+              "mixed": mixed,
+              "initialized": mixed._replace(
+                  initialized=torch.ones_like(mixed.initialized))}
+    for label, st0 in states.items():
+        want = noisefloor.noise_floor_scan(st0, mags, gf, KC48)
+        got = noisefloor.noise_floor_scan(st0, banded, gf, KC48, first)
+        plain = noisefloor.noise_floor_scan_plain(st0, banded, gf, KC48,
+                                                  first)
+        torch.cuda.synchronize()
+        for a, b, c in zip((got[1], *got[0]), (want[1], *want[0]),
+                           (plain[1], *plain[0])):
+            assert_same_bits(a, b, label)
+            assert_same_bits(a, c, label)
+
+
 @pytest.mark.parametrize("fresh", [True, False])
 def test_k5_matches_plain_at_the_full_steps_call(dev, fresh):
     """The full step's call (parallel/sharding.py): 128 streams x 933
@@ -1277,56 +1306,77 @@ def test_fft_2048_mags_across_batches(dev):
 
 
 @pytest.mark.parametrize("width", [256, 2048])
-@pytest.mark.parametrize("data", ["random", "scene", "silence"])
+@pytest.mark.parametrize("data", ["random", "scene", "silence", "naninf"])
 def test_k11_bitwise_to_its_transcription(dev, width, data):
     """K11 bit for bit against `rfft_mag_fixed_np` (its operation order in
-    numpy) on random, scene and silence-level frames (the Hann window's
-    products below 2^-126), read through unfold views with float2 loads
-    and (an odd sample offset) scalar loads, and through the wrapper's
-    rectangular window and a band."""
+    numpy; NaNs by position) on random, scene, silence-level frames (the
+    Hann window's products below 2^-126) and random frames with NaN and
+    inf samples, 4 streams read through unfold views with float2 loads and
+    (an odd sample offset) scalar loads: the full width, the band with
+    each stream's first frame at full width (`rfft_mag_first`; the full
+    step's pitch band at 2,048), and through the wrapper's rectangular
+    window and a band."""
     hop = width // 4
-    if data == "random":
+    band = KC48 + 1 if width == 2048 else 57
+    if data in ("random", "naninf"):
         x = np.random.default_rng(width).standard_normal(
             width * 64).astype(np.float32)
+        if data == "naninf":
+            x[::997], x[5::1409], x[11::2003] = np.nan, np.inf, -np.inf
     elif data == "scene":
         x = _live_scene(dev, 3.0).cpu().numpy()
     else:
         x = (gen.mixed_scene(3.0, SR48, seed=4)
              * np.float32(2.0 ** -120)).astype(np.float32)
     xd = torch.from_numpy(x).to(dev)
+    span = (len(x) - 1) // 4
     win = hann(width, dev)
     for off in (0, 1):
-        fr = frame_signal(xd[off:], width, hop)
+        fr = frame_signal(xd[off:off + 4 * span].reshape(4, span), width,
+                          hop)
         want = hopper_rfft.rfft_mag_fixed_np(fr.cpu().numpy(), None,
                                              win.cpu().numpy())
-        assert_same_bits(windowed_mags(fr, width, "fft"), want,
-                         f"offset {off}")
-    fr = fr[::3]
-    assert_same_bits(hopper_rfft.rfft_mag(fr, 17),
-                     hopper_rfft.rfft_mag_fixed_np(fr.cpu().numpy(), 17))
+        assert_same_bits_nan(windowed_mags(fr, width, "fft"),
+                             torch.from_numpy(want), f"offset {off}")
+        got, first = hopper_rfft.rfft_mag_first(fr, band, win)
+        assert_same_bits_nan(got, torch.from_numpy(
+            np.ascontiguousarray(want[..., :band])), f"band, offset {off}")
+        assert_same_bits_nan(first, torch.from_numpy(
+            np.ascontiguousarray(want[:, 0])), f"first, offset {off}")
+    fr = fr[:, ::3]
+    assert_same_bits_nan(hopper_rfft.rfft_mag(fr, 17), torch.from_numpy(
+        hopper_rfft.rfft_mag_fixed_np(fr.cpu().numpy(), 17)))
 
 
-@pytest.mark.parametrize("width", [256, 2048])
+@pytest.mark.parametrize("width", hopper_rfft.widths())
 def test_k11_both_forms_bitwise(dev, width):
-    """K11 takes 16 values a thread below one 32-value tile an SM and 32
-    at and above it (csrc/rfft_mag.cu `launch`): frame counts on both sides
-    of the switch, each bitwise to `rfft_mag_fixed_np`, a frame's bits the
-    same in either form."""
-    per_tile = 256 // (width // 64)              # frames a 32-value tile
+    """K11 takes 16 values a thread below 8 warps of 32-value groups an SM
+    and 32 from there (csrc/rfft_mag.cu `launch`): frame counts on both
+    sides of the switch at every width, full and banded with the first
+    frames of 11-frame rows, each bitwise to `rfft_mag_fixed_np`, a
+    frame's bits the same in either form."""
+    tpf = width // 64                            # threads a frame at 32
+    group = max(32, tpf)
+    fpg = group // tpf                           # frames a group
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    small = (8 * sms * 32 // group - 1) * fpg    # the 16-value form's most
+    n_big = -(-(small + fpg + 3) // 11) * 11
     rng = np.random.default_rng(width + 7)
-    x = rng.standard_normal(
-        (per_tile * sms + 9) * width // 4 + width).astype(np.float32)
+    x = rng.standard_normal(n_big * width // 4 + width).astype(np.float32)
     fr = frame_signal(torch.from_numpy(x).to(dev), width, width // 4)
+    fr = fr[:n_big]
     win = hann(width, dev)
-    small = fr[:per_tile * (sms - 1) + 3]
-    got_small = hopper_rfft.rfft_mag(small, None, win)
-    got_big = hopper_rfft.rfft_mag(fr, None, win)
-    assert_same_bits(got_small, hopper_rfft.rfft_mag_fixed_np(
-        small.cpu().numpy(), None, win.cpu().numpy()))
-    assert_same_bits(got_big, hopper_rfft.rfft_mag_fixed_np(
-        fr.cpu().numpy(), None, win.cpu().numpy()))
-    assert_same_bits(got_big[:small.shape[0]], got_small)
+    wn = win.cpu().numpy()
+    band = width // 4 + 11
+    want = hopper_rfft.rfft_mag_fixed_np(fr.cpu().numpy(), None, wn)
+    for n in (small - small % 11, n_big):
+        got = hopper_rfft.rfft_mag(fr[:n], None, win)
+        assert_same_bits(got, want[:n], f"{n} frames")
+        rows = fr[:n].reshape(n // 11, 11, width)
+        got_b, first = hopper_rfft.rfft_mag_first(rows, band, win)
+        assert_same_bits(got_b.reshape(n, band), want[:n, :band],
+                         f"{n} frames, band")
+        assert_same_bits(first, want[:n:11], f"{n} frames, first")
 
 
 @pytest.mark.parametrize("width", [256, 2048])
@@ -1369,13 +1419,18 @@ def _full_step_two_streams(device, mags_fn=None):
                       + gen.tone_with_harmonics(262.0 * (s + 1), 2.0, SR48,
                                                 amplitude=0.2)
                       for s in range(2)]).astype(np.float32)
-    windowed = sharding.windowed_mags
-    sharding.windowed_mags = mags_fn or windowed
+    windowed, banded = sharding.windowed_mags, sharding.pitch_mags
+    if mags_fn is not None:
+        # Both STFTs through mags_fn: the pitch call's band and first
+        # frames sliced from its full width, as on the CPU.
+        sharding.windowed_mags = mags_fn
+        sharding.pitch_mags = lambda frames, band: tuple(
+            t.to(frames.device) for t in banded(frames.cpu(), band))
     try:
         step = sharding.make_batched_full_step(None, SR48, device=device)
         _, out = step(sharding.init_stream_states(2, device=device), audio)
     finally:
-        sharding.windowed_mags = windowed
+        sharding.windowed_mags, sharding.pitch_mags = windowed, banded
     return sharding.FullStepOut(*(t.cpu() for t in out))
 
 

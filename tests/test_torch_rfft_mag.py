@@ -45,16 +45,25 @@ def _pad(p: int) -> int:
     return p + (p >> 5)
 
 
-def kernel_plan_np(frames, band=None, window=None, rr=32):
+def kernel_plan_np(frames, band=None, window=None, rr=32, per_row=None,
+                   fpw=None):
     """csrc/rfft_mag.cu's loops in numpy, over [N, W] frames, `rr` values a
-    thread (the kernel's two forms, 32 and 16): each thread t of a frame
-    loads z[t + q·TPF], then each pass from stage s0 runs its stages group
-    by group in registers (`stages`) and writes value q of group j to the
-    padded buffer at (j >> s0)·Ns0·R + (j mod Ns0) + Ns0·bitrev(q)
-    (`fft_passes`); the epilogue reads Z[k], Z[M - k] from the buffer
-    (`magnitude`)."""
+    thread (the kernel's two forms, 32 and 16).  A group of G = max(32,
+    TPF) threads owns FPG = G / TPF frame slots and its padded buffer, and
+    takes fpw <= FPG frames a batch (default FPG; thread tg: frame slot
+    tg / TPF, t = tg mod TPF; slots from fpw on run zeros); the batches
+    (every
+    batch at once here, an axis of the arrays: a batch's values do not
+    depend on which group takes it) go: the raw loads of z[t + q·TPF]
+    (`load_raw`), the window product, each pass from stage s0 running its
+    stages register group by register group and writing value q of group j
+    to (j >> s0)·Ns0·R + (j mod Ns0) + Ns0·bitrev(q) (`fft_passes`); then
+    the epilogue, thread tg writing elements tg + G·i of the batch's run
+    of rows × band floats, its (row, bin) stepped by G = qb·band + rb
+    (`bin_of`); and, with `per_row`, each frame r·per_row of the batch at
+    full width → out [N, band] (and first [N / per_row, W/2 + 1])."""
     x = np.asarray(frames, np.float32)
-    width = x.shape[-1]
+    n, width = x.shape
     half = width // 2
     levels = half.bit_length() - 1
     band = hopper_rfft._band(width, band)
@@ -62,27 +71,43 @@ def kernel_plan_np(frames, band=None, window=None, rr=32):
     stage, post = hopper_rfft.twiddles_np(width)
     rlog = rr.bit_length() - 1
     tpf = half // rr
-    buf = np.zeros((len(x), half + half // 32, 2), np.float32)
+    g_threads = max(32, tpf)
+    fpg = g_threads // tpf
+    fpw = fpg if fpw is None else fpw
+    mp = half + half // 32
+    batches = -(-n // fpw)
+    # Frame slot f < fpw of batch b is frame b·fpw + f; zeros past n and
+    # in the slots from fpw on.
+    xb = np.zeros((batches, fpg, width), np.float32)
+    xw = np.zeros((batches * fpw, width), np.float32)
+    xw[:n] = x
+    xb[:, :fpw] = xw.reshape(batches, fpw, width)
+    gbuf = np.zeros((batches, fpg * mp, 2), np.float32)
     regs = []
-    for t in range(tpf):
+    for tg in range(g_threads):
+        f, t = tg // tpf, tg % tpf
         m = t + np.arange(rr) * tpf
-        regs.append([x[:, 2 * m] * win[2 * m], x[:, 2 * m + 1] * win[2 * m + 1]])
+        vr, vi = xb[:, f, 2 * m].copy(), xb[:, f, 2 * m + 1].copy()
+        regs.append([vr * win[2 * m], vi * win[2 * m + 1]])
     s0 = 0
     while s0 < levels:
         rl = min(levels - s0, rlog)
         r = 1 << rl
         ns0 = 1 << s0
         groups = rr // r
-        for t in range(tpf):
-            vr, vi = regs[t]
+        for tg in range(g_threads):
+            fb, t = (tg // tpf) * mp, tg % tpf
+            vr, vi = regs[tg]
             for g in range(groups):
                 j = t + g * tpf
                 if s0 > 0:
-                    v = buf[:, [_pad(j + q * (half // r)) for q in range(r)]]
+                    v = gbuf[:, [fb + _pad(j + q * (half // r))
+                                 for q in range(r)]]
                     vr[:, g * r:(g + 1) * r] = v[..., 0]
                     vi[:, g * r:(g + 1) * r] = v[..., 1]
-        for t in range(tpf):
-            vr, vi = regs[t]
+        for tg in range(g_threads):
+            fb, t = (tg // tpf) * mp, tg % tpf
+            vr, vi = regs[tg]
             for g in range(groups):
                 c = (t + g * tpf) & (ns0 - 1)
                 for s in range(rl):
@@ -97,30 +122,64 @@ def kernel_plan_np(frames, band=None, window=None, rr=32):
                         ar, ai = vr[:, q], vi[:, q]
                         vr[:, q + hh], vi[:, q + hh] = ar - tr, ai - ti
                         vr[:, q], vi[:, q] = ar + tr, ai + ti
+        for tg in range(g_threads):
+            fb, t = (tg // tpf) * mp, tg % tpf
+            vr, vi = regs[tg]
             for g in range(groups):
                 j = t + g * tpf
                 base = ((j >> s0) << (s0 + rl)) + (j & (ns0 - 1))
                 for q in range(r):
-                    p = _pad(base + (_bitrev(q, rl) << s0))
-                    buf[:, p] = np.stack([vr[:, g * r + q],
-                                          vi[:, g * r + q]], -1)
+                    p = fb + _pad(base + (_bitrev(q, rl) << s0))
+                    gbuf[:, p] = np.stack([vr[:, g * r + q],
+                                           vi[:, g * r + q]], -1)
         s0 += rl
-    k = np.arange(band)
-    zk = buf[:, [_pad(i) for i in k % half]]
-    zm = buf[:, [_pad(i) for i in (half - k) % half]]
-    a, b, c, d = zk[..., 0], zk[..., 1], zm[..., 0], zm[..., 1]
-    er, ei, o_r, o_i = a + c, b - d, b + d, c - a
-    tr, ti = post[k, 0], post[k, 1]
-    xr = er + (tr * o_r - ti * o_i)
-    xi = ei + (tr * o_i + ti * o_r)
-    big = np.fmax(np.abs(xr), np.abs(xi))
-    tiny, huge = big < 2.0 ** -60, big > 2.0 ** 60
-    up = np.where(tiny, np.float32(2.0 ** 100),
-                  np.where(huge, np.float32(2.0 ** -100), np.float32(1.0)))
-    back = np.where(tiny, np.float32(2.0 ** -101),
-                    np.where(huge, np.float32(2.0 ** 99), np.float32(0.5)))
-    xr, xi = xr * up, xi * up
-    return np.sqrt(xr * xr + xi * xi) * back
+
+    def bin_of(z0, k):
+        """Bin k of each batch's frame at buffer offset z0 (`magnitude`)."""
+        zk = gbuf[np.arange(batches), z0 + _pad(k & (half - 1))]
+        zm = gbuf[np.arange(batches), z0 + _pad((half - k) & (half - 1))]
+        a, b, c, d = zk[..., 0], zk[..., 1], zm[..., 0], zm[..., 1]
+        er, ei, o_r, o_i = a + c, b - d, b + d, c - a
+        tr, ti = post[k, 0], post[k, 1]
+        xr = er + (tr * o_r - ti * o_i)
+        xi = ei + (tr * o_i + ti * o_r)
+        big = np.fmax(np.abs(xr), np.abs(xi))
+        tiny, huge = big < 2.0 ** -60, big > 2.0 ** 60
+        up = np.where(tiny, np.float32(2.0 ** 100),
+                      np.where(huge, np.float32(2.0 ** -100),
+                               np.float32(1.0)))
+        back = np.where(tiny, np.float32(2.0 ** -101),
+                        np.where(huge, np.float32(2.0 ** 99),
+                                 np.float32(0.5)))
+        xr, xi = xr * up, xi * up
+        return np.sqrt(xr * xr + xi * xi) * back
+
+    f0 = np.arange(batches) * fpw
+    count = np.minimum(fpw, n - f0) * band
+    dst = np.full((batches, fpw * band), np.nan, np.float32)
+    qb, rb = g_threads // band, g_threads % band
+    for tg in range(g_threads):
+        row, k = tg // band, tg % band
+        for idx in range(tg, fpw * band, g_threads):
+            live = idx < count
+            dst[live, idx] = bin_of(row * mp, k)[live]
+            k += rb
+            row += qb
+            if k >= band:
+                k -= band
+                row += 1
+    out = dst.reshape(-1, band)[:n]
+    if per_row is None:
+        return out
+    first = np.full((n // per_row, half + 1), np.nan, np.float32)
+    for bt in range(batches):
+        rows = min(fpw, n - f0[bt])
+        m = -(-f0[bt] // per_row) * per_row
+        while m < f0[bt] + rows:
+            for kk in range(half + 1):
+                first[m // per_row, kk] = bin_of((m - f0[bt]) * mp, kk)[bt]
+            m += per_row
+    return out, first
 
 
 def _scene(name: str, width: int, seconds: float = 0.5) -> np.ndarray:
@@ -181,17 +240,36 @@ def test_fixed_order_near_torch_fft_and_jax(width):
 @pytest.mark.parametrize("rr", [16, 32])
 @pytest.mark.parametrize("width", hopper_rfft.widths())
 def test_kernel_plan_is_the_fixed_order(width, rr):
-    """The kernel's threads, groups, passes and padded buffer give the
-    transcription's bits, at every width it takes, in both its forms."""
-    rng = np.random.default_rng(width)
-    frames = rng.standard_normal((3, width)).astype(np.float32)
+    """The kernel's groups, threads, passes, padded buffers and epilogue
+    give the transcription's bits, at every width it takes, in both its
+    forms: full and banded (7 bins, fewer than a group's threads, and an
+    odd band above them), with each outer row's first frame at full width
+    beside the band; subnormal, huge, NaN and inf samples.  66 frames:
+    several batches at every width, the last one partial where a group
+    holds several frames, row starts inside and at the edges of batches.
+    The 16-value form also with one and two frames a group's batch (a
+    small call's)."""
+    rng = np.random.default_rng(width + rr)
+    frames = rng.standard_normal((66, width)).astype(np.float32)
     frames[1] *= np.float32(2.0 ** -130)     # subnormal samples
+    frames[40] *= np.float32(2.0 ** 70)      # squares above float32's range
+    frames[50, 3], frames[60, 7], frames[61, 2] = np.nan, np.inf, -np.inf
     win = tfft.hann_window(width)
-    for window in (win, None):
-        assert _same_bits(kernel_plan_np(frames, None, window, rr),
-                          hopper_rfft.rfft_mag_fixed_np(frames, None, window))
-    assert _same_bits(kernel_plan_np(frames, 7, win, rr),
-                      hopper_rfft.rfft_mag_fixed_np(frames, 7, win))
+    with np.errstate(invalid="ignore", over="ignore"):
+        for window in (win, None):
+            assert _same_bits(kernel_plan_np(frames, None, window, rr),
+                              hopper_rfft.rfft_mag_fixed_np(frames, None,
+                                                            window))
+        fpg = max(32, width // 2 // rr) // (width // 2 // rr)
+        thin = [f for f in (1, 2) if rr == 16 and f < fpg]
+        for band, fpw in [(7, None), (width // 4 + 11, None)] + [
+                (width // 4 + 11, f) for f in thin]:
+            got, first = kernel_plan_np(frames, band, win, rr, per_row=11,
+                                        fpw=fpw)
+            assert _same_bits(got, hopper_rfft.rfft_mag_fixed_np(
+                frames, band, win))
+            assert _same_bits(first, hopper_rfft.rfft_mag_fixed_np(
+                frames[::11], None, win))
 
 
 @pytest.mark.parametrize("width", hopper_rfft.widths())

@@ -67,6 +67,8 @@ Layer map (mirrors the JAX package):
                      over a mesh
   parallel/dryrun    dryrun_multichip(n): the mesh over n gloo processes
                      on the CPU, held to one process
+  spans              host spans inside the full step (off by default;
+                     enable/disable/drain), on the host clock
   ops/gather         the Mosaic probe's lane gathers (kernels K8 and K9:
                      ops/hopper_gather.py, csrc/gather.cu; their path is
                      port_tools/gather_probe.py)

@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import spans
 from ..ops import dynamics, hopper_rfft, noisefloor, onset as onset_ops
 from ..ops import pitch as pitch_ops, reducer, tracker
 from ..ops.fft import hann
@@ -91,14 +92,16 @@ def _batched_stream_step(states: StreamStates, audio: torch.Tensor,
     """Every stream's chain on its chunk: audio [B, T] float32 →
     (states, (stable freqs, stable valid, fired, velocity, level, the last
     slot's floor [B]))."""
-    red, y = reducer.reduce_signal(states.red, audio, sample_rate)
-    b = y.shape[0]
-    n_slots = y.shape[1] // slot_len
-    slots = y[:, :n_slots * slot_len].reshape(b, n_slots, slot_len)
-    dyn, douts, gained = dynamics.dynamics_scan(
-        states.dyn, slots.contiguous(), sample_rate, slot_len, dyn_mode)
-    cond = gained.reshape(b, -1)
-    floors_db = douts.noise_floor_db
+    with spans.span("full_step.conditioning"):
+        red, y = reducer.reduce_signal(states.red, audio, sample_rate)
+        b = y.shape[0]
+        n_slots = y.shape[1] // slot_len
+        slots = y[:, :n_slots * slot_len].reshape(b, n_slots, slot_len)
+        dyn, douts, gained = dynamics.dynamics_scan(
+            states.dyn, slots.contiguous(), sample_rate, slot_len,
+            dyn_mode)
+        cond = gained.reshape(b, -1)
+        floors_db = douts.noise_floor_db
 
     def causal_floor_db(n_frames: int, window: int, hop: int):
         # The floor as of the slot holding each frame's last sample.
@@ -107,31 +110,35 @@ def _batched_stream_step(states: StreamStates, audio: torch.Tensor,
         return floors_db[:, (last // slot_len).clamp(max=n_slots - 1)]
 
     # Pitch pipeline.
-    pframes = frame_signal(cond, PITCH_WINDOW, pitch_hop)
-    n_p = pframes.shape[1]
-    half = PITCH_WINDOW // 2 + 1
-    bin_width = sample_rate / PITCH_WINDOW
-    kc = pitch_ops.candidate_band(bin_width, half)
-    pmags, pfirst = pitch_mags(pframes, kc + 1)
-    gfp = noisefloor.global_floor_linear(
-        causal_floor_db(n_p, PITCH_WINDOW, pitch_hop), half)
-    nf, eff = noisefloor.noise_floor_scan(states.nf, pmags, gfp, kc, pfirst)
-    pf = pitch_ops.extract_pitches(pmags.reshape(b * n_p, -1),
-                                   eff.reshape(b * n_p, -1), bin_width,
-                                   true_half=half)
-    pf = pitch_ops.PitchFrame(*(a.reshape(b, n_p, -1) for a in pf))
-    no_onsets = torch.zeros((b, n_p), dtype=torch.bool, device=y.device)
-    tr, (sf, _, sv) = tracker.tracker_scan_batched(
-        states.tr, pf.freqs, pf.scores, pf.valid, no_onsets)
+    with spans.span("full_step.pitch"):
+        pframes = frame_signal(cond, PITCH_WINDOW, pitch_hop)
+        n_p = pframes.shape[1]
+        half = PITCH_WINDOW // 2 + 1
+        bin_width = sample_rate / PITCH_WINDOW
+        kc = pitch_ops.candidate_band(bin_width, half)
+        pmags, pfirst = pitch_mags(pframes, kc + 1)
+        gfp = noisefloor.global_floor_linear(
+            causal_floor_db(n_p, PITCH_WINDOW, pitch_hop), half)
+        nf, eff = noisefloor.noise_floor_scan(states.nf, pmags, gfp, kc,
+                                              pfirst)
+        pf = pitch_ops.extract_pitches(pmags.reshape(b * n_p, -1),
+                                       eff.reshape(b * n_p, -1), bin_width,
+                                       true_half=half)
+        pf = pitch_ops.PitchFrame(*(a.reshape(b, n_p, -1) for a in pf))
+        no_onsets = torch.zeros((b, n_p), dtype=torch.bool, device=y.device)
+        tr, (sf, _, sv) = tracker.tracker_scan_batched(
+            states.tr, pf.freqs, pf.scores, pf.valid, no_onsets)
 
     # Onset pipeline.
-    oframes = frame_signal(cond, ONSET_WINDOW, onset_hop)
-    n_o = oframes.shape[1]
-    omags = windowed_mags(oframes, ONSET_WINDOW)
-    gfo = noisefloor.global_floor_linear(
-        causal_floor_db(n_o, ONSET_WINDOW, onset_hop), ONSET_WINDOW // 2 + 1)
-    no_ticks = torch.zeros((b, n_o), dtype=torch.bool, device=y.device)
-    on, oouts = onset_ops.onset_scan(states.on, omags, gfo, no_ticks)
+    with spans.span("full_step.onsets"):
+        oframes = frame_signal(cond, ONSET_WINDOW, onset_hop)
+        n_o = oframes.shape[1]
+        omags = windowed_mags(oframes, ONSET_WINDOW)
+        gfo = noisefloor.global_floor_linear(
+            causal_floor_db(n_o, ONSET_WINDOW, onset_hop),
+            ONSET_WINDOW // 2 + 1)
+        no_ticks = torch.zeros((b, n_o), dtype=torch.bool, device=y.device)
+        on, oouts = onset_ops.onset_scan(states.on, omags, gfo, no_ticks)
 
     new_states = StreamStates(red, dyn, nf, tr, on)
     return new_states, (sf, sv, oouts.fired, oouts.velocity, douts.level,
@@ -171,7 +178,12 @@ def make_batched_full_step(mesh, sample_rate: float, slot_len: int = 1024,
     rank of it calls the step with its own [B / world, T] rows and their
     states and gets its rows' states and outputs back; the fleet
     statistics are the all-reduced sums (`fleet_statistics`), the same on
-    every rank.  At world size 1 the step is bitwise the mesh-free one."""
+    every rank.  At world size 1 the step is bitwise the mesh-free one.
+
+    While `spans` records (spans.py), each call is one step span,
+    "full_step", holding "full_step.conditioning" (K6, K7), ".pitch" (K11,
+    K5, K10, K3), ".onsets" (K11, K4) and ".fleet" (the fleet statistics),
+    each around the host code that launches its stage's work."""
     if mesh is not None:
         check_mesh(mesh, device)
     if dyn_mode not in ("hist", "exact"):
@@ -179,22 +191,29 @@ def make_batched_full_step(mesh, sample_rate: float, slot_len: int = 1024,
                          "'exact'")
 
     def step(states: StreamStates, audio):
-        audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
-        if audio.dim() != 2:
-            raise ValueError(f"audio must be [B, T], got "
-                             f"{tuple(audio.shape)}")
-        if audio.shape[1] < max(slot_len, PITCH_WINDOW):
-            raise ValueError(f"a chunk of {audio.shape[1]} samples holds no "
-                             f"slot of {slot_len} or no pitch frame")
-        states, (sf, sv, fired, vel, level, gf_db) = _batched_stream_step(
-            states, audio.contiguous(), sample_rate, slot_len, pitch_hop,
-            onset_hop, dyn_mode)
-        # The fleet statistics (the JAX step's psums over the mesh): the
-        # mean of the streams' last-slot floors, the total of their onsets.
-        global_floor, global_onsets = fleet_statistics(
-            gf_db, fired, None if mesh is None else replicated(mesh).sum)
-        return states, FullStepOut(sf, sv, fired, vel, level, global_floor,
-                                   global_onsets)
+        with spans.span("full_step"):
+            audio = torch.as_tensor(audio, dtype=torch.float32,
+                                    device=device)
+            if audio.dim() != 2:
+                raise ValueError(f"audio must be [B, T], got "
+                                 f"{tuple(audio.shape)}")
+            if audio.shape[1] < max(slot_len, PITCH_WINDOW):
+                raise ValueError(f"a chunk of {audio.shape[1]} samples "
+                                 f"holds no slot of {slot_len} or no pitch "
+                                 "frame")
+            states, (sf, sv, fired, vel, level, gf_db) = \
+                _batched_stream_step(states, audio.contiguous(), sample_rate,
+                                     slot_len, pitch_hop, onset_hop,
+                                     dyn_mode)
+            # The fleet statistics (the JAX step's psums over the mesh):
+            # the mean of the streams' last-slot floors, the total of their
+            # onsets.
+            with spans.span("full_step.fleet"):
+                global_floor, global_onsets = fleet_statistics(
+                    gf_db, fired,
+                    None if mesh is None else replicated(mesh).sum)
+            return states, FullStepOut(sf, sv, fired, vel, level,
+                                       global_floor, global_onsets)
 
     return step
 

@@ -58,6 +58,8 @@ _SIGNATURES = {
     # mags, global floor, tick, hold, state in (6), the 8 per-frame
     # outputs, state out (6), streams, frames, bins, stream
     "aat_onset_scan": (_P,) * 24 + (_I, _I, _I, _P),
+    # bins, out: resident blocks a SM
+    "aat_onset_blocks_per_sm": (_I, _P),
     # mags and its stream and frame strides, global floor, state in (4),
     # effective floor, state out (4), streams, frames, band, state width,
     # mags width, stream

@@ -3,19 +3,31 @@
 // `onset_scan` (:145), which XLA compiles to one device loop; it has no
 // Pallas twin.  Bitwise equal to `onset_scan_plain` (ops/onset.py).
 //
-// What bounds it on an H100: at the segmented step (S = 128 streams x N =
-// 4,096 frames x 129 bins) the magnitudes are 270 MB, ~0.081 ms of HBM
-// time; each stream is a serial recurrence over its N frames, so the floor
-// is the per-frame chain of one stream (and at small S, the sequential
-// analyzer's S = 1, nothing else).  The design keeps every per-frame step
-// off any cross-thread wait, so that the chains set the pace:
+// What bounds it on an H100: each stream is a serial recurrence over its N
+// frames, ~226 cycles a frame, and a block runs one stream.  Where the S
+// blocks fit the card at once they run in one wave, and the chain of one
+// stream is the time (the full step's [128, 7,485, 129] call: ~0.87 ms,
+// against ~0.15 ms of bytes at 3.35 TB/s).  Where S is larger the time is
+// the rounds of resident blocks, ceil(S / (SMs x blocks a SM)), each one
+// chain long, a little longer where blocks share a SM's schedulers (at
+// [2048, 7,485, 129] one block a SM made 16 rounds, two make 8; the 7.9 GB
+// of magnitudes are ~2.4 ms, a floor below both).  So a block is kept
+// small enough for two a SM wherever its bins allow (see Layout); every
+// sum, tournament and recurrence runs in the same order at any width:
+//  - Packed (H <= 160): two magnitude tiles in shared memory, one in
+//    flight behind the one being worked (a tile is ~7,000 cycles of bin
+//    work, a load well under 1,000), 97,536 B at H = 129; launch bounds
+//    of 192 threads and two blocks a SM.
+//  - Wide (H > 160): four tiles, three in flight, one block a SM.
+// The design keeps every per-frame step off any cross-thread wait, so
+// that the chains set the pace:
 //  - A block a stream.  The bins are on the threads of NW = ceil(H / 32)
 //    bin warps (five for 129 bins; lanes past H are pads); each bin's floor
 //    and previous magnitude stay in registers for all N frames.
 //  - The bin threads stage 32-frame tiles of magnitudes (and the global
-//    floors) into shared memory by cp.async, three tiles ahead of the one
-//    they work on, so a frame's reads, its neighbours' included, hit
-//    shared memory and the loads' latency hides behind three tiles' work.
+//    floors) into shared memory by cp.async, NBUF - 1 tiles ahead of the
+//    one they work on, so a frame's reads, its neighbours' included, hit
+//    shared memory and the loads' latency hides behind the tiles' work.
 //  - A tile is two phases a bin warp, with no shuffle in either.  First
 //    each lane runs its bin over the tile's 32 frames: the floor
 //    recurrence, the one chain, with no division on it (the burst test is
@@ -71,8 +83,6 @@
 namespace {
 
 constexpr int TF = 32;                // frames a tile: one chain lane each
-constexpr int NBUF = 4;               // magnitude tiles in shared memory
-constexpr int AHEAD = NBUF - 1;       // tiles staged ahead of the bin work
 constexpr int CHUNK = 8;              // frames a bin lane loads at once
 constexpr int MAX_WARPS = 8;          // bin warps: at most 256 bins
 constexpr int SLOTS = 8;              // the tree's cross-warp width
@@ -80,6 +90,26 @@ constexpr int REFRACTORY = 3;
 constexpr int SCRATCH_STRIDE = TF + 4;  // a warp's scratch row: 16-byte
                                         // loads by frame lanes, no conflict
 
+// An instantiation of a layout: NBUF magnitude tiles in shared memory
+// (NBUF - 1 staged ahead of the bin work), and its launch bounds: blocks of
+// at most WARPS bin warps and the chain warp, BLOCKS of them a SM.
+template <int NBUF_, int BLOCKS_, int WARPS>
+struct Layout {
+  static constexpr int NBUF = NBUF_;
+  static constexpr int AHEAD = NBUF_ - 1;
+  static constexpr int BLOCKS = BLOCKS_;
+  static constexpr int THREADS = 32 * (WARPS + 1);
+};
+// At H = 129 a block is 192 threads of ~168 registers (ptxas), so two fit
+// the register file.  Past 160 bins two blocks would need a register cap,
+// and a cap spills (bounds of 288 threads and two blocks gave 96 registers
+// and a 12% longer chain), so wider blocks keep one a SM and the deeper
+// ring.
+constexpr int PACKED_WARPS = 5;
+using Packed = Layout<2, 2, PACKED_WARPS>;   // H <= 160: two blocks a SM
+using Wide = Layout<4, 1, MAX_WARPS>;        // H > 160: one block a SM
+
+template <int NBUF>
 struct __align__(16) Partials {
   float flux[2][TF][SLOTS];           // per frame, per bin warp
   float energy[2][TF][SLOTS];
@@ -110,6 +140,7 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 
 // All but the newest AHEAD - 1 committed groups have landed.
+template <int AHEAD>
 __device__ __forceinline__ void cp_async_wait_ahead() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(AHEAD - 1) : "memory");
 }
@@ -175,7 +206,8 @@ __device__ __forceinline__ void keep_larger(float& ma, float& da, float mb,
 // Bin threads: copy frames [f0, f0 + nt) of the stream (f0 counts from the
 // start of mags) and their global floors into buffer b.  Thread i copies
 // bin i of each frame (coalesced along the bins) into a row of stride ms.
-__device__ void stage_tile(float* mt, Partials& p, int b, long long f0,
+template <int NBUF>
+__device__ void stage_tile(float* mt, Partials<NBUF>& p, int b, long long f0,
                            int nt, int H, int ms, int nb,
                            const float* __restrict__ mags,
                            const float* __restrict__ gf) {
@@ -228,9 +260,10 @@ __device__ __forceinline__ float tree32(const float* x) {
 // depends on that frame alone into c; then the scalar recurrence runs over
 // the tile (every lane in step, the decisions kept as bit masks), its
 // inputs read from c as broadcasts that do not wait on the recurrence.
-__device__ void chain_tile(const Partials& p, Chain& c, int b, long long f0,
-                           int nt, int nw, unsigned flags, float& thr,
-                           float& ema, int& since,
+template <int NBUF>
+__device__ void chain_tile(const Partials<NBUF>& p, Chain& c, int b,
+                           long long f0, int nt, int nw, unsigned flags,
+                           float& thr, float& ema, int& since,
                            uint8_t* __restrict__ o_fired,
                            uint8_t* __restrict__ o_det,
                            float* __restrict__ o_vel,
@@ -336,7 +369,8 @@ __device__ __forceinline__ unsigned tick_hold(const uint8_t* __restrict__ ts,
   return (ts[f0 + lane] != 0 ? 2u : 0u) | (hold[f0 + lane] != 0 ? 4u : 0u);
 }
 
-__global__ void __launch_bounds__(32 * (MAX_WARPS + 1), 1)
+template <class L>
+__global__ void __launch_bounds__(L::THREADS, L::BLOCKS)
 onset_kernel(const float* __restrict__ mags, const float* __restrict__ gf,
              const uint8_t* __restrict__ ts, const uint8_t* __restrict__ hold,
              const float* __restrict__ prev0,
@@ -351,8 +385,9 @@ onset_kernel(const float* __restrict__ mags, const float* __restrict__ gf,
              float* __restrict__ floor1, uint8_t* __restrict__ init1,
              float* __restrict__ thr1, float* __restrict__ ema1,
              int* __restrict__ since1, int N, int H) {
+  constexpr int NBUF = L::NBUF, AHEAD = L::AHEAD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Partials& p = *reinterpret_cast<Partials*>(smem_raw);
+  Partials<NBUF>& p = *reinterpret_cast<Partials<NBUF>*>(smem_raw);
   const int nw = (H + 31) / 32;
   const int nb = nw * 32;                         // bin threads
   const int ms = nb + 4;                          // a tile row's stride
@@ -398,7 +433,7 @@ onset_kernel(const float* __restrict__ mags, const float* __restrict__ gf,
                    mags, gf);
       cp_async_commit();
     }
-    cp_async_wait_ahead();
+    cp_async_wait_ahead<AHEAD>();
     block_sync();
     for (int t = 0; t < ntiles; ++t) {
       const int b = t & 1, buf = t % NBUF;
@@ -512,7 +547,7 @@ onset_kernel(const float* __restrict__ mags, const float* __restrict__ gf,
         p.excess[b][lane][warp] = div_guarded(wm[0], wd[0]);
         p.bursts[b][lane][warp] = cnt;
       }
-      cp_async_wait_ahead();
+      cp_async_wait_ahead<AHEAD>();
       block_sync();
     }
     if (real) {
@@ -552,6 +587,55 @@ onset_kernel(const float* __restrict__ mags, const float* __restrict__ gf,
   }
 }
 
+// A block's dynamic shared memory: the partials, the chain's tile, NBUF
+// magnitude tiles of rows ms = nb + 4 floats, and the bin warps' scratch
+// (97,536 B for Packed at H = 129; 216,576 B for Wide at H = 256).
+template <class L>
+int smem_bytes(int H) {
+  const int nw = (H + 31) / 32;
+  const int ms = nw * 32 + 4;
+  return static_cast<int>(sizeof(Partials<L::NBUF>) + sizeof(Chain)) +
+         (L::NBUF * TF * ms + nw * 2 * TF * SCRATCH_STRIDE) *
+             static_cast<int>(sizeof(float));
+}
+
+template <class L>
+cudaError_t set_smem(int H) {
+  return cudaFuncSetAttribute(onset_kernel<L>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes<L>(H));
+}
+
+template <class L>
+cudaError_t launch(const float* mags, const float* gf, const uint8_t* ts,
+                   const uint8_t* hold, const float* prev0,
+                   const float* floor0, const uint8_t* init0,
+                   const float* thr0, const float* ema0, const int* since0,
+                   uint8_t* o_fired, uint8_t* o_det, float* o_vel,
+                   float* o_flux, float* o_energy, int* o_bursts,
+                   uint8_t* o_rising, int* o_since, float* prev1,
+                   float* floor1, uint8_t* init1, float* thr1, float* ema1,
+                   int* since1, int S, int N, int H, cudaStream_t stream) {
+  const cudaError_t e = set_smem<L>(H);
+  if (e != cudaSuccess) return e;
+  onset_kernel<L><<<S, 32 * ((H + 31) / 32 + 1), smem_bytes<L>(H), stream>>>(
+      mags, gf, ts, hold, prev0, floor0, init0, thr0, ema0, since0, o_fired,
+      o_det, o_vel, o_flux, o_energy, o_bursts, o_rising, o_since, prev1,
+      floor1, init1, thr1, ema1, since1, N, H);
+  return cudaGetLastError();
+}
+
+template <class L>
+cudaError_t blocks_per_sm(int H, int* blocks) {
+  const cudaError_t e = set_smem<L>(H);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, onset_kernel<L>, 32 * ((H + 31) / 32 + 1), smem_bytes<L>(H));
+}
+
+// The instantiation that takes a block of H bins.
+bool packed(int H) { return (H + 31) / 32 <= PACKED_WARPS; }
+
 }  // namespace
 
 extern "C" {
@@ -571,20 +655,22 @@ int aat_onset_scan(const float* mags, const float* gf, const uint8_t* ts,
   if (S <= 0) return static_cast<int>(cudaGetLastError());
   if (H < 2 || H > 32 * MAX_WARPS || N < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nw = (H + 31) / 32;
-  const int ms = nw * 32 + 4;
-  const int smem =
-      static_cast<int>(sizeof(Partials) + sizeof(Chain)) +
-      (NBUF * TF * ms + nw * 2 * TF * SCRATCH_STRIDE) *
-          static_cast<int>(sizeof(float));
-  const cudaError_t e = cudaFuncSetAttribute(
-      onset_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  onset_kernel<<<S, 32 * (nw + 1), smem, static_cast<cudaStream_t>(stream)>>>(
+  const auto go = packed(H) ? &launch<Packed> : &launch<Wide>;
+  return static_cast<int>(go(
       mags, gf, ts, hold, prev0, floor0, init0, thr0, ema0, since0, o_fired,
       o_det, o_vel, o_flux, o_energy, o_bursts, o_rising, o_since, prev1,
-      floor1, init1, thr1, ema1, since1, N, H);
-  return static_cast<int>(cudaGetLastError());
+      floor1, init1, thr1, ema1, since1, S, N, H,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The blocks of H bins that stay resident on one SM, as the occupancy
+// calculator reports them for the block and shared bytes that H takes,
+// into *blocks; returns the CUDA error code (0 on success).
+int aat_onset_blocks_per_sm(int H, int* blocks) {
+  if (H < 2 || H > 32 * MAX_WARPS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(packed(H) ? blocks_per_sm<Packed>(H, blocks)
+                                    : blocks_per_sm<Wide>(H, blocks));
 }
 
 }  // extern "C"

@@ -6,18 +6,25 @@ Replaces: the `lax.scan` of audio_analyzer_rs_tpu/ops/onset.py
 Pallas twin; as plain PyTorch each frame is ~60-80 small launches on [S, H]
 tensors, so the scan is a kernel here.
 
-What bounds it on an H100: bytes at the segmented step (S = 128 streams x
-N = 4,096 frames x 129 bins, 270 MB of magnitudes, ~0.081 ms at 3.35 TB/s),
-and the per-frame chain of each stream wherever S is small (the sequential
-`OnsetAnalyzer`, S = 1).
+What bounds it on an H100: each stream is a serial recurrence, ~226
+cycles a frame, and a block runs one stream.  Where the S blocks fit the
+card at once they run in one wave and one stream's chain is the time (the
+full step's [128, 7,485, 129] call, ~0.87 ms; the sequential
+`OnsetAnalyzer`, S = 1).  Where S is larger the time is the rounds of
+resident blocks, ceil(S / (SMs x blocks a SM)), each one chain long; the
+bytes (7.9 GB at [2048, 7,485, 129], ~2.4 ms at 3.35 TB/s) are a floor
+below both.
 
 Design (the source note in csrc/onset.cu has the detail): a block a stream,
 the bins on the threads of five warps with each bin's floor and previous
-magnitude in registers, a 32-frame tile of magnitudes staged into shared
+magnitude in registers, 32-frame tiles of magnitudes staged into shared
 memory ahead by cp.async, and one chain warp that runs the scalar
 recurrence (EMA, threshold, gates, counter) of the tile behind.  The flux
 and energy sums run in `onset.tree_sum`'s order, so K4 is bitwise equal to
-`onset_scan_plain`.
+`onset_scan_plain`.  Up to 160 bins a block holds two magnitude tiles,
+so two blocks share a SM (the full step's 2,048 streams run in 8 rounds,
+not 16); wider blocks keep four tiles and one a SM.  `RESIDENT` records,
+for each H launched, the blocks a SM it gets.
 
 `onset_scan` is the wrapper: on CPU tensors the plain scan, on CUDA tensors
 the kernel (or it raises).
@@ -32,7 +39,21 @@ import torch
 from .. import _build
 
 LAUNCHES = 0
+# H → the blocks of H bins that stay resident on one SM, as the occupancy
+# calculator reports them; read at the first launch of each H.
+RESIDENT = {}
 _MAX_BINS = 256      # the kernel's eight bin warps
+
+
+def resident_blocks(h: int) -> int:
+    """Blocks a SM at H bins (the occupancy calculator's count), read from
+    the card once and kept in RESIDENT."""
+    if h not in RESIDENT:
+        blocks = ctypes.c_int(0)
+        code = _build.lib().aat_onset_blocks_per_sm(h, ctypes.byref(blocks))
+        _build.check(code, "aat_onset_blocks_per_sm")
+        RESIDENT[h] = blocks.value
+    return RESIDENT[h]
 
 
 def onset_scan(state, mags, global_floor, tick_suppressed, calibration_hold):
@@ -82,6 +103,7 @@ def onset_scan(state, mags, global_floor, tick_suppressed, calibration_hold):
         return new, out
     ptrs = [t.data_ptr() for t in (mags, global_floor, tick_suppressed,
                                    calibration_hold, *state, *out, *new)]
+    resident_blocks(h)
     code = _build.lib().aat_onset_scan(
         *ptrs, s, n, h, ctypes.c_void_p(_build.stream_ptr(mags)))
     _build.check(code, "aat_onset_scan")

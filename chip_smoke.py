@@ -40,11 +40,16 @@ Phases, one line each on standard output:
             cycle figure here);
        K4 onset scan, bitwise (bit patterns, every output and the final
             state) to the plain scan on the scene's "fft" magnitudes at
-            S=128 x N=1024 and at S=1 x N=4096 with tick-suppressed and held
-            frames; timed at the segmented step (S=128 x N=4096) and its
-            first 1,024 frames, and at S=1 x N=131072 (the sequential
-            analyzer's chunk); the per-frame cost as the slope between
-            N=1024 and N=4096; the plain scan timed once at S=128 x N=4096;
+            S=128 x N=1024, at S=1 x N=4096 and at S=2048 x N=256 (more
+            blocks than the card holds at once) with tick-suppressed and
+            held frames; at least two blocks a SM at 129 bins (the
+            occupancy calculator); timed at the segmented step (S=128 x
+            N=4096) and its first 1,024 frames, at S=1 x N=131072 (the
+            sequential analyzer's chunk), and at the full step's calls
+            [128, 7485, 129] and [2048, 7485, 129] (each stream a chunk of
+            the scene through K11) beside their bounds; the per-frame cost
+            as the slope between N=1024 and N=4096; the plain scan timed
+            once at S=128 x N=4096;
        K5 noise-floor scan, bitwise (bit patterns, the effective floors and
             the final state) to the plain scan on the step's K1 magnitudes
             (S=128 x N=64, band 464) from fresh and carried states, at S=1 x
@@ -1603,6 +1608,31 @@ K6_CARRIED = 24_000               # K6's carried check: samples after a chunk
 # (test_floor_warmup_differs_where_jax_differs) measures it with the JAX
 # package on a prefix of the scene that keeps those frames' segment plan.
 FLOOR_WARMUP_DIFFERS = (13781,)
+
+# Onset frames of a full-step chunk (FULL_SLOTS slots of 1,024 samples,
+# framed 256 / 64): the full step's K4 call is [streams, 7,485, 129].
+FULL_ONSET_FRAMES = (FULL_SLOTS * 1024 - 256) // 64 + 1
+
+
+def fullstep_onset_mags(audio, streams: int):
+    """The full step's onset magnitudes, [streams, 7,485, 129]: each stream
+    a chunk of `audio` (a device tensor) from its own offset, framed 256 /
+    64 and taken through K11 as `windowed_mags`, 256 streams at a time."""
+    import torch
+    from audio_analyzer_rs_tpu_torch.ops import onset
+    from audio_analyzer_rs_tpu_torch.ops.stft import windowed_mags
+    from audio_analyzer_rs_tpu_torch.utils.framing import frame_signal
+    win, hop = onset.WINDOW, onset.HOP
+    need = (FULL_ONSET_FRAMES - 1) * hop + win
+    step = (len(audio) - need) // streams
+    out = torch.empty((streams, FULL_ONSET_FRAMES, onset.HALF),
+                      device=audio.device)
+    for lo in range(0, streams, 256):
+        part = torch.stack([audio[k * step:k * step + need]
+                            for k in range(lo, min(streams, lo + 256))])
+        out[lo:lo + len(part)] = windowed_mags(frame_signal(part, win, hop),
+                                               win, "fft")
+    return out
 
 
 def reducer_check_streams(fleet, t: int):
@@ -3383,9 +3413,20 @@ def main() -> int:
     ts1[0, ::97] = True
     hold1[0, 50::89] = True
     in_one = (mags4[7:8].contiguous(), gf4[:1].contiguous(), ts1, hold1)
+    # More streams than the card holds blocks at once, as the full step at
+    # 2,048 streams: the scene's magnitudes cut into 256-frame streams.
+    s2k = s_o * n_o // 256
+    ts2k = torch.zeros((s2k, 256), dtype=torch.bool, device=dev)
+    hold2k = torch.zeros_like(ts2k)
+    ts2k[:, ::97] = True
+    hold2k[:, 50::89] = True
+    in2k = (mags4.reshape(s2k, 256, onset.HALF), gf4.reshape(s2k, 256),
+            ts2k, hold2k)
+    st2k = onset.init_state(onset.HALF, dev, (s2k,))
     k4_err, k4_fired = 0.0, []
     for label, st, inputs in (("S=128 N=1024", st4, in1k),
-                              ("S=1 N=4096", st1, in_one)):
+                              ("S=1 N=4096", st1, in_one),
+                              (f"S={s2k} N=256", st2k, in2k)):
         st_k, out_k = hopper_onset.onset_scan(st, *inputs)
         st_p, out_p = onset.onset_scan_plain(st, *inputs)
         torch.cuda.synchronize()
@@ -3411,6 +3452,24 @@ def main() -> int:
                           KERNEL_REPS)
     k4_ms_seq = cuda_ms(lambda: hopper_onset.onset_scan(
         st1, mags_seq, gf_seq, no_seq, no_seq), KERNEL_REPS)
+    # The full step's calls, [2048, 7,485, 129] and its first 128 streams:
+    # each stream a chunk of the scene from its own offset, through K11.
+    resident = hopper_onset.resident_blocks(onset.HALF)
+    assert resident >= 2, f"K4 keeps {resident} block(s) a SM at 129 bins"
+    mags_fs = fullstep_onset_mags(o_audio, FULL_B * 16)
+    gf_fs = torch.full(mags_fs.shape[:2], gf_on, device=dev)
+    no_fs = torch.zeros(mags_fs.shape[:2], dtype=torch.bool, device=dev)
+    k4_full = {}
+    for s in (FULL_B, FULL_B * 16):
+        fs_in = (mags_fs[:s], gf_fs[:s], no_fs[:s], no_fs[:s])
+        fs_st = onset.init_state(onset.HALF, dev, (s,))
+        fs_ms = cuda_ms(lambda: hopper_onset.onset_scan(fs_st, *fs_in),
+                        KERNEL_REPS)
+        fs_out = hopper_onset.onset_scan(fs_st, *fs_in)[1]
+        b_ms, b_by = bound(nbytes(*fs_in, *fs_out) + 2 * nbytes(*fs_st),
+                           30 * fs_in[0].numel(), FP32_FLOPS)
+        k4_full[s] = (fs_ms, b_ms, b_by)
+    del mags_fs, gf_fs, no_fs, fs_in, fs_out
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -3428,9 +3487,13 @@ def main() -> int:
     k4_bound, k4_by = bound(k4_bytes, 30 * mags4.numel(), FP32_FLOPS)
     say(f"K4 onset scan: bitwise equal to the plain scan (every output and "
         f"the final state) on the scene's magnitudes at S=128 N=1024 and at "
-        f"S=1 N=4096 with tick-suppressed and held frames ({k4_fired} "
-        f"fired); S=128 N=4096 {k4_ms:.4f} ms, S=128 N=1024 "
-        f"{k4_ms1k:.4f} ms, S=1 N=131072 {k4_ms_seq:.3f} ms; per frame "
+        f"S=1 N=4096 and S={s2k} N=256 with tick-suppressed and held "
+        f"frames ({k4_fired} fired); {resident} blocks a SM at 129 bins; "
+        f"S=128 N=4096 {k4_ms:.4f} ms, S=128 N=1024 "
+        f"{k4_ms1k:.4f} ms, S=1 N=131072 {k4_ms_seq:.3f} ms; the full "
+        f"step's calls " + ", ".join(
+            f"[{s}, {FULL_ONSET_FRAMES}, 129] {ms:.4f} ms (bound {b:.4f} ms, "
+            f"{by})" for s, (ms, b, by) in k4_full.items()) + "; per frame "
         f"(N=1024 -> 4096) {k4_clock.cycles(k4_slope_ns)}; plain "
         f"{k4_plain_ms:.1f} ms at S=128 "
         f"N=4096 (one sample, ~60-80 launches a frame); bound "
@@ -3441,11 +3504,16 @@ def main() -> int:
                      max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms,
                      plain_samples=1, bound_ms=k4_bound, bound_by=k4_by,
                      library_ms=None, ms_s128_n1024=k4_ms1k,
-                     ms_s1_n131072=k4_ms_seq, per_frame_ns=k4_slope_ns,
+                     ms_s1_n131072=k4_ms_seq,
+                     **{f"{k}_s{s}_n{FULL_ONSET_FRAMES}": v
+                        for s, (ms, b, _) in k4_full.items()
+                        for k, v in (("ms", ms), ("bound_ms", b))},
+                     resident_blocks_h129=resident, per_frame_ns=k4_slope_ns,
                      per_frame_cycles=k4_slope_cycles, sm_mhz=k4_clock.mhz,
                      sm_clock=k4_clock.source))
     rows.append(k5_row)
-    del o_audio, o_streams, mags4, gf4, no4, in1k, in_one, mags_seq, out4
+    del o_audio, o_streams, mags4, gf4, no4, in1k, in_one, in2k, mags_seq
+    del out4
 
     k11_phase(rows, probe, dev)
 

@@ -2,6 +2,7 @@
 """The full step's kernels and card time, profiled in a process of its own.
 
     python3 port_tools/fullstep_profile.py [--profiles 3] [--stft k11|plain]
+        [--streams 2048]
 
 `make_batched_full_step` over chip_smoke.py phase 12's fleet (128 streams
 of the 30-minute `mixed_scene(seed=0)` taken as 48 kHz audio, a stream
@@ -25,7 +26,9 @@ torch.profiler has lost kernels in a process that profiled before:
 chip_smoke.py's phase 12, after phases 10-11's profiles, saw 22-28 of
 the step's 43-50 torch kernels.  chip_smoke.py runs this script for the
 step's card time, and port_tools/kernel_turns.py --kernel k5 calls
-`profile_step` with each K5 build.
+`profile_step` with each K5 build.  The JSON line also has K4's launches
+in the fleet's first two steps and the blocks a SM that its launches kept
+resident, by bin width (`ops/hopper_onset.py`).
 """
 
 from __future__ import annotations
@@ -66,10 +69,11 @@ def plain_pitch_mags(frames, band):
         frames, band, hann(PITCH_WINDOW, frames.device))
 
 
-def fleet_step(dev, capture=None):
-    """The step and chip_smoke.py phase 12's fleet; runs steps 1 and 2
-    (`capture`, a list, gets each K5 call's arguments) → (the step, the
-    states after step 1, step 2's chunk)."""
+def fleet_step(dev, capture=None, streams=None):
+    """The step and chip_smoke.py phase 12's fleet (or `streams` streams,
+    a stream every 600,000 samples or closer where the recording runs
+    short); runs steps 1 and 2 (`capture`, a list, gets each K5 call's
+    arguments) → (the step, the states after step 1, step 2's chunk)."""
     import numpy as np
     import torch
     sys.path.insert(0, str(REPO))
@@ -79,8 +83,10 @@ def fleet_step(dev, capture=None):
     from audio_analyzer_rs_tpu_torch.parallel import sharding
     audio = gen.mixed_scene(1800.0, SR44, seed=0)
     t_chunk = chip_smoke.FULL_SLOTS * 1024
-    fleet = np.stack([audio[k * 600_000:k * 600_000 + 2 * t_chunk]
-                      for k in range(chip_smoke.FULL_B)])
+    streams = streams or chip_smoke.FULL_B
+    gap = min(600_000, (len(audio) - 2 * t_chunk) // streams)
+    fleet = np.stack([audio[k * gap:k * gap + 2 * t_chunk]
+                      for k in range(streams)])
     chunks = [torch.from_numpy(fleet[:, k * t_chunk:(k + 1) * t_chunk]
                                .copy()).to(dev) for k in range(2)]
     step = sharding.make_batched_full_step(None, chip_smoke.FULL_SR)
@@ -92,8 +98,7 @@ def fleet_step(dev, capture=None):
     if capture is not None:
         noisefloor.noise_floor_scan = record
     try:
-        st1, _ = step(sharding.init_stream_states(chip_smoke.FULL_B),
-                      chunks[0])
+        st1, _ = step(sharding.init_stream_states(streams), chunks[0])
         step(st1, chunks[1])
     finally:
         noisefloor.noise_floor_scan = scan
@@ -173,6 +178,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profiles", type=int, default=3)
     ap.add_argument("--stft", choices=("k11", "plain"), default="k11")
+    ap.add_argument("--streams", type=int,
+                    help="streams in the fleet (default chip_smoke.py's)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -187,9 +194,16 @@ def main() -> int:
     if args.stft == "plain":
         sharding.windowed_mags = plain_stft
         sharding.pitch_mags = plain_pitch_mags
-    step, st, chunk = fleet_step(torch.device("cuda"))
-    print(json.dumps(profile_step(step, st, chunk,
-                                  profiles=args.profiles)), flush=True)
+    from audio_analyzer_rs_tpu_torch.ops import hopper_onset
+    step, st, chunk = fleet_step(torch.device("cuda"), streams=args.streams)
+    launches = hopper_onset.LAUNCHES
+    out = profile_step(step, st, chunk, profiles=args.profiles)
+    # K4's launches in the fleet's first two steps, and the blocks a SM its
+    # launches kept resident, by bin width.
+    out["k4_launches"] = launches
+    out["k4_resident_blocks"] = {f"H={h}": n for h, n
+                                 in hopper_onset.RESIDENT.items()}
+    print(json.dumps(out), flush=True)
     return 0
 
 

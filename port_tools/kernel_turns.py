@@ -27,6 +27,9 @@ of a source, which is only timed (a probe need not be right):
   nophase2 the tiled design: the bin warps skip the frame reductions;
   noguard  K4: `div_guarded` is the bare IEEE division again (zero
            numerators take the division's slow path);
+  packed288
+           K4's two-blocks-a-SM instantiation with launch bounds of 288
+           threads (a register cap of ~113 a thread);
   nobranch K5: vn's division on every step, no branch (a numerator of 1
            where the magnitude does not rise, whose quotient is not read);
   ahead8, ahead32
@@ -44,9 +47,16 @@ Timing as chip_smoke.py does it: CUDA events around 10 back-to-back
 launches after a ~2 ms spin, median of 20 samples; the versions in turns,
 `--rounds` times over (the order reversed every other round), each turn's
 median printed.  K4's shapes: the segmented onset step S=128 x N=4,096 and
-its first 1,024 frames, and the sequential analyzer's chunk S=1 x
-N=131,072; its per-frame cost is the slope between N=1,024 and N=4,096.
-`--data scene` (the default) takes chip_smoke.py's inputs from the
+its first 1,024 frames, the sequential analyzer's chunk S=1 x N=131,072,
+the full step's call at 128 and 2,048 streams (N=7,485: each stream
+479,232 samples from its own offset, through K11), the live slot [1, 16]
+and the pool wave [33, 16]; its per-frame cost is the slope between
+N=1,024 and N=4,096, and at the full step's shapes the call's ms over its
+frames (at 2,048 streams also over its rounds, ceil(2,048 / (SMs x
+resident blocks a SM at 129 bins), as the build's `aat_onset_blocks_per_sm`
+reports them; a build without that entry holds one block a SM).  Every
+build is first held bitwise to the plain scan at S=128 x N=256 and S=300 x
+N=100.  `--data scene` (the default) takes chip_smoke.py's inputs from the
 30-minute `mixed_scene(seed=0)` (about 40% of it digital silence, so zero
 magnitudes); `--data random` nonzero random magnitudes.
 K5's cases (the scene's data, whatever `--data` says): the segmented pitch
@@ -104,6 +114,8 @@ PROBES = {
     "noguard": [(r"const float q = __fdiv_rn\(n == 0\.0f \? 1\.0f : n, d\);"
                  r"\s*return n == 0\.0f \? n : q;",
                  "return __fdiv_rn(n, d);")],
+    "packed288": [(r"using Packed = Layout<2, 2, PACKED_WARPS>;",
+                   "using Packed = Layout<2, 2, MAX_WARPS>;")],
     "nobranch": [(r"if \(rising\) q = __fdiv_rn\(v, ",
                   "q = __fdiv_rn(rising ? v : 1.0f, ")],
     "ahead8": [(r"if \(deep_ahead\(warps, N\)\)", "if (false)")],
@@ -210,17 +222,21 @@ def scene_streams(dev, window: int, hop: int, chunk: int, segments=None):
 
 
 def k4_cases(dev, data: str) -> dict:
-    """name → (state, (mags, global floor, tick, hold))."""
+    """name → (state, (mags, global floor, tick, hold)).  The names that
+    start with "check" are held bitwise to the plain scan, not timed."""
     import numpy as np
     import torch
+    import chip_smoke
     from audio_analyzer_rs_tpu_torch.ops import noisefloor, onset
     from audio_analyzer_rs_tpu_torch.ops.stft import windowed_mags
     from audio_analyzer_rs_tpu_torch.utils.framing import frame_signal
+    frames = chip_smoke.FULL_ONSET_FRAMES
 
     def with_flags(mags, gf):
         no = torch.zeros(mags.shape[:2], dtype=torch.bool, device=dev)
         return mags, gf, no, no
 
+    g = float(noisefloor.global_floor_linear(-96.0, onset.HALF))
     if data == "scene":
         win, hop = onset.WINDOW, onset.HOP
         audio, streams, plan = scene_streams(dev, win, hop, 4096)
@@ -228,9 +244,11 @@ def k4_cases(dev, data: str) -> dict:
                                          win, hop), win, "fft")
         seq = windowed_mags(frame_signal(audio[:131071 * hop + win], win,
                                          hop)[None], win, "fft")
-        g = float(noisefloor.global_floor_linear(-96.0, onset.HALF))
-        big = with_flags(big, torch.full(big.shape[:2], g, device=dev))
-        seq = with_flags(seq, torch.full(seq.shape[:2], g, device=dev))
+        step = chip_smoke.fullstep_onset_mags(audio, 2048)
+        del audio, streams
+        big, seq, step = (with_flags(m, torch.full(m.shape[:2], g,
+                                                   device=dev))
+                          for m in (big, seq, step))
     else:
         rng = np.random.default_rng(2)
 
@@ -242,12 +260,25 @@ def k4_cases(dev, data: str) -> dict:
                               torch.from_numpy(gf).to(dev))
 
         big, seq = rand(128, 4096), rand(1, 131072)
-    st128 = onset.init_state(onset.HALF, dev, (128,))
-    return {"s128_n4096": (st128, big),
-            "s128_n1024": (st128, tuple(x[:, :1024].contiguous()
-                                        for x in big)),
-            "s1_n131072": (onset.init_state(onset.HALF, dev, (1,)), seq),
-            "check": (st128, tuple(x[:, :256].contiguous() for x in big))}
+        gen = torch.Generator(dev).manual_seed(2)
+        m = torch.rand((2048, frames, onset.HALF), device=dev,
+                       generator=gen) * 2.0
+        step = with_flags(m, torch.full(m.shape[:2], g, device=dev))
+
+    def part(x, s, n):
+        return tuple(v[:s, :n].contiguous() for v in x)
+
+    def state(s):
+        return onset.init_state(onset.HALF, dev, (s,))
+    return {"s128_n4096": (state(128), big),
+            "s128_n1024": (state(128), part(big, 128, 1024)),
+            "s1_n131072": (state(1), seq),
+            "s128_n7485": (state(128), part(step, 128, frames)),
+            "s2048_n7485": (state(2048), step),
+            "s1_n16": (state(1), part(big, 1, 16)),
+            "s33_n16": (state(33), part(big, 33, 16)),
+            "check": (state(128), part(big, 128, 256)),
+            "check_many": (state(300), part(step, 300, 100))}
 
 
 def k5_new_api(text: str) -> bool:
@@ -526,9 +557,6 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         sys.exit("kernel_turns: no CUDA device")
-    import chip_smoke
-    from audio_analyzer_rs_tpu_torch import _build
-    from audio_analyzer_rs_tpu_torch.ops import hopper_onset, onset
 
     texts = {k: (REPO / v).read_text()
              for k, v in (s.split("=", 1) for s in args.source)}
@@ -538,8 +566,19 @@ def main() -> int:
         texts[f"{label}-{name}"] = probe_source(texts[label], name)
     if args.kernel == "k5":
         return k5_main(args, texts)
+    return k4_main(args, texts, full)
+
+
+def k4_main(args, texts: dict, full: list) -> int:
+    """K4's turns: each build held bitwise to the plain scan, then timed in
+    turns; cycles a frame and the resident blocks a SM at 129 bins."""
+    import torch
+    import chip_smoke
+    from audio_analyzer_rs_tpu_torch import _build
+    from audio_analyzer_rs_tpu_torch.ops import hopper_onset, onset
     dev = torch.device("cuda")
     cases = k4_cases(dev, args.data)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def call(st, x):
         return hopper_onset.onset_scan(st, *x)
@@ -550,57 +589,84 @@ def main() -> int:
     with ThreadPoolExecutor(len(texts)) as pool:
         built = dict(zip(texts, pool.map(lambda kv: build(*kv),
                                          texts.items())))
-    libs = {k: load(path, "aat_onset_scan")
-            for k, (path, _) in built.items()}
+    libs, queried = {}, {}
+    for k, (path, _) in built.items():
+        libs[k] = load(path, "aat_onset_scan")
+        queried[k] = hasattr(libs[k], "aat_onset_blocks_per_sm")
+        if queried[k]:
+            fn = libs[k].aat_onset_blocks_per_sm
+            fn.argtypes = _build._SIGNATURES["aat_onset_blocks_per_sm"]
+            fn.restype = ctypes.c_int
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    lines = [{"card": card, "kernel": args.kernel, "data": args.data}]
+    lines = [{"card": card, "kernel": args.kernel, "data": args.data,
+              "sms": sms}]
     lines += [info for _, info in built.values()]
 
     def run_with(label, fn):
         _build._lib = libs[label]
+        hopper_onset.RESIDENT.clear()
+        if not queried[label]:          # a build without the query
+            hopper_onset.RESIDENT[onset.HALF] = None
         try:
             return fn()
         finally:
             _build._lib = None
+            hopper_onset.RESIDENT.clear()
 
-    st, x = cases.pop("check")
-    want = plain(st, x)
-    for label in full:
-        got = run_with(label, lambda: call(st, x))
-        torch.cuda.synchronize()
-        flat = (lambda r: [t for part in r for t in
-                           (part if isinstance(part, tuple) else (part,))])
-        same = all(chip_smoke.same_bits(a, b)
-                   for a, b in zip(flat(got), flat(want)))
-        lines.append({"check": label, "bitwise_to_plain": same})
-        if not same:
-            print(json.dumps(lines[-1]))
-            return 1
+    resident = {label: run_with(label, lambda: hopper_onset.resident_blocks(
+        onset.HALF)) for label in libs}
+    lines += [{"label": k, "resident_blocks_per_sm_h129": v}
+              for k, v in resident.items()]
+
+    def flat(r):
+        return [t for part in r for t in
+                (part if isinstance(part, tuple) else (part,))]
+    for check in [c for c in cases if c.startswith("check")]:
+        st, x = cases.pop(check)
+        want = plain(st, x)
+        for label in full:
+            got = run_with(label, lambda: call(st, x))
+            torch.cuda.synchronize()
+            same = all(chip_smoke.same_bits(a, b)
+                       for a, b in zip(flat(got), flat(want)))
+            lines.append({"check": label, "shape": check,
+                          "bitwise_to_plain": same})
+            if not same:
+                print(json.dumps(lines[-1]))
+                return 1
 
     times = {k: {c: [] for c in cases} for k in libs}
-    for r in range(args.rounds):
-        order = list(libs) if r % 2 == 0 else list(libs)[::-1]
-        for label in order:
-            for name, (st, x) in cases.items():
-                t = run_with(label, lambda: chip_smoke.cuda_times(
-                    lambda: call(st, x), chip_smoke.KERNEL_REPS))
-                times[label][name].extend(t)
-                lines.append({"turn": r, "label": label, "shape": name,
-                              "ms": statistics.median(t)})
-    sm_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.split()[0])
+    with chip_smoke.SmClock() as clock:
+        for r in range(args.rounds):
+            order = list(libs) if r % 2 == 0 else list(libs)[::-1]
+            for label in order:
+                for name, (st, x) in cases.items():
+                    t = run_with(label, lambda: chip_smoke.cuda_times(
+                        lambda: call(st, x), chip_smoke.KERNEL_REPS))
+                    times[label][name].extend(t)
+                    lines.append({"turn": r, "label": label, "shape": name,
+                                  "ms": statistics.median(t)})
+    frames = chip_smoke.FULL_ONSET_FRAMES
     for label, by_shape in times.items():
         ms = {k: statistics.median(v) for k, v in by_shape.items()}
         row = {"label": label, **{f"ms_{k}": v for k, v in ms.items()}}
         slope = (ms["s128_n4096"] - ms["s128_n1024"]) / 3072 * 1e6
-        row["per_frame_cycles_s128"] = slope * sm_mhz / 1e3
+        row["per_frame_cycles_s128"] = slope * clock.mhz / 1e3
         row["per_frame_cycles_s1"] = (ms["s1_n131072"] / 131072 * 1e6
-                                      * sm_mhz / 1e3)
-        lines.append({**row, "sm_mhz": sm_mhz, "card": card})
+                                      * clock.mhz / 1e3)
+        for s in (128, 2048):
+            row[f"per_frame_cycles_s{s}_n{frames}"] = (
+                ms[f"s{s}_n{frames}"] / frames * 1e6 * clock.mhz / 1e3)
+        # A round: the blocks that run at once, SMs x the resident blocks a
+        # SM (one for a build without the query: 139,776 B of shared
+        # memory a block at 129 bins).
+        rounds = -(-2048 // (sms * (resident[label] or 1)))
+        row["rounds_s2048"] = rounds
+        row["per_frame_cycles_a_round_s2048"] = (
+            row[f"per_frame_cycles_s2048_n{frames}"] / rounds)
+        lines.append({**row, "sm_mhz": clock.mhz, "card": card})
     text = "\n".join(json.dumps(x) for x in lines)
     print(text, flush=True)
     if args.out:

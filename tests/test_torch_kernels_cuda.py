@@ -36,7 +36,10 @@ batch or the layout (1 to 2,064 frames, [C, 16] and [B, 933]); against
 cuFFT (its plain version) within 1e-5 of each frame's peak.  Tolerances: K1 max |Δ| <= 1e-5 ·
 max (3xTF32 on the tensor cores against cuBLAS FP32), and bitwise across
 batch geometries; K2, K3, K4 and K5 bitwise (K3's, K4's and K5's floats as
-bit patterns, so -0.0 and +0.0 differ).
+bit patterns, so -0.0 and +0.0 differ).  K4 also past one wave of
+blocks (S = SMs + 1, 2 SMs + 5 and 3 SMs streams, the SM count read from
+the card) and at 2 and 256 bins (its two instantiations); it keeps >= 2
+blocks on a SM at 129 bins, one at 256.
 
 The live engine's shapes (one stream at 48 kHz: 1-3 pitch frames and 15-17
 onset frames a slot, every state carried from call to call) and NaN input
@@ -430,11 +433,12 @@ def test_k3_batched_calls_no_plain_select(dev, monkeypatch):
         assert_same_bits(a, b)
 
 
-def _k4_inputs(dev, s, n, seed=5):
+def _k4_inputs(dev, s, n, seed=5, h=onset.HALF):
     """Random magnitudes with bursts, global floors, and sprinkled tick and
-    hold frames: mags [S, N, 129], the rest [S, N]."""
+    hold frames: mags [S, N, H] (129 bins unless h says), the rest
+    [S, N]."""
     rng = np.random.default_rng(seed)
-    mags = (rng.random((s, n, onset.HALF)) * 2.0).astype(np.float32)
+    mags = (rng.random((s, n, h)) * 2.0).astype(np.float32)
     if n:
         hits = rng.random((s, n)) < 0.06
         mags[hits] *= rng.uniform(5.0, 40.0, (int(hits.sum()), 1)).astype(
@@ -458,16 +462,53 @@ def _assert_k4_matches_plain(st0, inputs):
     return st_k, out_k
 
 
-@pytest.mark.parametrize("s,n", [(133, 150), (5, 0), (1, 4096), (3, 31)])
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _streams(spec, sms: int) -> int:
+    """S from a case: a number, or "sms+1", "2sms+5", "3sms" (multiples of
+    the card's SM count and an offset)."""
+    if isinstance(spec, int):
+        return spec
+    times, _, extra = spec.partition("+")
+    return int(times[:-3] or 1) * sms + int(extra or 0)
+
+
+@pytest.mark.parametrize("s,n", [(133, 150), (5, 0), (1, 4096), (3, 31),
+                                 ("sms+1", 150), ("2sms+5", 150),
+                                 ("3sms", 33)])
 def test_k4_matches_plain_bitwise(dev, s, n):
     """More streams than SMs with a partial tile, no frames, one long
-    stream, and less than one tile."""
+    stream, and less than one tile; then past one wave of blocks (one
+    stream more than the SMs, two waves and more, three full waves of
+    frames that are one tile and a frame)."""
+    s = _streams(s, _sms(dev))
     launches = hopper_onset.LAUNCHES
     _, out = _assert_k4_matches_plain(
         onset.init_state(onset.HALF, dev, (s,)), _k4_inputs(dev, s, n, s + n))
     assert hopper_onset.LAUNCHES == launches + 1
     if n >= 150:
         assert bool(out.detected.any())
+
+
+@pytest.mark.parametrize("h", [2, 256])
+def test_k4_bin_widths(dev, h):
+    """The fewest bins (the two-blocks-a-SM instantiation) and the most
+    (one block a SM), past one wave with a partial tile, bitwise to the
+    plain scan."""
+    s = _sms(dev) + 1
+    launches = hopper_onset.LAUNCHES
+    _assert_k4_matches_plain(onset.init_state(h, dev, (s,)),
+                             _k4_inputs(dev, s, 70, seed=h, h=h))
+    assert hopper_onset.LAUNCHES == launches + 1
+    assert h in hopper_onset.RESIDENT
+
+
+def test_k4_resident_blocks(dev):
+    """At 129 bins at least two blocks stay on a SM; at 256, one."""
+    assert hopper_onset.resident_blocks(onset.HALF) >= 2
+    assert hopper_onset.resident_blocks(256) == 1
 
 
 def test_k4_state_carry(dev):

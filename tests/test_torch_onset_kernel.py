@@ -11,6 +11,9 @@ held bitwise to what the plain onset scan computes with float32 division.
   to the largest RN(m / den), and to NaN where a bin's divisor is NaN (the
   kernel stores a NaN divisor for a NaN magnitude), as torch.amax keeps it.
 - `tree32_np` is the kernel's 32-value sum order, held to `onset.tree_sum`.
+- A block's shared bytes at each bin width, from the structs and constants
+  of the source, held to what the launch bounds of the instantiation that
+  takes it ask (two blocks a SM up to 160 bins, so at the full step's 129).
 
 The card test (tests/test_torch_kernels_cuda.py) holds the kernel itself to
 `onset_scan_plain`.
@@ -162,3 +165,104 @@ def test_tree32_is_tree_sums_order():
     want = onset.tree_sum(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(tree32_np(x).view(np.uint32),
                                   want.view(np.uint32))
+
+
+# The H100's shared memory: a block's most, and what the SM keeps a block.
+SM_SHARED = 232_448
+BLOCK_RESERVED = 1_024
+SIZES = {"float": 4, "int": 4, "float4": 16}
+
+
+def source_constants(text: str) -> dict:
+    """`constexpr int NAME = <expr>;` of the source, each evaluated over the
+    ones before it."""
+    names = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text,
+                                 re.M):
+        names[name] = eval(expr, {"__builtins__": {}}, dict(names))
+    return names
+
+
+def struct_bytes(text: str, struct: str, names: dict) -> int:
+    """sizeof a struct of float / int / float4 arrays (16-byte aligned, no
+    padding between such members)."""
+    body = re.search(r"struct __align__\(16\) " + struct + r" \{(.*?)\n\};",
+                     text, re.S).group(1)
+    total = 0
+    for kind, dims in re.findall(r"^\s*(float4|float|int) \w+((?:\[\w+\])+);",
+                                 body, re.M):
+        n = SIZES[kind]
+        for d in re.findall(r"\[(\w+)\]", dims):
+            n *= names[d] if d in names else int(d)
+        total += n
+    assert total % 16 == 0
+    return total
+
+
+def layouts(text: str) -> dict:
+    """Instantiation name → (NBUF, BLOCKS, bin warps) of its Layout."""
+    c = source_constants(text)
+    return {name: (int(nbuf), int(blocks), c.get(warps) or int(warps))
+            for name, nbuf, blocks, warps in re.findall(
+                r"using (\w+) = Layout<(\d+), (\d+), (\w+)>;", text)}
+
+
+def instantiation(text: str, h: int) -> str:
+    """The instantiation a block of H bins takes: Packed where its bin warps
+    are at most PACKED_WARPS, else Wide (the C entry's `packed`)."""
+    warps = source_constants(text)["PACKED_WARPS"]
+    return "Packed" if (h + 31) // 32 <= warps else "Wide"
+
+
+def shared_bytes(text: str, nbuf: int, h: int) -> int:
+    """The C entry's `smem_bytes` for a layout of NBUF tiles at H bins."""
+    c = source_constants(text)
+    nw = (h + 31) // 32
+    ms = nw * 32 + 4
+    return (struct_bytes(text, "Partials", {**c, "NBUF": nbuf})
+            + struct_bytes(text, "Chain", c)
+            + (nbuf * c["TF"] * ms + nw * 2 * c["TF"] * c["SCRATCH_STRIDE"])
+            * 4)
+
+
+@pytest.mark.parametrize("name,h,want", [
+    ("Packed", onset.HALF, 97_536), ("Packed", 2, 27_904),
+    ("Wide", onset.HALF, 139_776), ("Wide", 256, 216_576)])
+def test_shared_bytes(name, h, want):
+    """A block's shared bytes from the source's structs and constants (Wide
+    at 129 bins: its four-tile ring, too large for two blocks a SM)."""
+    text = SOURCE.read_text()
+    assert shared_bytes(text, layouts(text)[name][0], h) == want
+
+
+@pytest.mark.parametrize("h", [2, 32, 33, onset.HALF, 160, 161, 256])
+def test_each_width_fits_its_launch_bounds(h):
+    """At every width the block (its bin warps and the chain warp) fits the
+    threads of its instantiation's launch bounds, and its shared bytes fit
+    as many blocks to a SM as those bounds name; up to 160 bins that is at
+    least two."""
+    text = SOURCE.read_text()
+    name = instantiation(text, h)
+    assert name == ("Packed" if h <= 160 else "Wide")
+    nbuf, blocks, warps = layouts(text)[name]
+    assert (h + 31) // 32 <= warps
+    assert shared_bytes(text, nbuf, h) <= SM_SHARED / blocks - BLOCK_RESERVED
+    assert blocks >= (2 if h <= 160 else 1)
+
+
+def test_packed_layout_fits_two_blocks_at_129_bins():
+    """At the full step's 129 bins the packed instantiation's bounds name at
+    least two blocks a SM and its shared bytes fit them; the four-tile ring
+    of the wide one would not fit two."""
+    text = SOURCE.read_text()
+    found = layouts(text)
+    assert set(found) == {"Packed", "Wide"}
+    nbuf, blocks, _ = found["Packed"]
+    assert instantiation(text, onset.HALF) == "Packed"
+    assert blocks >= 2
+    assert shared_bytes(text, nbuf, onset.HALF) <= \
+        SM_SHARED / blocks - BLOCK_RESERVED
+    nbuf, blocks, _ = found["Wide"]
+    assert blocks == 1
+    assert shared_bytes(text, nbuf, onset.HALF) > \
+        SM_SHARED / 2 - BLOCK_RESERVED
